@@ -1,0 +1,114 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` into a shared library with a plain C
+interface, loaded with ``ctypes`` (seconds to build, where a PyTorch C++
+extension takes minutes). The build runs at first use into
+``csrc/build/`` (listed in ``.gitignore``); :func:`build_all` starts one
+``nvcc`` per source, all at once. Nothing here runs at import time: a
+machine without ``nvcc`` or a card imports the port fine and runs the
+kernels' plain versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Dict, List, Optional
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+BUILD_DIR = os.path.join(CSRC, "build")
+SOURCES = ("encoder_attention", "fused_mlp")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# per-source build record: {"seconds": float, "ptxas": str} (chip_smoke)
+build_log: Dict[str, dict] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+                           "kernels are built on the machine with the card")
+    return found
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"libnwt_{name}.so")
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not os.path.exists(lib):
+        return True
+    t = os.path.getmtime(lib)
+    deps = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return any(os.path.getmtime(p) > t for p in deps)
+
+
+def build_all(names: Optional[List[str]] = None, force: bool = False
+              ) -> Dict[str, dict]:
+    """Compile the given sources (default: all) that are missing or stale,
+    one ``nvcc`` process per source started together. Raises with the
+    compiler's output if any build fails."""
+    names = list(names or SOURCES)
+    todo = [n for n in names if force or _stale(n)]
+    if not todo:
+        return build_log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = []
+    t0 = time.perf_counter()
+    for n in todo:
+        fd, tmp = tempfile.mkstemp(prefix=f".libnwt_{n}.", suffix=".so",
+                                   dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        procs.append((n, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for n, tmp, p in procs:
+        out, _ = p.communicate()
+        build_log[n] = {"seconds": time.perf_counter() - t0, "ptxas": out}
+        if p.returncode != 0:
+            errors.append(f"nvcc failed for {n}.cu:\n{out}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, _lib_path(n))   # atomic when two processes build at once
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return build_log
+
+
+def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """Build (if needed) and load ``libnwt_<name>.so``, declaring each C
+    function's argument types; every function returns a cudaError_t."""
+    with _lock:
+        if name not in _libs:
+            build_all([name])
+            lib = ctypes.CDLL(_lib_path(name))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
