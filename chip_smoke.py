@@ -41,7 +41,14 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-K1_TOL = 2e-2      # tests/test_encoder_attention.py:201-204
+# K1 is held to one bf16 step of its plain version, elementwise:
+# |kernel - plain| <= atol + rtol * |plain| (tests/test_torch_kernels.py
+# holds the plain version to the Pallas kernel the same way): both share
+# every rounding rule and differ only by f32 summation order, which can
+# flip one bf16 output step. The JAX tests' 2e-2 (test_encoder_attention.py
+# :201-204) stays as the ceiling on the max error.
+K1_STEP = dict(rtol=2.0 ** -7, atol=2.0 ** -9)
+K1_TOL = 2e-2
 K2_TOL = 5e-2      # tests/test_fused_mlp.py:78
 
 
@@ -128,7 +135,11 @@ def phase_kernels():
     torch.cuda.synchronize()
     ref = ea.encoder_attention_fused_qkv_plain(*args, n_real, sm, h)
     finite = bool(torch.isfinite(got.float()).all())
-    err = (got.float() - ref.float())[:, :n_real].abs().max().item()
+    diff = (got.float() - ref.float())[:, :n_real].abs()
+    err = diff.max().item()
+    steps = (diff / (K1_STEP["atol"] + K1_STEP["rtol"]
+                     * ref.float()[:, :n_real].abs())).max().item()
+    del diff
     ms = cuda_ms(lambda: ea.encoder_attention_fused_qkv(*args, n_real, sm, h))
     plain_ms = cuda_ms(lambda: ea.encoder_attention_fused_qkv_plain(
         *args, n_real, sm, h), reps=3, warmup=1)
@@ -144,10 +155,12 @@ def phase_kernels():
     nbytes = 2 * m * d * 2 + 3 * d * d + 3 * d * 4 + 4 * d * 4
     bound = max(int8_ops / PEAK_INT8_OPS + bf16_flops / PEAK_BF16_FLOPS,
                 nbytes / PEAK_BYTES) * 1e3
-    ok1 = finite and err < K1_TOL
+    ok1 = finite and steps <= 1.0 and err < K1_TOL
     log(f"[kernel] K1 encoder_attention_fused_qkv B={b} T={t} d={d} H={h} "
-        f"n_real={n_real}: max_abs_err {err:.3e} (tol {K1_TOL}) "
-        f"finite {finite} -> {'PASS' if ok1 else 'FAIL'}; kernel "
+        f"n_real={n_real}: max_abs_err {err:.3e} (ceiling {K1_TOL}), "
+        f"max |kernel - plain| / (atol + rtol |plain|) {steps:.3f} "
+        f"(<= 1, {K1_STEP}) finite {finite} -> "
+        f"{'PASS' if ok1 else 'FAIL'}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
         f"(operations), SDPA on q/k/v alone {lib_ms:.4f} ms")
     out["K1"] = dict(
@@ -272,7 +285,19 @@ def phase_reference():
     log(f"[reference] int8 encoder d=128 dh=64 card (K1, K2) vs CPU plain: "
         f"max_abs_err {err:.3e} (tol {ENC_TOL}), kernels launched per layer "
         f"{through} -> {'PASS' if enc_ok else 'FAIL'}")
-    return xa_ok and tok_ok and enc_ok
+
+    # the kernels take bf16 activations: an int8 encoder at f32 compute
+    # on the card must raise, not compute another function
+    k1, k2 = ea.launch_count, fm.launch_count
+    try:
+        mw.encode(to_dev(qp), mel.to(dev), cfg, compute_dtype=torch.float32)
+        raised = False
+    except NotImplementedError:
+        raised = True
+    raised &= (ea.launch_count, fm.launch_count) == (k1, k2)
+    log(f"[reference] int8 encoder at f32 compute on the card raises "
+        f"NotImplementedError: {raised} -> {'PASS' if raised else 'FAIL'}")
+    return xa_ok and tok_ok and enc_ok and raised
 
 
 def _request_audio():

@@ -80,13 +80,18 @@ class WhisperEngine:
 
     def quantize(self, encoder: bool = True) -> "WhisperEngine":
         """Return an engine on the int8 serving path: int8 decoder weights
-        and, by default, the dynamic-int8 encoder (kernels K1 and K2)."""
+        and, by default, the dynamic-int8 encoder (kernels K1 and K2).
+        Raises NotImplementedError where the kernels cannot take the
+        engine's compute dtype on its device."""
+        from .models.whisper import encoder_kernel_gates
         from .ops.quant import quantize_decoder_params, quantize_encoder_params
 
         self._require_model()
         params = quantize_decoder_params(self.params)
         if encoder:
             params = quantize_encoder_params(params)
+            encoder_kernel_gates(self.cfg, params["encoder"]["blocks"],
+                                 self.compute_dtype, self.device)
         return dataclasses.replace(self, params=params)
 
     @property

@@ -67,13 +67,27 @@ def _layer_norm(x: torch.Tensor, g, b, eps: float = 1e-5) -> torch.Tensor:
     return ln_f32(x, g, b, eps).to(x.dtype)
 
 
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A constant rounded to ``like``'s dtype first, as the reference's
+    weakly typed Python scalars and ``np...astype(x.dtype)`` constants are
+    (a bare Python float would enter a bf16 op unrounded)."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x)
+    """Exact (erf) gelu as ``jax.nn.gelu(approximate=False)`` computes it:
+    0.5 * x * erfc(-x * sqrt(1/2)), each op rounded to x.dtype."""
+    return 0.5 * x * torch.erfc(-x * _const(math.sqrt(0.5), x))
 
 
 def _gelu_fast(x: torch.Tensor) -> torch.Tensor:
-    """tanh-gelu for the bf16 serving path (the f32 path keeps exact erf)."""
-    return F.gelu(x, approximate="tanh")
+    """tanh-gelu for the bf16 serving path (the f32 path keeps exact erf).
+    ``jax.nn.gelu(approximate=True)`` op by op, each op rounded to x.dtype
+    and its constants in x.dtype, as the reference computes it; the fused
+    ``F.gelu(approximate="tanh")`` rounds once and differs by one bf16
+    step in ~40% of elements."""
+    c, k = _const(math.sqrt(2 / math.pi), x), _const(0.044715, x)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -105,7 +119,7 @@ def _softmax_pv(scores, v, mask):
 def _attention(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Heads-first attention. q,k,v: (..., H, T, Dh); mask broadcastable
     to (..., H, Tq, Tk), True = attend."""
-    scale = q.shape[-1] ** -0.25
+    scale = _const(q.shape[-1] ** -0.25, q)
     scores = _f32_dot(q * scale, (k * scale).transpose(-1, -2))
     return _softmax_pv(scores, v, mask)
 
@@ -113,7 +127,7 @@ def _attention(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
 def _attention_kt(q, kT, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Attention over a pre-transposed K (..., H, Dh, Tk), the decode
     self-cache layout."""
-    scale = q.shape[-1] ** -0.25
+    scale = _const(q.shape[-1] ** -0.25, q)
     scores = _f32_dot(q * scale, kT * scale)
     return _softmax_pv(scores, v, mask)
 
@@ -146,14 +160,19 @@ def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
                          device) -> Tuple[bool, bool]:
     """(K1, K2) gates of the reference's single-device serving path: the
     int8 encoder takes K1 where heads pair into 128 lanes (dh = 64) and K2
-    where the width is a multiple of 128. On the card the kernels take
-    bf16 only; on the CPU their plain versions run at any dtype."""
+    where the width is a multiple of 128, at any compute dtype, as in the
+    reference. The CUDA kernels take bf16 activations only: an int8
+    encoder at another compute dtype off the CPU raises."""
     d, n_head = cfg.n_audio_state, cfg.n_audio_head
-    ok_dtype = (torch.device(device).type == "cpu"
-                or compute_dtype == torch.bfloat16)
-    k1 = (ok_dtype and is_quantized(blocks["q_w"]) and n_head % 2 == 0
+    k1 = (is_quantized(blocks["q_w"]) and n_head % 2 == 0
           and 2 * (d // n_head) == 128)
-    k2 = ok_dtype and is_quantized(blocks["fc1_w"]) and d % 128 == 0
+    k2 = is_quantized(blocks["fc1_w"]) and d % 128 == 0
+    if ((k1 or k2) and torch.device(device).type != "cpu"
+            and compute_dtype != torch.bfloat16):
+        raise NotImplementedError(
+            f"the int8 encoder kernels on {torch.device(device).type} take "
+            f"bf16 activations; {compute_dtype} compute is not ported yet "
+            "(ROADMAP.md queue 2, K1/K2 f32 variant)")
     return k1, k2
 
 

@@ -2,9 +2,10 @@
 
 Weights keep the reference layout: a QTensor is ``{"q": int8 (..., K, N),
 "s": f32 (..., 1, N)}``, per-output-channel symmetric scales. Integer
-products are computed exactly: int32 on the CPU (``torch._int_mm`` where
-its shape rules allow), float64 otherwise — an f32 sum of up to 5120
-products of ±127 can pass 2^24 and stop being exact.
+products are computed exactly: int32 (``torch._int_mm``, on either
+device, where its shape rule allows), float64 for the shapes it refuses —
+an f32 sum of up to 5120 products of ±127 can pass 2^24 and stop being
+exact.
 
 The reference's Pallas dequantizing matmul (``q8_matmul``) is not on the
 serving path and is not ported here.
@@ -41,7 +42,7 @@ def int8_matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a2 = a.reshape(-1, a.shape[-1])
     m, k = a2.shape
     n = b.shape[-1]
-    if a.device.type == "cpu" and m > 16 and k % 8 == 0 and n % 8 == 0:
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
         y = torch._int_mm(a2.contiguous(), b.contiguous())
     else:
         y = a2.to(torch.float64) @ b.to(torch.float64)

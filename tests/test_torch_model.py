@@ -11,6 +11,7 @@ rounding inside K1 (one bf16 step is 2^-8 relative), held to 2e-2 like the
 JAX kernel tests.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -177,6 +178,34 @@ def test_int8_encoder_through_kernels_matches_interpret():
         fm.encoder_mlp_int8_resident_plain = real2
     assert calls == {"k1": cfg.n_audio_layer, "k2": cfg.n_audio_layer}
     np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-2)
+
+
+def test_int8_encoder_gates_follow_reference_at_any_dtype():
+    """The gates test no dtype, as in the reference: the CPU runs the
+    kernels' plain versions at f32 and bf16 alike. Off the CPU the kernels
+    take bf16 only, so an int8 encoder at f32 compute raises there, both
+    at ``encode`` and at ``WhisperEngine.quantize``, instead of running
+    another function."""
+    from nobs_whisper_torch.api import WhisperEngine
+    from nobs_whisper_torch.ops.quant import quantize_encoder_params
+    cfg = _dh64_cfg()
+    blocks = quantize_encoder_params(
+        tw.init_params(2, cfg))["encoder"]["blocks"]
+    for dt in (torch.float32, torch.bfloat16):
+        assert tw.encoder_kernel_gates(cfg, blocks, dt, "cpu") == (True, True)
+    assert tw.encoder_kernel_gates(cfg, blocks, torch.bfloat16,
+                                   "cuda") == (True, True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tw.encoder_kernel_gates(cfg, blocks, torch.float32, "cuda")
+    eng = WhisperEngine.from_random("tiny-test", dtype=torch.float32,
+                                    device="cpu")
+    eng = dataclasses.replace(eng, cfg=cfg, params=tw.init_params(2, cfg),
+                              device=torch.device("meta"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.quantize()
+    meta = quantize_encoder_params(tw.init_params(2, cfg, device="meta"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tw.encode(meta, torch.zeros(1, 80, 64, device="meta"), cfg)
 
 
 def test_int8_encoder_without_kernel_geometry_matches_xla_path():

@@ -28,9 +28,12 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def test_int8_window_slice_tokens_equal_interpret():
-    """dh=64 so the K1 gate fires; int8 encoder and decoder; ragged
-    prompts (one with a previous-text prefix); f32 compute."""
+def _int8_window_slice(compute_dtype):
+    """The window program of both packages on one int8 model (dh=64 so
+    the K1 gate fires; int8 encoder and decoder) and three framed windows
+    with ragged prompts (one with a previous-text prefix); the reference
+    runs its Pallas kernels in interpret mode. Returns (port, reference)
+    outputs as numpy: tokens, n_sampled, sum_logprob, no_speech."""
     from nobs_whisper_tpu.audio.mel import frame_window_np
     from nobs_whisper_tpu.decode import greedy as jg
     from nobs_whisper_tpu.decode import rules as jr
@@ -42,10 +45,17 @@ def test_int8_window_slice_tokens_equal_interpret():
     from nobs_whisper_torch.decode import rules as trl
     from nobs_whisper_torch.models import whisper as tw
 
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[compute_dtype]
+    # the bf16 serving configuration also decodes on the packed kT
+    # cross-attention layout, as both packages' serving paths do
+    xattn_bf16 = compute_dtype == "bf16"
     cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=32, n_text_ctx=64)
     jp = quantize_encoder_params(quantize_decoder_params(
-        jw.init_params(jax.random.PRNGKey(7), cfg)))
-    tp = tw.params_from_jax(jax.tree.map(np.array, jp))
+        jw.init_params(jax.random.PRNGKey(7), cfg, dtype=jdt)))
+    tp = tw.params_from_jax(jax.tree.map(
+        lambda a: np.array(a) if a.dtype == np.int8
+        else np.array(a, np.float32), jp), dtype=tdt)
     rng = np.random.RandomState(3)
     frames = np.stack([frame_window_np(
         (0.1 * rng.randn(n)).astype(np.float32), n_frames=64)
@@ -63,18 +73,52 @@ def test_int8_window_slice_tokens_equal_interpret():
             jp, jnp.asarray(frames), jnp.asarray(ptok), jnp.asarray(pad),
             jnp.asarray(sot_idx), jr.build_rule_tables(cfg, jr.DecodeOptions()),
             jnp.zeros(3), jax.random.PRNGKey(0), cfg, sample_len,
-            sampling=False)
+            compute_dtype=jdt, xattn_bf16=xattn_bf16, sampling=False)
     got = tg.frames_encode_decode_window_impl(
         tp, torch.from_numpy(frames), torch.from_numpy(ptok).long(),
         torch.from_numpy(pad).long(), torch.from_numpy(sot_idx).long(),
         trl.build_rule_tables(cfg, trl.DecodeOptions()), torch.zeros(3),
-        None, cfg, sample_len, sampling=False)
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
-    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]),
-                               rtol=1e-3)
-    np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3]),
-                               rtol=1e-3)
+        None, cfg, sample_len, compute_dtype=tdt, xattn_bf16=xattn_bf16,
+        sampling=False)
+    return ([z.float().numpy() if z.is_floating_point() else z.numpy()
+             for z in got[:4]],
+            [np.asarray(z, np.float32 if z.dtype.kind == "f" else z.dtype)
+             for z in ref[:4]])
+
+
+def test_int8_window_slice_tokens_equal_interpret():
+    """f32 compute: tokens equal, scores to summation order (1e-3)."""
+    got, ref = _int8_window_slice("f32")
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-3)
+    np.testing.assert_allclose(got[3], ref[3], rtol=1e-3)
+
+
+def test_int8_window_slice_bf16_serving_config_interpret():
+    """The configuration that is served: bf16 compute (bf16 conv stem with
+    tanh gelu, bf16 o projection, bf16 decoder on dequantized int8
+    weights, packed kT cross-attention) against the reference at
+    jnp.bfloat16. Tokens equal.
+
+    The reference runs op by op (``jax.disable_jit``): that is the bf16
+    function as written, every op rounded to bf16, which the port
+    implements. Compiled, XLA fuses the decode loop's elementwise ops and
+    may keep their bf16 intermediates in f32, so the compiled reference
+    rounds differently from its own op-by-op run, by one bf16 step in
+    places; on this random model's near-ties between the timestamp and
+    text rules that alone changes greedy tokens.
+
+    Scores: a bf16 step of the final hidden state (2^-8 relative) moves a
+    logit by ~1e-2, and summation order in f32 reductions flips such steps
+    now and then; over 32 steps of a sum near -100 that stays under 1e-3
+    relative."""
+    with jax.disable_jit():
+        got, ref = _int8_window_slice("bf16")
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-3)
+    np.testing.assert_allclose(got[3], ref[3], rtol=1e-3)
 
 
 def _greedy_only(mod):
