@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``nobs_whisper_torch``) on one
-NVIDIA card, at the full width and depth of large-v3-turbo with int8
-weights made from a seed.
+NVIDIA card, at the full width and depth of large-v3-turbo with weights
+made from a seed.
 
 Run from the repo root: ``python3 chip_smoke.py`` (one card, no
 arguments). Phases; any failure exits non-zero before the result line:
@@ -10,23 +10,36 @@ arguments). Phases; any failure exits non-zero before the result line:
    versions, one ``nvcc`` per kernel source started together, with the
    ``-Xptxas -v`` summary;
 2. kernels against their plain PyTorch versions at turbo width (K1 at
-   B=2, T=1536, n_real=1500; K2 at M=2*1536, block_f=2560): max error
-   against the stated tolerance, kernel / plain / library ms (CUDA events)
-   and the bound computed from the shapes against published H100 peaks;
+   B=2, T=1536, n_real=1500; K2 at M=2*1536, block_f=2560, with bf16 and
+   with f32 activations; K3 at B=2, T=1536, d=1280, H=20, n_real=1500; K9
+   at B=2, H=10, T=1536, dh=128 and at an odd head count, H=15, dh=64):
+   max error against the stated tolerance, kernel / plain / library ms
+   (CUDA events) and the bound computed from the shapes against published
+   H100 peaks;
 3. small inputs against references: the f32 path against the oracle
    goldens (``tests/goldens/oracle_tiny.npz``: encoder states and greedy
-   tokens), and a dh=64 int8 encoder through K1/K2 against the same
-   encoder's plain versions on the CPU;
+   tokens); dh=64 encoders on the card against the same encoders' plain
+   versions on the CPU: int8 at bf16 (K1, K2), float at bf16 (K3), int8
+   at f32 (K2's f32 variant, no attention kernel);
 4. serving through ``WhisperEngine.from_random(...).quantize()`` inside
    ``BatchedEngine(max_batch=8)``: five concurrent window requests (one
    auto-language), two more fixed-language ones, and one 45 s long-form
-   request; launch counters reset
-   just before and read just after must equal 32 x encoder batches;
-   then one more concurrent wave under ``torch.profiler`` for where the
-   device time goes (the largest kernels by device time);
-5. one ``kernels`` JSON line, then the result line.
+   request; launch counters reset just before and read just after must
+   equal 32 x encoder batches; then three of the window requests again
+   under ``torch.profiler`` for where the device time goes;
+5. file transcription, the JAX package's default ``transcribe`` path:
+   ``WhisperEngine.from_random("large-v3-turbo")`` unquantized at bf16,
+   ``transcribe`` of a 12 s and a 45 s clip and of a 10 s clip on
+   ``with_audio_ctx(750)`` (n_real 750 in a T=768 pad): K3 launches =
+   32 x encoder batches, no other attention kernel; the same weights
+   split into 10 heads of 128 (heads that do not pair) take K9 on every
+   layer; one f32 int8 encoder batch at full width takes K2's f32 variant
+   32 times and no K1; the CLI ``transcribe`` verb in a subprocess on a
+   dh=64 tiny checkpoint and a WAV;
+6. one ``kernels`` JSON line, then the result line.
 
-Imports nothing of JAX and nothing of ``nobs_whisper_tpu``.
+``--phases`` (for iterating on one phase) runs a subset and prints no
+result line. Imports nothing of JAX and nothing of ``nobs_whisper_tpu``.
 """
 
 import json
@@ -50,6 +63,9 @@ PEAK_BYTES = 3.35e12
 K1_STEP = dict(rtol=2.0 ** -7, atol=2.0 ** -9)
 K1_TOL = 2e-2
 K2_TOL = 5e-2      # tests/test_fused_mlp.py:78
+# K3 and K9 share K1's attention arithmetic and are held the same way:
+# one bf16 step elementwise, 2e-2 (test_encoder_attention.py) as ceiling
+ATTN_STEP, ATTN_TOL = K1_STEP, K1_TOL
 
 
 def log(*a):
@@ -201,9 +217,106 @@ def phase_kernels():
         replaces="nobs_whisper_tpu/ops/fused_mlp.py:298",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by="operations", library_ms=lib_ms, ok=ok2)
-    del args, got, ref
+    del got, ref
+
+    # ---- K2, f32 activations (the int8 encoder at f32 compute) ----
+    x32 = args[0].float() + 1e-3 * torch.randn(m, d, device=dev)
+    got = fm.encoder_mlp_int8_resident(x32, *args[1:], block_f=bf)
+    torch.cuda.synchronize()
+    ref = fm.encoder_mlp_int8_resident_plain(x32, *args[1:], block_f=bf)
+    err = (got - ref).abs().max().item()
+    ms = cuda_ms(lambda: fm.encoder_mlp_int8_resident(
+        x32, *args[1:], block_f=bf))
+    plain_ms = cuda_ms(lambda: fm.encoder_mlp_int8_resident_plain(
+        x32, *args[1:], block_f=bf), reps=3, warmup=1)
+    nbytes = 2 * m * d * 4 + 2 * d * f + (f + d) * 4 * 2 + 2 * d * 4
+    bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
+    ok2f = err < K2_TOL and got.dtype == torch.float32
+    log(f"[kernel] K2-f32 encoder_mlp_int8_resident f32 M={m} d={d} "
+        f"ffn={f} block_f={bf}: max_abs_err {err:.3e} (tol {K2_TOL}) -> "
+        f"{'PASS' if ok2f else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (operations), "
+        f"torch._int_mm fc1+fc2 alone {lib_ms:.4f} ms")
+    out["K2-f32"] = dict(
+        name="encoder_mlp_int8_resident (f32 activations)", route="cuda",
+        source="nobs_whisper_torch/csrc/fused_mlp.cu",
+        replaces="nobs_whisper_tpu/ops/fused_mlp.py:298",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by="operations", library_ms=lib_ms, ok=ok2f)
+    del args, got, ref, x32, a8, h8
+    torch.cuda.empty_cache()
+
+    # ---- K3 (flat layout) and K9 (per head) ----
+    out["K3"] = attention_kernel_check(
+        "K3", "encoder_attention_btd", "nobs_whisper_tpu/ops/"
+        "encoder_attention.py:185", b=2, h=20, t=1536, dh=64, n_real=1500)
+    out["K9"] = attention_kernel_check(
+        "K9", "encoder_attention", "nobs_whisper_tpu/ops/"
+        "encoder_attention.py:93", b=2, h=10, t=1536, dh=128, n_real=1500)
+    odd = attention_kernel_check(
+        "K9", "encoder_attention", "", b=2, h=15, t=1536, dh=64,
+        n_real=1500)
+    out["K9"]["ok"] &= odd["ok"]
     torch.cuda.empty_cache()
     return out
+
+
+def attention_kernel_check(key, name, replaces, b, h, t, dh, n_real):
+    """K3 (flat (B, T, H dh)) or K9 ((B, H, T, dh)) against its plain
+    version on random bf16 q/k/v; the library yardstick is SDPA on the
+    same q/k/v in the (B, H, T, dh) view, keys >= n_real masked."""
+    import torch
+    import torch.nn.functional as F
+    from nobs_whisper_torch.ops import encoder_attention as ea
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(t + h + dh)
+    shape = (b, t, h * dh) if key == "K3" else (b, h, t, dh)
+    q, k, v = ((torch.randn(*shape, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16) for _ in range(3))
+    sm = float(dh) ** -0.5
+    if key == "K3":
+        fn = lambda: ea.encoder_attention_btd(q, k, v, n_real, sm, h)
+        plain = lambda: ea.encoder_attention_btd_plain(q, k, v, n_real, sm, h)
+        heads = lambda z: z.view(b, t, h, dh).transpose(1, 2)
+        real = (slice(None), slice(0, n_real))
+    else:
+        fn = lambda: ea.encoder_attention(q, k, v, n_real, sm)
+        plain = lambda: ea.encoder_attention_plain(q, k, v, n_real, sm)
+        heads = lambda z: z
+        real = (Ellipsis, slice(0, n_real), slice(None))
+    got = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    finite = bool(torch.isfinite(got.float()).all())
+    diff = (got.float() - ref.float())[real].abs()
+    err = diff.max().item()
+    steps = (diff / (ATTN_STEP["atol"] + ATTN_STEP["rtol"]
+                     * ref.float()[real].abs())).max().item()
+    del diff, ref
+    ms = cuda_ms(fn)
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    mask = torch.zeros(1, t, device=dev, dtype=torch.bool)
+    mask[:, :n_real] = True          # (1, S): keys >= n_real masked
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, scale=sm))
+    flops = 4.0 * b * h * t * n_real * dh      # QK^T and PV over real keys
+    nbytes = 4 * b * t * h * dh * 2            # q, k, v read, out written
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES \
+        else "bytes"
+    ok = finite and steps <= 1.0 and err < ATTN_TOL
+    log(f"[kernel] {key} {name} B={b} T={t} H={h} dh={dh} n_real={n_real}: "
+        f"max_abs_err {err:.3e} (ceiling {ATTN_TOL}), max |kernel - plain| "
+        f"/ (atol + rtol |plain|) {steps:.3f} (<= 1, {ATTN_STEP}) finite "
+        f"{finite} -> {'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), SDPA {lib_ms:.4f} "
+        f"ms")
+    return dict(name=name, route="cuda",
+                source="nobs_whisper_torch/csrc/encoder_attention.cu",
+                replaces=replaces, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, ok=ok)
 
 
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -239,8 +352,9 @@ def phase_reference():
 
     * the f32 float path (no kernels) against the oracle goldens: encoder
       states within the golden tests' bounds, greedy tokens equal;
-    * the int8 bf16 encoder at a dh=64 width, which goes through K1 and K2
-      on the card, against the same encoder's plain versions on the CPU."""
+    * encoders at a dh=64 width on the card against the same encoders'
+      plain versions on the CPU: int8 at bf16 (K1, K2), float at bf16
+      (K3), int8 at f32 (K2's f32 variant)."""
     import numpy as np
     import torch
     from nobs_whisper_torch.decode.greedy import decode_window
@@ -286,18 +400,36 @@ def phase_reference():
         f"max_abs_err {err:.3e} (tol {ENC_TOL}), kernels launched per layer "
         f"{through} -> {'PASS' if enc_ok else 'FAIL'}")
 
-    # the kernels take bf16 activations: an int8 encoder at f32 compute
-    # on the card must raise, not compute another function
-    k1, k2 = ea.launch_count, fm.launch_count
-    try:
-        mw.encode(to_dev(qp), mel.to(dev), cfg, compute_dtype=torch.float32)
-        raised = False
-    except NotImplementedError:
-        raised = True
-    raised &= (ea.launch_count, fm.launch_count) == (k1, k2)
-    log(f"[reference] int8 encoder at f32 compute on the card raises "
-        f"NotImplementedError: {raised} -> {'PASS' if raised else 'FAIL'}")
-    return xa_ok and tok_ok and enc_ok and raised
+    # the float encoder at bf16 (K3 once per layer), and the int8 encoder
+    # at f32 compute (the reference's TPU gate: K2's f32 variant, no
+    # attention kernel), each against its CPU run
+    fp = mw.init_params(3, cfg, dtype=torch.bfloat16)
+    k3 = ea.k3_launch_count
+    got = mw.encode(to_dev(fp), mel.to(dev), cfg, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    through = ea.k3_launch_count - k3 == cfg.n_audio_layer
+    ref = mw.encode(fp, mel, cfg, compute_dtype=torch.bfloat16)
+    err = (got.float().cpu() - ref.float()).abs().max().item()
+    k3_ok = through and bool(torch.isfinite(got.float()).all()) \
+        and err < ENC_TOL
+    log(f"[reference] float encoder d=128 dh=64 bf16 card (K3) vs CPU plain: "
+        f"max_abs_err {err:.3e} (tol {ENC_TOL}), K3 launched per layer "
+        f"{through} -> {'PASS' if k3_ok else 'FAIL'}")
+
+    qp32 = quantize_encoder_params(mw.init_params(3, cfg))
+    k1, k2f = ea.launch_count, fm.launch_count_f32
+    got = mw.encode(to_dev(qp32), mel.to(dev), cfg)
+    torch.cuda.synchronize()
+    through = (ea.launch_count - k1, fm.launch_count_f32 - k2f) == \
+        (0, cfg.n_audio_layer)
+    ref = mw.encode(qp32, mel, cfg)
+    err = (got.cpu() - ref).abs().max().item()
+    f32_ok = through and got.dtype == torch.float32 \
+        and bool(torch.isfinite(got).all()) and err < ENC_TOL
+    log(f"[reference] int8 encoder d=128 dh=64 f32 card (K2 f32, no K1) vs "
+        f"CPU plain: max_abs_err {err:.3e} (tol {ENC_TOL}), launches per "
+        f"layer {through} -> {'PASS' if f32_ok else 'FAIL'}")
+    return xa_ok and tok_ok and enc_ok and k3_ok and f32_ok
 
 
 def _request_audio():
@@ -349,29 +481,25 @@ def _run_wave(be, wave, card):
     return ok
 
 
-def phase_serving(card):
+def phase_serving(card, base):
+    """``base``: the unquantized large-v3-turbo engine; serving runs its
+    ``quantize()`` (int8 encoder and decoder)."""
     import torch
-    from nobs_whisper_torch.api import WhisperEngine
-    from nobs_whisper_torch.models import whisper as mw
-    from nobs_whisper_torch.ops import encoder_attention as ea
-    from nobs_whisper_torch.ops import fused_mlp as fm
     from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
     from nobs_whisper_torch.utils.testing import speech_like_audio
 
     t0 = time.perf_counter()
-    eng = WhisperEngine.from_random("large-v3-turbo", seed=0,
-                                    device="cuda").quantize()
+    eng = base.quantize()
     torch.cuda.synchronize()
     cfg = eng.cfg
     log(f"[serve] engine large-v3-turbo d={cfg.n_audio_state} "
         f"enc_layers={cfg.n_audio_layer} dec_layers={cfg.n_text_layer} "
-        f"int8, bf16 compute, seed 0: built in "
+        f"int8, bf16 compute, seed 0: quantized in "
         f"{time.perf_counter() - t0:.1f} s")
     be = BatchedEngine(eng, max_batch=8)
     wave1, wave2 = _request_audio()
     try:
-        ea.launch_count = fm.launch_count = 0
-        mw.encode_count = 0
+        reset_counts()
         t0 = time.perf_counter()
         ok = _run_wave(be, wave1, card)
         ok &= _run_wave(be, wave2, card)
@@ -379,18 +507,21 @@ def phase_serving(card):
             45.0, seed=8), "en")], card)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"K1": ea.launch_count, "K2": fm.launch_count}
-        batches = mw.encode_count
+        c = read_counts()
+        launches = {"K1": c["K1"], "K2": c["K2"]}
+        batches = c["batches"]
         want = cfg.n_audio_layer * batches
         counts_ok = (batches > 0 and launches["K1"] == want
-                     and launches["K2"] == want)
+                     and launches["K2"] == want
+                     and c["K3"] == c["K9"] == c["K2-f32"] == 0)
         log(f"[serve] {card}: wall {wall:.2f} s; batch sizes "
             f"{be.batcher.batch_sizes}; encoder batches {batches}; "
             f"launches K1 {launches['K1']} K2 {launches['K2']} "
             f"(want {cfg.n_audio_layer} x {batches} = {want}) -> "
             f"{'PASS' if counts_ok else 'FAIL'}")
         ok &= counts_ok
-        profile_wave(be, wave1, card)
+        # three of wave 1's requests (the auto-language one included)
+        profile_wave(be, wave1[2:], card)
     finally:
         be.close()
     return ok, launches
@@ -428,8 +559,161 @@ def profile_wave(be, wave, card):
         log(f"[profile]   {t / 1e3:10.2f} ms  {e.count:7d}x  {e.key[:90]}")
 
 
-def main():
+def reset_counts():
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops import encoder_attention as ea
+    from nobs_whisper_torch.ops import fused_mlp as fm
+    ea.launch_count = ea.k3_launch_count = ea.k9_launch_count = 0
+    fm.launch_count = fm.launch_count_f32 = 0
+    mw.encode_count = 0
+
+
+def read_counts():
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops import encoder_attention as ea
+    from nobs_whisper_torch.ops import fused_mlp as fm
+    return {"K1": ea.launch_count, "K3": ea.k3_launch_count,
+            "K9": ea.k9_launch_count, "K2": fm.launch_count,
+            "K2-f32": fm.launch_count_f32, "batches": mw.encode_count}
+
+
+def _transcribe_one(eng, name, audio, card, opts):
+    import math
+    t0 = time.perf_counter()
+    r = eng.transcribe(audio, language="en", opts=opts)
+    dt = time.perf_counter() - t0
+    toks = sum(len(s.tokens) for s in r.segments)
+    ok = isinstance(r.text, str) and all(
+        math.isfinite(s.avg_logprob) and math.isfinite(s.no_speech_prob)
+        for s in r.segments)
+    log(f"[transcribe] {card}: {name} ({len(audio) / 16000:.1f} s audio) "
+        f"latency {dt * 1e3:.1f} ms, tokens {toks}, segments "
+        f"{len(r.segments)}, finite {ok}")
+    return ok
+
+
+def phase_transcribe(card, eng):
+    """The JAX package's default file path (``cli transcribe``): ``eng``,
+    the unquantized large-v3-turbo engine at bf16 compute. Counts are set
+    to 0 just before each path and read just after it."""
+    import dataclasses
+    import numpy as np
     import torch
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops.quant import quantize_encoder_params
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+
+    # random weights never emit eot: one greedy rung per window (224
+    # steps) instead of the 6-rung temperature ladder
+    opts = DecodeOptions(temperature_increment=0.0)
+    cfg = eng.cfg
+
+    # K3: heads pair (dh = 64)
+    reset_counts()
+    ok = _transcribe_one(eng, "en-12s", speech_like_audio(12.0, seed=21),
+                         card, opts)
+    ok &= _transcribe_one(eng, "longform-45s",
+                          speech_like_audio(45.0, seed=22), card, opts)
+    ok &= _transcribe_one(eng.with_audio_ctx(750), "audio_ctx750-10s",
+                          speech_like_audio(10.0, seed=23), card, opts)
+    torch.cuda.synchronize()
+    c = read_counts()
+    want = cfg.n_audio_layer * c["batches"]
+    k3_ok = c["batches"] > 0 and c["K3"] == want and \
+        c["K1"] == c["K9"] == c["K2"] == 0
+    log(f"[transcribe] {card}: encoder batches {c['batches']}; launches "
+        f"{c} (want K3 = {cfg.n_audio_layer} x {c['batches']} = {want}, "
+        f"others 0) -> {'PASS' if k3_ok else 'FAIL'}")
+    launches = {"K3": c["K3"]}
+
+    # K9: the same weights split into heads of 128 (10 at turbo width),
+    # which do not pair into 128 lanes (the decoder's heads too: the
+    # packages derive one head width from the config)
+    h128 = cfg.n_audio_state // 128
+    eng10 = dataclasses.replace(eng, cfg=dataclasses.replace(
+        cfg, n_audio_head=h128, n_text_head=h128))
+    reset_counts()
+    ok &= _transcribe_one(eng10, "heads10-12s",
+                          speech_like_audio(12.0, seed=24), card, opts)
+    torch.cuda.synchronize()
+    c = read_counts()
+    want = cfg.n_audio_layer * c["batches"]
+    k9_ok = c["batches"] > 0 and c["K9"] == want and \
+        c["K1"] == c["K3"] == 0
+    log(f"[transcribe] {card}: 10 heads of 128: launches {c} (want K9 = "
+        f"{cfg.n_audio_layer} x {c['batches']} = {want}) -> "
+        f"{'PASS' if k9_ok else 'FAIL'}")
+    launches["K9"] = c["K9"]
+
+    # the int8 encoder at f32 compute: one batch at full width
+    enc32 = {"encoder": {k: (v.float() if torch.is_tensor(v) else
+                             {kk: vv.float() for kk, vv in v.items()})
+                         for k, v in eng.params["encoder"].items()}}
+    enc32 = quantize_encoder_params(enc32)
+    del eng10
+    torch.cuda.empty_cache()
+    mel = torch.from_numpy(np.random.RandomState(25).randn(
+        1, cfg.n_mels, 2 * cfg.n_audio_ctx).astype(np.float32)).cuda()
+    reset_counts()
+    xa = mw.encode(enc32, mel, cfg, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    c = read_counts()
+    f32_ok = (c["K2-f32"] == c["K2"] == cfg.n_audio_layer and c["K1"] == 0
+              and xa.dtype == torch.float32
+              and tuple(xa.shape) == (1, cfg.n_audio_ctx, cfg.n_audio_state)
+              and bool(torch.isfinite(xa).all()))
+    log(f"[transcribe] {card}: int8 encoder at f32, one batch: launches {c} "
+        f"(want K2-f32 = K2 = {cfg.n_audio_layer}, K1 = 0), states "
+        f"{tuple(xa.shape)} finite -> {'PASS' if f32_ok else 'FAIL'}")
+    launches["K2-f32"] = c["K2-f32"]
+    del enc32, xa
+    torch.cuda.empty_cache()
+    return ok and k3_ok and k9_ok and f32_ok and phase_cli(card), launches
+
+
+def phase_cli(card):
+    """``python -m nobs_whisper_torch.cli transcribe`` in a subprocess on
+    the card (default device and dtype: cuda, bf16), on a dh=64 tiny GGML
+    checkpoint and a WAV written by the port's own helpers."""
+    import tempfile
+    from nobs_whisper_torch.audio.io import write_wav
+    from nobs_whisper_torch.utils.testing import (speech_like_audio,
+                                                  tiny_test_config,
+                                                  write_tiny_checkpoint)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "ggml-tiny-dh64.bin")
+        wav = os.path.join(tmp, "clip.wav")
+        write_tiny_checkpoint(model, cfg=tiny_test_config(d=128, heads=2),
+                              seed=3)
+        write_wav(wav, speech_like_audio(2.0, seed=26))
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "nobs_whisper_torch.cli", "transcribe",
+             wav, "--model", model, "--language", "en"],
+            capture_output=True, text=True, cwd=root, timeout=300)
+    lines = r.stdout.strip().splitlines()
+    ok = r.returncode == 0 and bool(lines)
+    log(f"[cli] {card}: transcribe verb exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s, last line {lines[-1][:60]!r}"
+        if lines else f"[cli] {card}: exit {r.returncode}, no output; "
+        f"stderr {r.stderr[-2000:]}")
+    log(f"[cli] -> {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+PHASES = ("kernels", "reference", "serve", "transcribe")
+
+
+def main():
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (a subset prints no result line)")
+    phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -439,21 +723,43 @@ def main():
     t_start = time.perf_counter()
     smi = phase_card_and_build()
     card = smi
-    kern = phase_kernels()
-    ref_ok = phase_reference()
-    serve_ok, launches = phase_serving(card)
-    serve_ok &= ref_ok
+    ok, kern, launches = True, {}, {}
+    if "kernels" in phases:
+        kern = phase_kernels()
+    if "reference" in phases:
+        ok &= phase_reference()
+    if "serve" in phases or "transcribe" in phases:
+        from nobs_whisper_torch.api import WhisperEngine
+        t0 = time.perf_counter()
+        eng = WhisperEngine.from_random("large-v3-turbo", seed=0,
+                                        device="cuda")
+        torch.cuda.synchronize()
+        cfg = eng.cfg
+        log(f"[engine] large-v3-turbo d={cfg.n_audio_state} enc_layers="
+            f"{cfg.n_audio_layer} dec_layers={cfg.n_text_layer} heads "
+            f"{cfg.n_audio_head}, random weights from seed 0, bf16: built "
+            f"in {time.perf_counter() - t0:.1f} s")
+    if "serve" in phases:
+        serve_ok, counts = phase_serving(card, eng)
+        ok &= serve_ok
+        launches.update(counts)
+    if "transcribe" in phases:
+        tr_ok, counts = phase_transcribe(card, eng)
+        ok &= tr_ok
+        launches.update(counts)
     entries = []
-    for key in ("K1", "K2"):
-        e = dict(kern[key])
-        ok = e.pop("ok")
-        e["launches"] = launches[key]
+    for key, e in kern.items():
+        e = dict(e)
+        ok &= e.pop("ok")
+        e["launches"] = launches.get(key, 0)
+        ok &= e["launches"] > 0 or set(phases) != set(PHASES)
         entries.append(e)
-        serve_ok &= ok
     log(f"[done] {card}: total {time.perf_counter() - t_start:.1f} s, "
-        f"all phases {'PASS' if serve_ok else 'FAIL'}")
-    if not serve_ok:
+        f"phases {','.join(phases)} {'PASS' if ok else 'FAIL'}")
+    if not ok:
         return 1
+    if set(phases) != set(PHASES):
+        return 0
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
-"""Top-level engine API (port of ``api.py``): model loading (GGML or random
-weights), int8 quantization for serving, single-call transcription with
-prompt biasing, and the post-hoc hallucination filter — on PyTorch, on the
-card unless the caller asks for the CPU."""
+"""Top-level engine API (port of ``api.py``): model loading (GGML, HF
+snapshots or random weights), int8 quantization for serving, a truncated
+encoder context, single-call and chunked transcription with prompt
+biasing, and the post-hoc hallucination filter — on PyTorch, on the card
+unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
 import dataclasses
 import logging
 import time
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,6 +37,10 @@ class WhisperEngine:
     tokenizer: Optional[WhisperTokenizer] = None
     compute_dtype: Any = torch.float32
     model_path: Optional[str] = None
+    # tuned (layer, head) word-timestamp alignment heads from checkpoint
+    # metadata (HF generation_config.json); carried for the word-timing
+    # slice (ROADMAP.md queue 1, item 10)
+    alignment_heads: Optional[List[tuple]] = None
     # the card unless the caller asks for the CPU (resolve_device raises
     # when there is no card)
     device: torch.device = dataclasses.field(
@@ -62,6 +67,53 @@ class WhisperEngine:
                    compute_dtype=dtype, model_path=path, device=dev)
 
     @classmethod
+    def from_hf_dir(cls, path: str, dtype=torch.bfloat16,
+                    vocab: Optional[List[bytes]] = None,
+                    device="cuda") -> "WhisperEngine":
+        """Load a transformers-format snapshot dir (config.json +
+        model.safetensors). The HF tokenizer files don't carry the raw
+        byte-level ranks directly, so ``vocab`` (id -> bytes, as embedded
+        in GGML files) may be supplied; without it the engine transcribes
+        but exposes no tokenizer-dependent features."""
+        import json
+        import os
+
+        from .core.config import config_from_hparams
+        from .core.hf import load_safetensors, params_from_hf_state_dict
+
+        dev = resolve_device(device)
+        with open(os.path.join(path, "config.json")) as f:
+            hf = json.load(f)
+        cfg = config_from_hparams(
+            n_vocab=hf["vocab_size"],
+            n_audio_ctx=hf["max_source_positions"],
+            n_audio_state=hf["d_model"],
+            n_audio_head=hf["encoder_attention_heads"],
+            n_audio_layer=hf["encoder_layers"],
+            n_text_ctx=hf["max_target_positions"],
+            n_text_state=hf["d_model"],
+            n_text_head=hf["decoder_attention_heads"],
+            n_text_layer=hf["decoder_layers"],
+            n_mels=hf["num_mel_bins"],
+            name=os.path.basename(os.path.normpath(path)))
+        sd = load_safetensors(os.path.join(path, "model.safetensors"))
+        params = params_from_hf_state_dict(sd, cfg, dtype=dtype, device=dev)
+        tokenizer = WhisperTokenizer(vocab, cfg) if vocab else None
+        # HF snapshots ship the model's tuned DTW alignment heads in
+        # generation_config.json (e.g. openai/whisper-large-v3-turbo)
+        heads = None
+        gen_path = os.path.join(path, "generation_config.json")
+        if os.path.exists(gen_path):
+            with open(gen_path) as f:
+                gen = json.load(f)
+            raw = gen.get("alignment_heads")
+            if raw:
+                heads = [(int(l), int(h)) for l, h in raw]
+        return cls(params=params, cfg=cfg, tokenizer=tokenizer,
+                   compute_dtype=dtype, model_path=path,
+                   alignment_heads=heads, device=dev)
+
+    @classmethod
     def from_random(cls, model: str = "tiny", dtype=torch.bfloat16,
                     seed: int = 0, device="cuda") -> "WhisperEngine":
         """Random weights from ``seed`` (tests and benchmarks). Unlike the
@@ -80,19 +132,34 @@ class WhisperEngine:
 
     def quantize(self, encoder: bool = True) -> "WhisperEngine":
         """Return an engine on the int8 serving path: int8 decoder weights
-        and, by default, the dynamic-int8 encoder (kernels K1 and K2).
-        Raises NotImplementedError where the kernels cannot take the
-        engine's compute dtype on its device."""
-        from .models.whisper import encoder_kernel_gates
+        and, by default, the dynamic-int8 encoder (K1 attention at bf16
+        compute where heads pair, K2 MLP at any compute dtype:
+        ``models/whisper.py::encoder_kernel_gates``)."""
         from .ops.quant import quantize_decoder_params, quantize_encoder_params
 
         self._require_model()
         params = quantize_decoder_params(self.params)
         if encoder:
             params = quantize_encoder_params(params)
-            encoder_kernel_gates(self.cfg, params["encoder"]["blocks"],
-                                 self.compute_dtype, self.device)
         return dataclasses.replace(self, params=params)
+
+    def with_audio_ctx(self, audio_ctx: int) -> "WhisperEngine":
+        """Return an engine with a truncated encoder context (whisper.cpp's
+        ``wparams.audio_ctx``): every window becomes ``audio_ctx * 0.02``
+        seconds, the encoder runs on the first ``2*audio_ctx`` mel frames
+        with the first ``audio_ctx`` rows of the position table, and
+        decode reads proportionally less cross-KV. Engine-level, as in the
+        reference: one context per engine keeps the window batcher's
+        packing uniform."""
+        self._require_model()
+        n_pos = self.params["encoder"]["pos"].shape[0]
+        if not (0 < audio_ctx <= n_pos):
+            raise ValueError(
+                f"audio_ctx must be in (0, {n_pos}], got {audio_ctx}")
+        if audio_ctx == self.cfg.n_audio_ctx:
+            return self
+        return dataclasses.replace(
+            self, cfg=dataclasses.replace(self.cfg, n_audio_ctx=audio_ctx))
 
     @property
     def loaded(self) -> bool:
@@ -144,3 +211,30 @@ class WhisperEngine:
         return TranscribeResult(text=filter_hallucinations(result.text),
                                 segments=result.segments,
                                 language=result.language)
+
+    def transcribe_chunked(
+        self,
+        chunks: Sequence[np.ndarray],
+        language: Optional[str] = None,
+        vocabulary: Optional[str] = None,
+        opts: Optional[DecodeOptions] = None,
+    ) -> str:
+        """Sequential chunk transcription with rolling text context: chunk
+        N's transcript becomes chunk N+1's context (its prompt, through
+        ``WhisperTokenizer.encode``); results joined with spaces; a chunk
+        that fails is logged and skipped."""
+        self._require_model()
+        results: List[str] = []
+        rolling: Optional[str] = None
+        for i, chunk in enumerate(chunks):
+            try:
+                r = self.transcribe(chunk, language=language,
+                                    vocabulary=vocabulary, context=rolling,
+                                    opts=opts)
+            except Exception:  # per-chunk error isolation, as the reference
+                log.exception("chunk %d failed; skipping", i)
+                continue
+            if r.text:
+                results.append(r.text)
+                rolling = r.text
+        return " ".join(results)

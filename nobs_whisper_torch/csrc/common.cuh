@@ -3,8 +3,8 @@
 // Two building blocks used by both encoder_attention.cu (K1) and
 // fused_mlp.cu (K2):
 //
-//   * ln_quant_kernel: LayerNorm in f32 (eps 1e-5) and dynamic per-row int8
-//     quantization, s = max(absmax, 1e-6) / 127, q = clip(rint(h / s)).
+//   * ln_quant_kernel: LayerNorm in f32 (eps 1e-5) of bf16 or f32 rows and
+//     dynamic per-row int8 quantization, s = max(absmax, 1e-6) / 127, q = clip(rint(h / s)).
 //     This is the Pallas kernels' numerics (encoder_attention.py:416-427,
 //     fused_mlp.py:231-239), not dense_int8_dynamic's 1e-8 floor.
 //   * an int8 x int8 -> int32 tiled GEMM on the tensor cores with
@@ -53,8 +53,21 @@ __device__ __forceinline__ int8_t quant_s8(float v, float s) {
   return (int8_t)(int)r;
 }
 
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+
+// T: the activations' type, bf16 or float (the int8 encoder at f32 compute)
+template <typename T>
 __global__ void __launch_bounds__(LNQ_WARPS * 32)
-ln_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
+ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ g,
                 const float* __restrict__ b, int8_t* __restrict__ xq,
                 float* __restrict__ sx, int M, int d) {
   extern __shared__ float lnq_smem[];
@@ -62,11 +75,11 @@ ln_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
   const int row = blockIdx.x * LNQ_WARPS + warp;
   if (row >= M) return;
   float* h = lnq_smem + (size_t)warp * d;
-  const bf16* xr = x + (size_t)row * d;
+  const T* xr = x + (size_t)row * d;
 
   float s = 0.f;
   for (int c = lane; c < d; c += 32) {
-    float v = __bfloat162float(xr[c]);
+    float v = to_f32(xr[c]);
     h[c] = v;
     s += v;
   }
@@ -91,17 +104,18 @@ ln_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
   if (lane == 0) sx[row] = scale;
 }
 
-inline cudaError_t launch_ln_quant(const bf16* x, const float* g,
+template <typename T>
+inline cudaError_t launch_ln_quant(const T* x, const float* g,
                                    const float* b, int8_t* xq, float* sx,
                                    int M, int d, cudaStream_t st) {
   const size_t smem = (size_t)LNQ_WARPS * d * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        ln_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ln_quant_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  ln_quant_kernel<<<(M + LNQ_WARPS - 1) / LNQ_WARPS, LNQ_WARPS * 32, smem,
+  ln_quant_kernel<T><<<(M + LNQ_WARPS - 1) / LNQ_WARPS, LNQ_WARPS * 32, smem,
                     st>>>(x, g, b, xq, sx, M, d);
   return cudaGetLastError();
 }

@@ -27,6 +27,13 @@
 //   fc1's output to device memory (M x ffn f32) and its int8 re-quantized
 //   copy (M x ffn) instead of keeping them on chip as the TPU kernel does:
 //   about 2 x 31 MB + 2 x 8 MB of extra traffic per window and layer.
+//
+// Activations are bf16 (nwt_encoder_mlp_int8) or f32
+// (nwt_encoder_mlp_int8_f32): the reference gates K2 on no dtype, so an
+// int8 encoder at f32 compute runs it too. Only the types of x and out
+// differ (ln_quant_kernel and fc2_gemm_kernel are templated on them); the
+// arithmetic is f32 in both, as in the TPU kernel (x cast to f32, the
+// accumulator cast to out's type at the end).
 
 #include "common.cuh"
 
@@ -95,14 +102,15 @@ fc1_gemm_kernel(FC1Args p) {
   }
 }
 
+template <typename T>
 struct FC2Args {
   const int8_t* aq;      // (M, F) re-quantized gelu output
   const unsigned* amax;  // (M, n_chunks)
   const int8_t* w2;
   const float* s2;
   const float* b2;
-  const bf16* x;         // residual (M, d)
-  bf16* out;             // (M, d)
+  const T* x;            // residual (M, d)
+  T* out;                // (M, d)
   int M, d, F, block_f;
 };
 
@@ -129,8 +137,9 @@ requant_kernel(const float* __restrict__ a, const unsigned* __restrict__ amax,
       ((uint32_t)(uint8_t)quant_s8(v.w, s) << 24);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(GTHREADS)
-fc2_gemm_kernel(FC2Args p) {
+fc2_gemm_kernel(FC2Args<T> p) {
   __shared__ __align__(16) GemmSmem sm;
   const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * GBM;
   const int n_chunks = p.F / p.block_f;
@@ -145,8 +154,7 @@ fc2_gemm_kernel(FC2Args p) {
         acc[mt][nt][e] = 0;
         const int r = acc_row(m0, mt, e), col = acc_col(n0, nt, e);
         facc[mt][nt][e] =
-            r < p.M ? __fadd_rn(__bfloat162float(p.x[(size_t)r * p.d + col]),
-                                p.b2[col])
+            r < p.M ? __fadd_rn(to_f32(p.x[(size_t)r * p.d + col]), p.b2[col])
                     : 0.f;
       }
 
@@ -184,20 +192,18 @@ fc2_gemm_kernel(FC2Args p) {
       for (int e = 0; e < 4; ++e) {
         const int r = acc_row(m0, mt, e), col = acc_col(n0, nt, e);
         if (r < p.M)
-          p.out[(size_t)r * p.d + col] = __float2bfloat16_rn(facc[mt][nt][e]);
+          p.out[(size_t)r * p.d + col] = from_f32<T>(facc[mt][nt][e]);
       }
 }
 
-}  // namespace nwt
-
-using namespace nwt;
-
-// x (M, d) bf16; w1 (d, F) and w2 (F, d) int8 row-major (d_in, d_out) with
-// f32 column scales s1 (F,), s2 (d,); ln_g, ln_b, b2 (d,), b1 (F,) f32.
-// d % 128 == 0, F % block_f == 0, block_f % 128 == 0. Workspace: xq (M, d)
-// int8, sx (M,) f32, a (M, F) f32, amax (M, F / block_f) u32, aq (M, F)
-// int8. Writes out (M, d) bf16.
-extern "C" int nwt_encoder_mlp_int8(
+// x (M, d) of type T (bf16, or float for the int8 encoder at f32 compute);
+// w1 (d, F) and w2 (F, d) int8 row-major (d_in, d_out) with f32 column
+// scales s1 (F,), s2 (d,); ln_g, ln_b, b2 (d,), b1 (F,) f32. d % 128 == 0,
+// F % block_f == 0, block_f % 128 == 0. Workspace: xq (M, d) int8, sx (M,)
+// f32, a (M, F) f32, amax (M, F / block_f) u32, aq (M, F) int8. Writes out
+// (M, d) of type T.
+template <typename T>
+int encoder_mlp_int8(
     const void* x, const void* ln_g, const void* ln_b,
     const void* w1, const void* s1, const void* b1,
     const void* w2, const void* s2, const void* b2,
@@ -205,7 +211,7 @@ extern "C" int nwt_encoder_mlp_int8(
     int M, int d, int F, int block_f, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e = launch_ln_quant(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_g),
+      static_cast<const T*>(x), static_cast<const float*>(ln_g),
       static_cast<const float*>(ln_b), static_cast<int8_t*>(xq),
       static_cast<float*>(sx), M, d, st);
   if (e != cudaSuccess) return (int)e;
@@ -236,18 +242,42 @@ extern "C" int nwt_encoder_mlp_int8(
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  FC2Args f2;
+  FC2Args<T> f2;
   f2.aq = static_cast<const int8_t*>(aq);
   f2.amax = static_cast<const unsigned*>(amax);
   f2.w2 = static_cast<const int8_t*>(w2);
   f2.s2 = static_cast<const float*>(s2);
   f2.b2 = static_cast<const float*>(b2);
-  f2.x = static_cast<const bf16*>(x);
-  f2.out = static_cast<bf16*>(out);
+  f2.x = static_cast<const T*>(x);
+  f2.out = static_cast<T*>(out);
   f2.M = M;
   f2.d = d;
   f2.F = F;
   f2.block_f = block_f;
-  fc2_gemm_kernel<<<dim3(d / GBN, (M + GBM - 1) / GBM), GTHREADS, 0, st>>>(f2);
+  fc2_gemm_kernel<T><<<dim3(d / GBN, (M + GBM - 1) / GBM), GTHREADS, 0, st>>>(
+      f2);
   return (int)cudaGetLastError();
+}
+
+}  // namespace nwt
+
+using namespace nwt;
+
+#define NWT_MLP_ARGS                                                      \
+  const void *x, const void *ln_g, const void *ln_b, const void *w1,      \
+      const void *s1, const void *b1, const void *w2, const void *s2,     \
+      const void *b2, void *out, void *xq, void *sx, void *a, void *amax, \
+      void *aq, int M, int d, int F, int block_f, void *stream
+#define NWT_MLP_PASS \
+  x, ln_g, ln_b, w1, s1, b1, w2, s2, b2, out, xq, sx, a, amax, aq, M, d, F, \
+      block_f, stream
+
+extern "C" int nwt_encoder_mlp_int8(NWT_MLP_ARGS) {
+  return encoder_mlp_int8<bf16>(NWT_MLP_PASS);
+}
+
+// the same function on f32 activations: the arithmetic is f32 throughout
+// already; only the residual read and the output write change type
+extern "C" int nwt_encoder_mlp_int8_f32(NWT_MLP_ARGS) {
+  return encoder_mlp_int8<float>(NWT_MLP_PASS);
 }

@@ -8,9 +8,11 @@ f32. Where the reference asks XLA for an f32 result of bf16 operands
 (``preferred_element_type``), the port multiplies f32 copies of the bf16
 values: their products are exact in f32.
 
-The quantized encoder takes the two hand-written kernels, K1
-(``ops/encoder_attention.py``) and K2 (``ops/fused_mlp.py``), under the
-same gates as the reference's serving path (whisper.py:414-425, :528-554).
+The encoder takes the hand-written kernels under the gates of the
+reference's single-device serving path (:func:`encoder_kernel_gates`):
+at bf16, attention through K1 (int8), K3 (float) or K9 (heads that do not
+pair), in ``ops/encoder_attention.py``; the int8 MLP through K2
+(``ops/fused_mlp.py``) at any compute dtype.
 The decoder KV cache is updated in place (the reference's functional
 ``dynamic_update_slice`` writes the same slices).
 """
@@ -18,7 +20,7 @@ The decoder KV cache is updated in place (the reference's functional
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -156,24 +158,35 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (y.transpose(1, 2) + b.to(torch.float32)).to(x.dtype)
 
 
-def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
-                         device) -> Tuple[bool, bool]:
-    """(K1, K2) gates of the reference's single-device serving path: the
-    int8 encoder takes K1 where heads pair into 128 lanes (dh = 64) and K2
-    where the width is a multiple of 128, at any compute dtype, as in the
-    reference. The CUDA kernels take bf16 activations only: an int8
-    encoder at another compute dtype off the CPU raises."""
+class EncoderGates(NamedTuple):
+    attention: Optional[str]   # "K1", "K3", "K9", or None: torch ops
+    mlp: bool                  # K2
+
+
+def encoder_kernel_gates(cfg: WhisperConfig, blocks,
+                         compute_dtype) -> EncoderGates:
+    """The kernels of the reference's single-device serving path
+    (whisper.py:266-314, :414-447, :466-483, :528), with the card in the
+    TPU's place; the CPU runs the same gates on the kernels' plain
+    versions. Attention kernels need bf16 compute (``use_flash``):
+
+    * K1 for a quantized ``q_w`` whose heads pair into 128 lanes (even
+      head count, 2 * dh == 128);
+    * K3 for a float ``q_w`` with the same head geometry;
+    * K9 for any other head geometry, float or int8 projections;
+
+    at f32 the attention is LN, the projections and :func:`_attention` in
+    torch ops (XLA in the reference). K2 runs for a quantized ``fc1_w``
+    at a width that is a multiple of 128, at any compute dtype."""
     d, n_head = cfg.n_audio_state, cfg.n_audio_head
-    k1 = (is_quantized(blocks["q_w"]) and n_head % 2 == 0
-          and 2 * (d // n_head) == 128)
-    k2 = is_quantized(blocks["fc1_w"]) and d % 128 == 0
-    if ((k1 or k2) and torch.device(device).type != "cpu"
-            and compute_dtype != torch.bfloat16):
-        raise NotImplementedError(
-            f"the int8 encoder kernels on {torch.device(device).type} take "
-            f"bf16 activations; {compute_dtype} compute is not ported yet "
-            "(ROADMAP.md queue 2, K1/K2 f32 variant)")
-    return k1, k2
+    attention = None
+    if compute_dtype == torch.bfloat16:
+        if n_head % 2 == 0 and 2 * (d // n_head) == 128:
+            attention = "K1" if is_quantized(blocks["q_w"]) else "K3"
+        else:
+            attention = "K9"
+    return EncoderGates(attention,
+                        is_quantized(blocks["fc1_w"]) and d % 128 == 0)
 
 
 ATTN_BLOCK_Q = 256     # the reference's T padding quantum (NWT_ATTN_BQ)
@@ -195,26 +208,26 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
 
 def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
             compute_dtype) -> torch.Tensor:
-    from ..ops.encoder_attention import encoder_attention_fused_qkv
+    from ..ops import encoder_attention as ea
     from ..ops.fused_mlp import encoder_mlp_int8_resident
 
     enc = params["encoder"]
     gelu = _gelu_fast if compute_dtype == torch.bfloat16 else _gelu
     n_head = cfg.n_audio_head
     blocks = enc["blocks"]
-    use_k1, use_k2 = encoder_kernel_gates(cfg, blocks, compute_dtype,
-                                          mel.device)
+    attn, use_k2 = encoder_kernel_gates(cfg, blocks, compute_dtype)
 
     x = mel.transpose(-1, -2).to(compute_dtype)              # (B, T, mels)
     x = gelu(_conv1d(x, enc["conv1_w"], enc["conv1_b"], stride=1))
     x = gelu(_conv1d(x, enc["conv2_w"], enc["conv2_b"], stride=2))
     x = x + enc["pos"][: x.shape[1]].to(compute_dtype)
     bsz, t_real, d = x.shape
-    if use_k1:
-        # pad once to the attention kernel's T quantum (padded keys are
-        # masked; padded rows are sliced off after the stack)
-        tp = -(-t_real // ATTN_BLOCK_Q) * ATTN_BLOCK_Q
-        x = F.pad(x, (0, 0, 0, tp - t_real))
+    # the attention kernels' T: padded keys are masked and padded rows
+    # sliced off, once around the stack for the flat kernels (K1, K3),
+    # around each layer's attention for K9
+    pad = (0, 0, 0, -(-t_real // ATTN_BLOCK_Q) * ATTN_BLOCK_Q - t_real)
+    if attn in ("K1", "K3"):
+        x = F.pad(x, pad)
 
     def lin(h, w, bias=None):
         if is_quantized(w):
@@ -222,19 +235,31 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
         y = h @ w
         return y if bias is None else y + bias
 
-    dh = d // n_head
+    sm_scale = float(d // n_head) ** -0.5
     for i in range(cfg.n_audio_layer):
         p = _layer(blocks, i)
-        if use_k1:
-            a = encoder_attention_fused_qkv(
+        if attn == "K1":
+            a = ea.encoder_attention_fused_qkv(
                 x, p["ln1_g"], p["ln1_b"], p["q_w"], p["q_b"], p["k_w"],
-                p["v_w"], p["v_b"], t_real, float(dh) ** -0.5, n_head)
+                p["v_w"], p["v_b"], t_real, sm_scale, n_head)
         else:
             h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
-            q = _split_heads(lin(h, p["q_w"], p["q_b"]), n_head)
-            k = _split_heads(lin(h, p["k_w"]), n_head)
-            v = _split_heads(lin(h, p["v_w"], p["v_b"]), n_head)
-            a = _merge_heads(_attention(q, k, v, mask=None))
+            q = lin(h, p["q_w"], p["q_b"])
+            k = lin(h, p["k_w"])
+            v = lin(h, p["v_w"], p["v_b"])
+            if attn == "K3":
+                a = ea.encoder_attention_btd(q, k, v, t_real, sm_scale,
+                                             n_head)
+            elif attn == "K9":
+                a = ea.encoder_attention(
+                    *(F.pad(_split_heads(z, n_head), pad) for z in (q, k, v)),
+                    t_real, sm_scale)[..., :t_real, :]
+                a = _merge_heads(a.to(x.dtype))
+            else:
+                a = _merge_heads(_attention(_split_heads(q, n_head),
+                                            _split_heads(k, n_head),
+                                            _split_heads(v, n_head),
+                                            mask=None))
         x = x + lin(a, p["o_w"], p["o_b"])
         if use_k2:
             t = x.shape[1]

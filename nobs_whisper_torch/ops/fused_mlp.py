@@ -7,7 +7,10 @@ how the design answers that.
 
 :func:`encoder_mlp_int8_resident` launches the kernel for a CUDA tensor
 (or raises) and runs :func:`encoder_mlp_int8_resident_plain` for a CPU
-tensor. ``launch_count`` counts kernel launches only.
+tensor. ``launch_count`` counts kernel launches only, of both variants:
+bf16 activations, and f32 for the int8 encoder at f32 compute (the
+reference's K2 gate tests no dtype); ``launch_count_f32`` counts the f32
+variant's launches alone.
 """
 
 from __future__ import annotations
@@ -19,9 +22,12 @@ import torch
 from .quant import int8_matmul_exact, ln_f32, quantize_rows
 
 launch_count = 0
+launch_count_f32 = 0
 
-_SIG = {"nwt_encoder_mlp_int8":
-        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SIG = {"nwt_encoder_mlp_int8": _ARGS, "nwt_encoder_mlp_int8_f32": _ARGS}
+_ENTRY = {torch.bfloat16: "nwt_encoder_mlp_int8",
+          torch.float32: "nwt_encoder_mlp_int8_f32"}
 
 
 def resolve_block_f(block_f: int, ffn: int) -> int:
@@ -67,12 +73,12 @@ def encoder_mlp_int8_resident(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
                               block_f: int = 640) -> torch.Tensor:
     """x + fc2(requant(gelu_tanh(fc1(quant(LN x))))) with int8 weights.
 
-    ``x``: (M, d); ``fc1``/``fc2``: int8 QTensors, (d, ffn) and (ffn, d)
+    ``x``: (M, d) bf16 or f32; ``fc1``/``fc2``: int8 QTensors, (d, ffn) and (ffn, d)
     in the (d_in, d_out) layout with (1, d_out) f32 scales; ``fc1_b``
     (ffn,), ``fc2_b`` (d,). ``block_f`` is the fc2-input re-quantization
     chunk (resolved as the reference does). The reference's VMEM row tile
     ``block_m`` does not change the result and has no counterpart here."""
-    global launch_count
+    global launch_count, launch_count_f32
     m, d = x.shape
     ffn = fc1["q"].shape[-1]
     if x.device.type == "cpu":
@@ -81,11 +87,10 @@ def encoder_mlp_int8_resident(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     block_f = resolve_block_f(block_f, ffn)
-    if (x.dtype != torch.bfloat16 or d % 128 or ffn % 128
-            or block_f % 128):
-        raise ValueError(f"kernel takes bf16 x, d % 128 == 0 and a chunk "
-                         f"that is a multiple of 128; got {x.dtype} d={d} "
-                         f"ffn={ffn} block_f={block_f}")
+    if x.dtype not in _ENTRY or d % 128 or ffn % 128 or block_f % 128:
+        raise ValueError(f"kernel takes bf16 or f32 x, d % 128 == 0 and a "
+                         f"chunk that is a multiple of 128; got {x.dtype} "
+                         f"d={d} ffn={ffn} block_f={block_f}")
     if (fc1["q"].dtype != torch.int8 or fc2["q"].dtype != torch.int8
             or tuple(fc1["q"].shape) != (d, ffn)
             or tuple(fc2["q"].shape) != (ffn, d)):
@@ -105,11 +110,12 @@ def encoder_mlp_int8_resident(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
     amax = torch.empty((m, ffn // block_f), dtype=torch.int32, device=dev)
     aq = torch.empty((m, ffn), dtype=torch.int8, device=dev)
     ptr = lambda z: ctypes.c_void_p(z.data_ptr())
-    err = lib.nwt_encoder_mlp_int8(
+    err = getattr(lib, _ENTRY[x.dtype])(
         ptr(x), ptr(g), ptr(be), ptr(w1), ptr(s1), ptr(b1),
         ptr(w2), ptr(s2), ptr(b2), ptr(out), ptr(xq), ptr(sx), ptr(a),
         ptr(amax), ptr(aq), m, d, ffn, block_f,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "encoder_mlp_int8_resident")
     launch_count += 1
+    launch_count_f32 += int(x.dtype == torch.float32)
     return out

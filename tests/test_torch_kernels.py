@@ -1,5 +1,6 @@
-"""K1 and K2 plain PyTorch versions against the JAX Pallas kernels run in
-interpret mode, on the JAX tests' own cases.
+"""K1, K2 (bf16 and f32 activations), K3 and K9 plain PyTorch versions
+against the JAX Pallas kernels run in interpret mode, on the JAX tests' own
+cases.
 
 The port's wrappers run the plain version for CPU tensors; on the card they
 launch the CUDA kernels (tests/test_torch_kernels_gpu.py). Inputs are made
@@ -22,6 +23,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from nobs_whisper_tpu.ops.encoder_attention import \
+    encoder_attention as jax_k9
+from nobs_whisper_tpu.ops.encoder_attention import \
+    encoder_attention_btd as jax_k3
 from nobs_whisper_tpu.ops.encoder_attention import \
     encoder_attention_fused_qkv as jax_k1
 from nobs_whisper_tpu.ops.fused_mlp import \
@@ -123,6 +128,85 @@ def test_k2_plain_matches_pallas_interpret(block_f):
     np.testing.assert_allclose(got.float().numpy(), ref, **BF16_STEP)
 
 
+def test_k2_plain_f32_matches_pallas_interpret():
+    """The f32-activation variant (the int8 encoder at f32 compute runs K2
+    as the reference's gate tests no dtype): f32 in, f32 out. Both sides
+    compute in f32 with the same roundings; what is left is summation
+    order, which can flip an int8 activation by one step and move an fc2
+    row by ~1e-2: held to 2e-2, under the JAX test's 0.05."""
+    x, g, be, fc1, b1, fc2, b2 = _k2_case(300, 256, 512, seed=4)
+    x = x + np.float32(1e-3) * np.random.RandomState(5).randn(
+        *x.shape).astype(np.float32)          # not bf16-representable
+    ref = np.asarray(jax_k2(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(be), fc1,
+        jnp.asarray(b1), fc2, jnp.asarray(b2), block_m=128, block_f=128,
+        interpret=True))
+    assert ref.dtype == np.float32
+    t = torch.from_numpy
+    got = fm.encoder_mlp_int8_resident(
+        t(x), t(g), t(be), _qt(fc1), t(b1), _qt(fc2), t(b2), block_f=128)
+    assert got.dtype == torch.float32 and got.shape == (300, 256)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-2, atol=2e-2)
+
+
+def _bhtd(b, h, t, dh, seed):
+    """The JAX tests' q/k/v (tests/test_encoder_attention.py::_qkv): bf16,
+    made from a seed with numpy."""
+    rng = np.random.RandomState(seed)
+    return [_bf16_np(rng.randn(b, h, t, dh).astype(np.float32) * 0.5)
+            for _ in range(3)]
+
+
+def _to_flat(z):                      # (B, H, T, dh) -> (B, T, H * dh)
+    b, h, t, dh = z.shape
+    return np.ascontiguousarray(z.transpose(0, 2, 1, 3).reshape(b, t, h * dh))
+
+
+def _tb(z):
+    return torch.from_numpy(z).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,h,t,n_real,seed", [
+    (2, 3, 256, 256, 1), (2, 3, 256, 250, 1), (2, 3, 256, 119, 1),
+    (1, 2, 128, 128, 2),                     # single block
+    (1, 2, 256, 40, 3),                      # n_real inside one 64-key tile
+])
+def test_k9_plain_matches_pallas_interpret(b, h, t, n_real, seed):
+    """tests/test_encoder_attention.py:21 and :36; bf16 outputs within one
+    bf16 step (the f32 sums differ in order only)."""
+    q, k, v = _bhtd(b, h, t, 64, seed)
+    sm = 64.0 ** -0.5
+    ref = np.asarray(jax_k9(*(jnp.asarray(z, jnp.bfloat16) for z in (q, k, v)),
+                            n_real, sm, block_q=128, interpret=True),
+                     np.float32)
+    got = ea.encoder_attention(_tb(q), _tb(k), _tb(v), n_real, sm)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    got = got.float().numpy()
+    assert np.isfinite(got).all()          # padded query rows too
+    np.testing.assert_allclose(got[..., :n_real, :], ref[..., :n_real, :],
+                               **BF16_STEP)
+
+
+@pytest.mark.parametrize("b,h,t,n_real,seed", [
+    (2, 4, 256, 256, 4), (2, 4, 256, 250, 4), (2, 4, 256, 119, 4),
+    (1, 6, 128, 128, 5),                     # many pairs, single block
+    (1, 2, 256, 40, 6),                      # n_real inside one 64-key tile
+])
+def test_k3_plain_matches_pallas_interpret(b, h, t, n_real, seed):
+    """tests/test_encoder_attention.py:47 and :67, flat (B, T, d) layout;
+    within one bf16 step."""
+    q, k, v = (_to_flat(z) for z in _bhtd(b, h, t, 64, seed))
+    sm = 64.0 ** -0.5
+    ref = np.asarray(jax_k3(*(jnp.asarray(z, jnp.bfloat16) for z in (q, k, v)),
+                            n_real, sm, h, block_q=128, interpret=True),
+                     np.float32)
+    got = ea.encoder_attention_btd(_tb(q), _tb(k), _tb(v), n_real, sm, h)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got[:, :n_real], ref[:, :n_real], **BF16_STEP)
+
+
 @pytest.mark.parametrize("block_f,ffn,want", [
     (2560, 5120, 2560), (2560, 512, 512), (640, 512, 512), (128, 512, 128),
     (384, 512, 256), (300, 512, 512),
@@ -149,7 +233,19 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     torch.testing.assert_close(
         y, fm.encoder_mlp_int8_resident_plain(*margs, block_f=256),
         rtol=0, atol=0)
+    k3, k9, k2f = ea.k3_launch_count, ea.k9_launch_count, fm.launch_count_f32
+    q, kk, v = (_tb(z) for z in _bhtd(1, 2, 128, 64, seed=7))
+    torch.testing.assert_close(
+        ea.encoder_attention(q, kk, v, 100, 0.125),
+        ea.encoder_attention_plain(q, kk, v, 100, 0.125), rtol=0, atol=0)
+    qf, kf, vf = (_tb(_to_flat(z.float().numpy())) for z in (q, kk, v))
+    torch.testing.assert_close(
+        ea.encoder_attention_btd(qf, kf, vf, 100, 0.125, 2),
+        ea.encoder_attention_btd_plain(qf, kf, vf, 100, 0.125, 2),
+        rtol=0, atol=0)
     assert (ea.launch_count, fm.launch_count) == (k1, k2)
+    assert (ea.k3_launch_count, ea.k9_launch_count,
+            fm.launch_count_f32) == (k3, k9, k2f)
 
 
 def test_int8_products_are_exact():

