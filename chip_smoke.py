@@ -38,8 +38,7 @@ arguments). Phases; any failure exits non-zero before the result line:
    dh=64 tiny checkpoint and a WAV;
 6. one ``kernels`` JSON line, then the result line.
 
-``--phases`` (for iterating on one phase) runs a subset and prints no
-result line. Imports nothing of JAX and nothing of ``nobs_whisper_tpu``.
+Imports nothing of JAX and nothing of ``nobs_whisper_tpu``.
 """
 
 import json
@@ -703,17 +702,8 @@ def phase_cli(card):
     return ok
 
 
-PHASES = ("kernels", "reference", "serve", "transcribe")
-
-
 def main():
-    import argparse
     import torch
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES)
-                    + " (a subset prints no result line)")
-    phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -723,43 +713,35 @@ def main():
     t_start = time.perf_counter()
     smi = phase_card_and_build()
     card = smi
-    ok, kern, launches = True, {}, {}
-    if "kernels" in phases:
-        kern = phase_kernels()
-    if "reference" in phases:
-        ok &= phase_reference()
-    if "serve" in phases or "transcribe" in phases:
-        from nobs_whisper_torch.api import WhisperEngine
-        t0 = time.perf_counter()
-        eng = WhisperEngine.from_random("large-v3-turbo", seed=0,
-                                        device="cuda")
-        torch.cuda.synchronize()
-        cfg = eng.cfg
-        log(f"[engine] large-v3-turbo d={cfg.n_audio_state} enc_layers="
-            f"{cfg.n_audio_layer} dec_layers={cfg.n_text_layer} heads "
-            f"{cfg.n_audio_head}, random weights from seed 0, bf16: built "
-            f"in {time.perf_counter() - t0:.1f} s")
-    if "serve" in phases:
-        serve_ok, counts = phase_serving(card, eng)
-        ok &= serve_ok
-        launches.update(counts)
-    if "transcribe" in phases:
-        tr_ok, counts = phase_transcribe(card, eng)
-        ok &= tr_ok
-        launches.update(counts)
+    ok, launches = True, {}
+    kern = phase_kernels()
+    ok &= phase_reference()
+    from nobs_whisper_torch.api import WhisperEngine
+    t0 = time.perf_counter()
+    eng = WhisperEngine.from_random("large-v3-turbo", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    cfg = eng.cfg
+    log(f"[engine] large-v3-turbo d={cfg.n_audio_state} enc_layers="
+        f"{cfg.n_audio_layer} dec_layers={cfg.n_text_layer} heads "
+        f"{cfg.n_audio_head}, random weights from seed 0, bf16: built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    serve_ok, counts = phase_serving(card, eng)
+    ok &= serve_ok
+    launches.update(counts)
+    tr_ok, counts = phase_transcribe(card, eng)
+    ok &= tr_ok
+    launches.update(counts)
     entries = []
     for key, e in kern.items():
         e = dict(e)
         ok &= e.pop("ok")
         e["launches"] = launches.get(key, 0)
-        ok &= e["launches"] > 0 or set(phases) != set(PHASES)
+        ok &= e["launches"] > 0
         entries.append(e)
     log(f"[done] {card}: total {time.perf_counter() - t_start:.1f} s, "
-        f"phases {','.join(phases)} {'PASS' if ok else 'FAIL'}")
+        f"{'PASS' if ok else 'FAIL'}")
     if not ok:
         return 1
-    if set(phases) != set(PHASES):
-        return 0
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

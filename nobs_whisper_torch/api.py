@@ -222,8 +222,12 @@ class WhisperEngine:
         """Sequential chunk transcription with rolling text context: chunk
         N's transcript becomes chunk N+1's context (its prompt, through
         ``WhisperTokenizer.encode``); results joined with spaces; a chunk
-        that fails is logged and skipped."""
+        that fails is logged and skipped. A missing text encoder is not a
+        chunk's failure: it raises before the first chunk."""
         self._require_model()
+        chunks = list(chunks)
+        if self.tokenizer is not None and (vocabulary or len(chunks) > 1):
+            self.tokenizer.require_encoder()
         results: List[str] = []
         rolling: Optional[str] = None
         for i, chunk in enumerate(chunks):

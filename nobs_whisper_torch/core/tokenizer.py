@@ -75,6 +75,27 @@ class WhisperTokenizer:
     # ------------------------------------------------------------------
     # core encode / decode
     # ------------------------------------------------------------------
+    def require_encoder(self):
+        """Build the BPE encoder now, or raise ``ImportError`` naming the
+        ROADMAP item when ``tiktoken`` is missing. Callers that will
+        encode later, where a raise would be caught (``transcribe_chunked``
+        isolates each chunk's errors), check here first."""
+        if self._enc is None:
+            try:
+                import tiktoken  # offline: ranks are supplied
+            except ImportError as e:
+                raise ImportError(
+                    "WhisperTokenizer.encode needs tiktoken, which is not "
+                    "installed (a tiktoken-free encoder: ROADMAP.md queue 1, "
+                    "item 14)") from e
+            self._enc = tiktoken.Encoding(
+                name=f"whisper-{self.config.name}",
+                pat_str=_PAT,
+                mergeable_ranks=self._ranks,
+                special_tokens={},  # specials handled explicitly below
+            )
+        return self._enc
+
     def encode(self, text: str) -> List[int]:
         """Text -> token ids (no special tokens).
 
@@ -86,16 +107,7 @@ class WhisperTokenizer:
         lookup of " ") is answered from the ranks directly."""
         if len(text) == 1 and text.encode("utf-8") in self._ranks:
             return [self._ranks[text.encode("utf-8")]]
-        if self._enc is None:
-            import tiktoken  # offline: ranks are supplied
-
-            self._enc = tiktoken.Encoding(
-                name=f"whisper-{self.config.name}",
-                pat_str=_PAT,
-                mergeable_ranks=self._ranks,
-                special_tokens={},  # specials handled explicitly below
-            )
-        return self._enc.encode(text, disallowed_special=())
+        return self.require_encoder().encode(text, disallowed_special=())
 
     def decode(self, ids: Iterable[int]) -> str:
         """Token ids -> text, dropping all special/timestamp tokens."""

@@ -179,3 +179,28 @@ def speech_like_audio(duration_s: float, seed: int = 0,
         out[pos:pos + seg.size] = seg
         pos += burst + gap
     return out
+
+
+class KernelSpies:
+    """Count calls of the encoder kernels' plain versions (what the
+    wrappers run on CPU tensors) while the port's encoder runs. ``patch``
+    is a setattr such as pytest's ``monkeypatch.setattr``, which undoes
+    the spies after the test; ``calls`` maps K1, K2, K3, K9 to counts."""
+
+    NAMES = {"K1": ("ea", "encoder_attention_fused_qkv_plain"),
+             "K3": ("ea", "encoder_attention_btd_plain"),
+             "K9": ("ea", "encoder_attention_plain"),
+             "K2": ("fm", "encoder_mlp_int8_resident_plain")}
+
+    def __init__(self, patch):
+        from ..ops import encoder_attention as ea
+        from ..ops import fused_mlp as fm
+        mods = {"ea": ea, "fm": fm}
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        for key, (mod, name) in self.NAMES.items():
+            real = getattr(mods[mod], name)
+
+            def spy(*a, _key=key, _real=real, **k):
+                self.calls[_key] += 1
+                return _real(*a, **k)
+            patch(mods[mod], name, spy)

@@ -162,6 +162,28 @@ def test_transcribe_chunked_matches_reference(engines):
     assert got == want and got
 
 
+def test_transcribe_chunked_without_tiktoken_raises(tiny_ckpt, monkeypatch):
+    """Without ``tiktoken`` a rolling context or a vocabulary cannot be
+    encoded: ``transcribe_chunked`` raises before the first chunk and names
+    the ROADMAP item, where per-chunk isolation would have skipped every
+    chunk after the first. One chunk with no vocabulary encodes nothing
+    and runs."""
+    from nobs_whisper_torch.api import WhisperEngine
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    monkeypatch.setitem(sys.modules, "tiktoken", None)   # import fails
+    eng = WhisperEngine.from_ggml(tiny_ckpt, dtype=torch.float32,
+                                  device="cpu")
+    to = _greedy()[1]
+    chunks = [speech_like_audio(0.6, seed=1), speech_like_audio(0.9, seed=2)]
+    for kw in (dict(chunks=chunks),
+               dict(chunks=chunks[:1], vocabulary="pallas")):
+        with pytest.raises(ImportError, match="ROADMAP.md queue 1, item 14"):
+            eng.transcribe_chunked(language="en", opts=to, **kw)
+    one = eng.transcribe_chunked(chunks[:1], language="en", opts=to)
+    assert one and one == eng.transcribe(chunks[0], language="en",
+                                         opts=to).text
+
+
 def _cli(module, args, home):
     env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
            "JAX_PLATFORMS": "cpu", "NOBS_WHISPER_TPU_HOME": home,
