@@ -25,7 +25,7 @@ arguments). Phases; any failure exits non-zero before the result line:
    ``BatchedEngine(max_batch=8)``: five concurrent window requests (one
    auto-language), two more fixed-language ones, and one 45 s long-form
    request; launch counters reset just before and read just after must
-   equal 32 x encoder batches; then three of the window requests again
+   equal 32 x encoder batches; then one of the window requests again
    under ``torch.profiler`` for where the device time goes;
 5. file transcription, the JAX package's default ``transcribe`` path:
    ``WhisperEngine.from_random("large-v3-turbo")`` unquantized at bf16,
@@ -36,7 +36,26 @@ arguments). Phases; any failure exits non-zero before the result line:
    layer; one f32 int8 encoder batch at full width takes K2's f32 variant
    32 times and no K1; the CLI ``transcribe`` verb in a subprocess on a
    dh=64 tiny checkpoint and a WAV;
-6. one ``kernels`` JSON line, then the result line.
+6. the decode-step kernels on their paths, under the reference's knobs
+   (set in-process around each path and restored after): int8 cross-KV
+   serving, ``BatchedEngine(quantized, max_batch=8,
+   opts=DecodeOptions(q8_cross_kv=True))`` with ``NWT_Q8_KV_PALLAS=1`` and
+   ``NWT_Q8_KERNEL_MIN_BYTES=1``, one concurrent wave of three requests
+   (one auto-language) whose K5 and K6 launches must equal what the gates
+   predict for the decoder forwards it ran (K1 = K2 = 32 x encoder
+   batches, K4 = 0), then one of them under ``torch.profiler``; and K4 on
+   the file path (``NWT_XATTN_KERNEL=1``, one ``transcribe`` of a 12 s clip
+   on the unquantized engine: K4 once a layer in each single-token
+   forward, K6 = 0). With no knob set, no earlier phase launches K4, K5
+   or K6;
+7. one ``kernels`` JSON line, then the result line.
+
+Phase 2 also checks K4 and K5 (B=8 and B=1, H=20, Dh=64, Tp=1536,
+t_real=1500) and K6 (the logit projection 1280 x 51,866 at M=8 with bf16
+and with f32 x, fc1 1280 x 5120, fc2 5120 x 1280, M=256); phase 3 also
+holds a d=128 dh=64 int8 decoder with the three knobs on against the same
+model on the CPU (f32: greedy tokens equal; bf16: prefill and step
+logits within a tolerance).
 
 Imports nothing of JAX and nothing of ``nobs_whisper_tpu``.
 """
@@ -65,6 +84,18 @@ K2_TOL = 5e-2      # tests/test_fused_mlp.py:78
 # K3 and K9 share K1's attention arithmetic and are held the same way:
 # one bf16 step elementwise, 2e-2 (test_encoder_attention.py) as ceiling
 ATTN_STEP, ATTN_TOL = K1_STEP, K1_TOL
+# K4 and K5 keep the TPU kernels' rounding points and differ from their
+# plain versions in f32 summation order only, which can flip one bf16
+# probability: one bf16 step elementwise, 2e-2
+# (test_attention_pallas.py:59,86) as ceiling
+XATTN_STEP, XATTN_TOL = K1_STEP, K1_TOL
+# K6 rounds the same bf16 operands as its plain version; the order (and in
+# the tensor cores the rounding) of its f32 sums differs: 1e-3 absolute +
+# 1e-3 relative on outputs of order 1
+K6_TOL = dict(rtol=1e-3, atol=1e-3)
+# the decode kernels' knobs (models/whisper.py), set around their paths
+DECODE_KNOBS = ("NWT_XATTN_KERNEL", "NWT_Q8_KV_PALLAS",
+                "NWT_Q8_KERNEL_MIN_BYTES")
 
 
 def log(*a):
@@ -257,6 +288,147 @@ def phase_kernels():
         n_real=1500)
     out["K9"]["ok"] &= odd["ok"]
     torch.cuda.empty_cache()
+    out.update(decode_kernel_checks())
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bound(nbytes, flops):
+    """(bound ms, what bounds it) against the published H100 peaks."""
+    tb, to = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def xattn_check(key, b, h=20, t=1500, dh=64, seed=30):
+    """K4 (packed bf16) or K5 (int8 cross-KV) at the decode step's shapes
+    against its plain version; the yardstick is SDPA on the same bf16 q,
+    K and V in the (B, H, T, Dh) layout (K5: on K/V dequantized to bf16
+    before timing, twice the bytes K5 reads), keys past the real ones
+    masked."""
+    import torch
+    import torch.nn.functional as F
+    from nobs_whisper_torch.ops import attention_pallas as ap
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + b)
+    q = (torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16)
+    k = torch.randn(1, b, h, t, dh, generator=g, device=dev)
+    v = torch.randn(1, b, h, t, dh, generator=g, device=dev)
+    if key == "K4":
+        kd, vd = ap.pack_cross_kv_bf16((k, v))
+        packed = {"kT": kd["kT"][0], "v": vd["v"][0]}
+        tp = packed["kT"].shape[-1]
+        fn = lambda: ap.cross_attention_decode_bf16(q, packed, t)
+        plain = lambda: ap.cross_attention_decode_bf16_plain(q, packed, t)
+        kh = packed["kT"].transpose(-1, -2).contiguous()
+        vh = packed["v"]
+        mask = torch.arange(tp, device=dev)[None, :] < t
+        # K and V of the real positions, q read, out written (f32)
+        nbytes = 2 * b * h * t * dh * 2 + b * h * dh * (2 + 4)
+        name, lib = "cross_attention_decode_bf16", "SDPA on bf16 q/k/v"
+    else:
+        kq, vq = ap.quantize_cross_kv((k, v))
+        kq = {z: w[0] for z, w in kq.items()}
+        vq = {z: w[0] for z, w in vq.items()}
+        tp = kq["q"].shape[-1]
+        fn = lambda: ap.cross_attention_decode_q8(q, kq, vq)
+        plain = lambda: ap.cross_attention_decode_q8_plain(q, kq, vq)
+        kh = (kq["q"].float() * kq["s"][:, :, None, :]).transpose(
+            -1, -2).to(torch.bfloat16).contiguous()
+        vh = (vq["q"].float() * vq["s"][..., None]).to(torch.bfloat16)
+        mask = kq["s"][:, :, None, :] > 0
+        # every position's int8 K and V and both scales (the mask is by
+        # scale), q read, out written
+        nbytes = b * h * tp * (2 * dh + 2 * 4) + b * h * dh * (2 + 4)
+        name = "cross_attention_decode_q8"
+        lib = "SDPA on K/V dequantized to bf16 (2x K5's bytes)"
+    got = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    diff = (got - ref).abs()
+    err = diff.max().item()
+    steps = (diff / (XATTN_STEP["atol"] + XATTN_STEP["rtol"]
+                     * ref.abs())).max().item()
+    finite = bool(torch.isfinite(got).all())
+    ms = cuda_ms(fn, reps=50)
+    plain_ms = cuda_ms(plain, reps=10, warmup=2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kh, vh, attn_mask=mask, scale=float(dh) ** -0.5), reps=50)
+    bound, by = _bound(nbytes, 4.0 * b * h * t * dh)
+    ok = finite and steps <= 1.0 and err < XATTN_TOL
+    log(f"[kernel] {key} {name} B={b} H={h} Dh={dh} Tp={tp} t_real={t}: "
+        f"max_abs_err {err:.3e} (ceiling {XATTN_TOL}), max |kernel - plain|"
+        f" / (atol + rtol |plain|) {steps:.3f} (<= 1, {XATTN_STEP}) finite "
+        f"{finite} -> {'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} "
+        f"MB), {lib} {lib_ms:.4f} ms")
+    return dict(name=name, route="cuda",
+                source="nobs_whisper_torch/csrc/cross_attention_decode.cu",
+                replaces=("nobs_whisper_tpu/ops/attention_pallas.py:189"
+                          if key == "K4" else
+                          "nobs_whisper_tpu/ops/attention_pallas.py:111"),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, ok=ok)
+
+
+def q8_check(m, k, n, x_dtype, what, seed=40):
+    """K6 on one decoder weight shape against its plain version; the
+    yardstick is torch.matmul of bf16 x with the weight dequantized to
+    bf16 before timing."""
+    import torch
+    from nobs_whisper_torch.ops import quant as qt
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + m + n)
+    x = torch.randn(m, k, generator=g, device=dev).to(x_dtype)
+    w = qt.quantize_int8(torch.randn(k, n, generator=g, device=dev)
+                         * k ** -0.5)
+    got = qt.q8_matmul(x, w)
+    torch.cuda.synchronize()
+    ref = qt.q8_matmul_plain(x, w)
+    err = (got - ref).abs().max().item()
+    close = bool(torch.allclose(got, ref, **K6_TOL))
+    ms = cuda_ms(lambda: qt.q8_matmul(x, w), reps=50)
+    plain_ms = cuda_ms(lambda: qt.q8_matmul_plain(x, w), reps=10, warmup=2)
+    xb = x.to(torch.bfloat16)
+    wb = (w["q"].to(torch.bfloat16) * w["s"].to(torch.bfloat16))
+    lib_ms = cuda_ms(lambda: torch.matmul(xb, wb), reps=50)
+    nbytes = k * n + n * 4 + m * k * x.element_size() + m * n * 4
+    bound, by = _bound(nbytes, 2.0 * m * k * n)
+    ok = close and bool(torch.isfinite(got).all())
+    log(f"[kernel] K6 q8_matmul {what} M={m} K={k} N={n} x {x_dtype}: "
+        f"max_abs_err {err:.3e} ({K6_TOL}) -> {'PASS' if ok else 'FAIL'}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms"
+        f" ({by}, {nbytes / 1e6:.2f} MB), torch.matmul on bf16-dequantized "
+        f"weight {lib_ms:.4f} ms")
+    return dict(name="q8_matmul", route="cuda",
+                source="nobs_whisper_torch/csrc/q8_matmul.cu",
+                replaces="nobs_whisper_tpu/ops/quant.py:73", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, ok=ok)
+
+
+def decode_kernel_checks():
+    """K4 and K5 at B=8 and B=1 (the line keeps B=8), K6 on the decoder's
+    shapes (the line keeps the logit projection with f32 x, which the
+    serving path runs; every check must pass)."""
+    import torch
+    out = {}
+    for key in ("K4", "K5"):
+        e8 = xattn_check(key, b=8)
+        e1 = xattn_check(key, b=1)
+        e8["ok"] &= e1["ok"]
+        out[key] = e8
+    logits = q8_check(8, 1280, 51866, torch.float32, "logits")
+    ok = logits["ok"]
+    for args in ((8, 1280, 51866, torch.bfloat16, "logits"),
+                 (8, 1280, 5120, torch.bfloat16, "fc1"),
+                 (8, 5120, 1280, torch.bfloat16, "fc2"),
+                 (256, 1280, 51866, torch.bfloat16, "logits, M=256")):
+        e = q8_check(*args)
+        ok &= e["ok"]
+        logits["max_abs_err"] = max(logits["max_abs_err"], e["max_abs_err"])
+    logits["ok"] = ok
+    out["K6"] = logits
     return out
 
 
@@ -428,7 +600,140 @@ def phase_reference():
     log(f"[reference] int8 encoder d=128 dh=64 f32 card (K2 f32, no K1) vs "
         f"CPU plain: max_abs_err {err:.3e} (tol {ENC_TOL}), launches per "
         f"layer {through} -> {'PASS' if f32_ok else 'FAIL'}")
-    return xa_ok and tok_ok and enc_ok and k3_ok and f32_ok
+    with knobs(DECODE_KNOBS):
+        dec_ok = reference_decoder(dev)
+    return xa_ok and tok_ok and enc_ok and k3_ok and f32_ok and dec_ok
+
+
+DEC_LOGIT_TOL = 5e-2   # bf16 decoder, 2 layers: see reference_decoder
+
+
+class knobs:
+    """Set environment knobs to "1" in-process; restore them on exit."""
+
+    def __init__(self, names):
+        self.names = names
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.names}
+        for k in self.names:
+            os.environ[k] = "1"
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+DEC_SEED = 6
+
+
+def reference_decoder(dev):
+    """A d=128 dh=64 int8 decoder (and its tiny logit projection, N=1000)
+    with the three decode knobs on, on the card against the same model's
+    plain run on the CPU:
+
+    * f32 compute, int8 cross-KV (K5, K6) and the packed layout (K4, K6):
+      greedy tokens equal, and the launches what the gates predict;
+    * int8 cross-KV at f32 and at bf16 compute: the prefill logits (K6
+      alone: more than one token) and the next single-token forward's (K5
+      and K6) within 5e-2 of the CPU's. The two runs share every rounding
+      rule, but K5 and K6 round their inputs to bf16 as the TPU kernels
+      do, also at f32 compute, so an f32 summation-order difference
+      upstream can become a bf16 step (2^-8 relative) of one input, which
+      moves a logit of order 1 by about 1e-2.
+
+    Greedy tokens follow the logits only where no two choices are that
+    close: on weight seed 5 one of the three int8 cross-KV windows
+    diverged between card and CPU; seed 6 is the model here."""
+    import numpy as np
+    import torch
+    from nobs_whisper_torch.decode.greedy import decode_window
+    from nobs_whisper_torch.decode.rules import DecodeOptions, build_rule_tables
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops import attention_pallas as ap
+    from nobs_whisper_torch.ops.quant import quantize_decoder_params
+    from nobs_whisper_torch.utils.testing import tiny_test_config
+    cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=160, n_text_ctx=64)
+    params = quantize_decoder_params(mw.init_params(DEC_SEED, cfg))
+    to_dev = lambda t: ({k: to_dev(v) for k, v in t.items()}
+                        if isinstance(t, dict) else t.to(dev))
+    xa = torch.from_numpy(np.random.RandomState(6).randn(
+        3, cfg.n_audio_ctx, cfg.n_audio_state).astype(np.float32))
+    prompts = [[cfg.sot, cfg.lang_base + i, cfg.transcribe]
+               for i in range(3)]
+    ok = True
+    for opts in (DecodeOptions(q8_cross_kv=True),
+                 DecodeOptions(xattn_bf16=True)):
+        tables = build_rule_tables(cfg, opts)
+        reset_counts()
+        got = decode_window(to_dev(params), xa.to(dev), prompts, cfg,
+                            tables, opts)
+        torch.cuda.synchronize()
+        c = read_counts()
+        want = predicted_decode_launches(c["forwards"], cfg.n_text_layer)
+        ref = decode_window(params, xa, prompts, cfg, tables, opts)
+        same = [r.tokens for r in got] == [r.tokens for r in ref]
+        first = [next((i for i, (a, b) in enumerate(zip(g.tokens, r.tokens))
+                       if a != b), None) for g, r in zip(got, ref)]
+        counts_ok = all(c[k] == want[k] for k in want) and c["K6"] > 0
+        layout = "q8" if opts.q8_cross_kv else "packed"
+        log(f"[reference] int8 decoder d=128 dh=64 f32 {layout} cross-KV, "
+            f"knobs on, card vs CPU plain: greedy tokens "
+            f"{[len(r.tokens) for r in got]} equal {same} (first "
+            f"difference by window {first}); launches "
+            f"K4 {c['K4']} K5 {c['K5']} K6 {c['K6']} (want {want}) -> "
+            f"{'PASS' if same and counts_ok else 'FAIL'}")
+        ok &= same and counts_ok
+
+    # prefill and one step on int8 cross-KV, both packages' compute dtypes
+    for dt in (torch.float32, torch.bfloat16):
+        p = quantize_decoder_params(mw.init_params(DEC_SEED, cfg, dtype=dt))
+        logits = []
+        for pp, x in ((to_dev(p), xa.to(dev, dt)), (p, xa.to(dt))):
+            cross = mw.precompute_cross_kv_q8(pp, x, cfg)
+            cache = mw.init_kv_cache(cfg, 3, dtype=dt, t_ctx=16,
+                                     device=x.device)
+            toks = torch.tensor([[cfg.eot] * 5 + q for q in prompts],
+                                device=x.device)
+            pad = torch.full((3,), 5, device=x.device)
+            pre, cache = mw.decoder_forward(pp, toks, 0, pad, cache, cross,
+                                            cfg, dt)
+            # the same next token on both sides: the CPU's would do as well
+            nxt = torch.full((3, 1), cfg.sot, device=x.device)
+            step, _ = mw.decoder_forward(pp, nxt, 8, pad, cache, cross, cfg,
+                                         dt)
+            logits.append((pre.float().cpu(), step.float().cpu()))
+        (pc, sc_), (pr, sr) = logits
+        e_pre = (pc - pr).abs().max().item()
+        e_step = (sc_ - sr).abs().max().item()
+        lg_ok = (e_pre < DEC_LOGIT_TOL and e_step < DEC_LOGIT_TOL
+                 and bool(torch.isfinite(pc).all()
+                          and torch.isfinite(sc_).all()))
+        log(f"[reference] int8 decoder d=128 dh=64 {str(dt)[6:]} int8 "
+            f"cross-KV, knobs on, card vs CPU plain: prefill logits "
+            f"max_abs_err {e_pre:.3e}, step logits {e_step:.3e} (tol "
+            f"{DEC_LOGIT_TOL}, logits up to {pr.abs().max().item():.2f}) -> "
+            f"{'PASS' if lg_ok else 'FAIL'}")
+        ok &= lg_ok
+    return ok
+
+
+def predicted_decode_launches(forwards, n_layer):
+    """K4, K5 and K6 launches the gates predict for the decoder forwards
+    run (``models/whisper.py::decoder_forward_calls``, by cross-KV layout,
+    batch and tokens), with every knob on and K6's threshold at 1 byte: K4
+    or K5 once a layer in a single-token forward on the packed or int8
+    cross-KV; K6 on the 8 int8 weights of each layer and the logit
+    projection in a forward of at most 256 rows. (The cross-KV projection
+    has B x 1500 rows at full size, B x 160 in the reference phase: no K6
+    there.)"""
+    n = lambda pred: sum(c for key, c in forwards.items() if pred(*key))
+    return {"K4": n_layer * n(lambda lay, b, s: lay == "packed" and s == 1),
+            "K5": n_layer * n(lambda lay, b, s: lay == "q8" and s == 1),
+            "K6": (8 * n_layer + 1) * n(lambda lay, b, s: b * s <= 256)}
 
 
 def _request_audio():
@@ -480,21 +785,14 @@ def _run_wave(be, wave, card):
     return ok
 
 
-def phase_serving(card, base):
-    """``base``: the unquantized large-v3-turbo engine; serving runs its
-    ``quantize()`` (int8 encoder and decoder)."""
+def phase_serving(card, eng):
+    """``eng``: the large-v3-turbo engine's ``quantize()`` (int8 encoder
+    and decoder)."""
     import torch
     from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
     from nobs_whisper_torch.utils.testing import speech_like_audio
 
-    t0 = time.perf_counter()
-    eng = base.quantize()
-    torch.cuda.synchronize()
     cfg = eng.cfg
-    log(f"[serve] engine large-v3-turbo d={cfg.n_audio_state} "
-        f"enc_layers={cfg.n_audio_layer} dec_layers={cfg.n_text_layer} "
-        f"int8, bf16 compute, seed 0: quantized in "
-        f"{time.perf_counter() - t0:.1f} s")
     be = BatchedEngine(eng, max_batch=8)
     wave1, wave2 = _request_audio()
     try:
@@ -512,15 +810,18 @@ def phase_serving(card, base):
         want = cfg.n_audio_layer * batches
         counts_ok = (batches > 0 and launches["K1"] == want
                      and launches["K2"] == want
-                     and c["K3"] == c["K9"] == c["K2-f32"] == 0)
+                     and c["K3"] == c["K9"] == c["K2-f32"] == 0
+                     and c["K4"] == c["K5"] == c["K6"] == 0)
         log(f"[serve] {card}: wall {wall:.2f} s; batch sizes "
             f"{be.batcher.batch_sizes}; encoder batches {batches}; "
             f"launches K1 {launches['K1']} K2 {launches['K2']} "
             f"(want {cfg.n_audio_layer} x {batches} = {want}) -> "
             f"{'PASS' if counts_ok else 'FAIL'}")
         ok &= counts_ok
-        # three of wave 1's requests (the auto-language one included)
-        profile_wave(be, wave1[2:], card)
+        # one request of wave 1 again, the same one the int8 cross-KV
+        # phase profiles, so that the two profiles compare request for
+        # request
+        profile_wave(be, [wave1[1]], card)
     finally:
         be.close()
     return ok, launches
@@ -528,7 +829,9 @@ def phase_serving(card, base):
 
 def profile_wave(be, wave, card):
     """One more concurrent wave under torch.profiler: device time by
-    kernel and the device's idle share of the wave's wall time. Outside
+    kernel, the device's idle share of the wave's wall time, and the
+    device time of dtype copies (``copy`` kernels: on the int8 decoder's
+    default path, the per-step dequantization of every weight). Outside
     the counted run; a profiler failure is reported, not fatal."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -538,7 +841,8 @@ def profile_wave(be, wave, card):
         with profile(activities=acts) as prof:
             _run_wave(be, wave, card)
             torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            # the wave's own wall, not the trace's processing at exit
+            wall = time.perf_counter() - t0
         ka = prof.key_averages()
         attr = ("self_device_time_total"
                 if hasattr(ka[0], "self_device_time_total")
@@ -548,9 +852,12 @@ def profile_wave(be, wave, card):
     except Exception as e:
         log(f"[profile] not measured: {e!r}")
         return
+    copy_ms = sum(getattr(e, attr) for e in ka if "copy" in e.key) / 1e3
+    top_copies = sum("copy" in e.key for e in rows[:15])
     log(f"[profile] {card}: profiled wave wall {wall:.3f} s, device busy "
         f"{busy_s:.3f} s (self device time summed), idle share "
-        f"{max(0.0, 1 - busy_s / wall):.3f}")
+        f"{max(0.0, 1 - busy_s / wall):.3f}; dtype-copy kernels "
+        f"{copy_ms:.2f} ms device time, {top_copies} of the 15 largest rows")
     for e in rows[:15]:
         t = getattr(e, attr)
         if t <= 0:
@@ -560,20 +867,33 @@ def profile_wave(be, wave, card):
 
 def reset_counts():
     from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops import attention_pallas as ap
     from nobs_whisper_torch.ops import encoder_attention as ea
     from nobs_whisper_torch.ops import fused_mlp as fm
+    from nobs_whisper_torch.ops import quant as qt
     ea.launch_count = ea.k3_launch_count = ea.k9_launch_count = 0
     fm.launch_count = fm.launch_count_f32 = 0
+    ap.k4_launch_count = ap.k5_launch_count = qt.k6_launch_count = 0
     mw.encode_count = 0
+    mw.decoder_forward_calls.clear()
 
 
 def read_counts():
     from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops import attention_pallas as ap
     from nobs_whisper_torch.ops import encoder_attention as ea
     from nobs_whisper_torch.ops import fused_mlp as fm
+    from nobs_whisper_torch.ops import quant as qt
     return {"K1": ea.launch_count, "K3": ea.k3_launch_count,
             "K9": ea.k9_launch_count, "K2": fm.launch_count,
-            "K2-f32": fm.launch_count_f32, "batches": mw.encode_count}
+            "K2-f32": fm.launch_count_f32, "K4": ap.k4_launch_count,
+            "K5": ap.k5_launch_count, "K6": qt.k6_launch_count,
+            "batches": mw.encode_count,
+            "forwards": dict(mw.decoder_forward_calls)}
+
+
+def _launch_summary(c):
+    return {k: v for k, v in c.items() if k != "forwards"}
 
 
 def _transcribe_one(eng, name, audio, card, opts):
@@ -620,10 +940,11 @@ def phase_transcribe(card, eng):
     c = read_counts()
     want = cfg.n_audio_layer * c["batches"]
     k3_ok = c["batches"] > 0 and c["K3"] == want and \
-        c["K1"] == c["K9"] == c["K2"] == 0
+        c["K1"] == c["K9"] == c["K2"] == c["K4"] == c["K5"] == c["K6"] == 0
     log(f"[transcribe] {card}: encoder batches {c['batches']}; launches "
-        f"{c} (want K3 = {cfg.n_audio_layer} x {c['batches']} = {want}, "
-        f"others 0) -> {'PASS' if k3_ok else 'FAIL'}")
+        f"{_launch_summary(c)} (want K3 = {cfg.n_audio_layer} x "
+        f"{c['batches']} = {want}, others 0) -> "
+        f"{'PASS' if k3_ok else 'FAIL'}")
     launches = {"K3": c["K3"]}
 
     # K9: the same weights split into heads of 128 (10 at turbo width),
@@ -639,10 +960,10 @@ def phase_transcribe(card, eng):
     c = read_counts()
     want = cfg.n_audio_layer * c["batches"]
     k9_ok = c["batches"] > 0 and c["K9"] == want and \
-        c["K1"] == c["K3"] == 0
-    log(f"[transcribe] {card}: 10 heads of 128: launches {c} (want K9 = "
-        f"{cfg.n_audio_layer} x {c['batches']} = {want}) -> "
-        f"{'PASS' if k9_ok else 'FAIL'}")
+        c["K1"] == c["K3"] == c["K4"] == c["K5"] == c["K6"] == 0
+    log(f"[transcribe] {card}: 10 heads of 128: launches "
+        f"{_launch_summary(c)} (want K9 = {cfg.n_audio_layer} x "
+        f"{c['batches']} = {want}) -> {'PASS' if k9_ok else 'FAIL'}")
     launches["K9"] = c["K9"]
 
     # the int8 encoder at f32 compute: one batch at full width
@@ -662,13 +983,82 @@ def phase_transcribe(card, eng):
               and xa.dtype == torch.float32
               and tuple(xa.shape) == (1, cfg.n_audio_ctx, cfg.n_audio_state)
               and bool(torch.isfinite(xa).all()))
-    log(f"[transcribe] {card}: int8 encoder at f32, one batch: launches {c} "
-        f"(want K2-f32 = K2 = {cfg.n_audio_layer}, K1 = 0), states "
+    log(f"[transcribe] {card}: int8 encoder at f32, one batch: launches "
+        f"{_launch_summary(c)} (want K2-f32 = K2 = {cfg.n_audio_layer}, "
+        f"K1 = 0), states "
         f"{tuple(xa.shape)} finite -> {'PASS' if f32_ok else 'FAIL'}")
     launches["K2-f32"] = c["K2-f32"]
     del enc32, xa
     torch.cuda.empty_cache()
     return ok and k3_ok and k9_ok and f32_ok and phase_cli(card), launches
+
+
+def phase_decode_kernels(card, qeng, eng):
+    """The decode-step kernels on their paths, the knobs set in-process
+    around each and restored after; counts set to 0 just before each path
+    and read just after it.
+
+    * int8 cross-KV serving (``qeng``, the quantized engine): K5 once a
+      layer in each single-token forward on the int8 cross-KV, K6 on every
+      int8 decoder weight in each forward of at most 256 rows, K1 = K2 =
+      32 x encoder batches, K4 = 0; then one request again under the
+      profiler;
+    * K4 on the file path (``eng``, unquantized bf16): once a layer in
+      each single-token forward, K6 = 0."""
+    import torch
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    cfg = qeng.cfg
+    n_layer = cfg.n_text_layer
+    wave1, _ = _request_audio()
+    wave = [wave1[1], wave1[3], wave1[4]]          # 12 s, 25 s, auto 8 s
+    launches = {}
+    with knobs(("NWT_Q8_KV_PALLAS", "NWT_Q8_KERNEL_MIN_BYTES")):
+        be = BatchedEngine(qeng, max_batch=8,
+                           opts=DecodeOptions(q8_cross_kv=True))
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            ok = _run_wave(be, wave, card)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = read_counts()
+            want = predicted_decode_launches(c["forwards"], n_layer)
+            want.update(K1=cfg.n_audio_layer * c["batches"],
+                        K2=cfg.n_audio_layer * c["batches"])
+            q8_forwards = sum(n for (lay, _, _), n in c["forwards"].items()
+                              if lay == "q8")
+            counts_ok = (c["batches"] > 0 and q8_forwards > 0
+                         and want["K4"] == 0
+                         and all(c[k] == want[k] for k in want)
+                         and c["K3"] == c["K9"] == c["K2-f32"] == 0)
+            log(f"[decode] {card}: int8 cross-KV wave wall {wall:.2f} s; "
+                f"batch sizes {be.batcher.batch_sizes}; decoder forwards "
+                f"{c['forwards']}; launches {_launch_summary(c)} (want "
+                f"{want}) -> {'PASS' if counts_ok else 'FAIL'}")
+            ok &= counts_ok
+            launches.update(K5=c["K5"], K6=c["K6"])
+            profile_wave(be, wave[:1], card)        # en-12s, as in serving
+        finally:
+            be.close()
+
+    # K4 on the file path: the unquantized bf16 engine, packed cross-KV
+    opts = DecodeOptions(temperature_increment=0.0)
+    with knobs(("NWT_XATTN_KERNEL",)):
+        reset_counts()
+        ok &= _transcribe_one(eng, "en-12s K4", speech_like_audio(
+            12.0, seed=27), card, opts)
+        torch.cuda.synchronize()
+        c = read_counts()
+    want = predicted_decode_launches(c["forwards"], n_layer)
+    k4_ok = (c["K4"] == want["K4"] > 0 and c["K5"] == c["K6"] == 0
+             and c["K3"] == cfg.n_audio_layer * c["batches"])
+    log(f"[decode] {card}: file path with NWT_XATTN_KERNEL=1: decoder "
+        f"forwards {c['forwards']}; launches {_launch_summary(c)} (want K4 "
+        f"{want['K4']}, K5 = K6 = 0) -> {'PASS' if k4_ok else 'FAIL'}")
+    launches["K4"] = c["K4"]
+    return ok and k4_ok, launches
 
 
 def phase_cli(card):
@@ -725,11 +1115,19 @@ def main():
         f"{cfg.n_audio_layer} dec_layers={cfg.n_text_layer} heads "
         f"{cfg.n_audio_head}, random weights from seed 0, bf16: built "
         f"in {time.perf_counter() - t0:.1f} s")
-    serve_ok, counts = phase_serving(card, eng)
+    t0 = time.perf_counter()
+    qeng = eng.quantize()
+    torch.cuda.synchronize()
+    log(f"[serve] engine large-v3-turbo int8 encoder and decoder, bf16 "
+        f"compute, seed 0: quantized in {time.perf_counter() - t0:.1f} s")
+    serve_ok, counts = phase_serving(card, qeng)
     ok &= serve_ok
     launches.update(counts)
     tr_ok, counts = phase_transcribe(card, eng)
     ok &= tr_ok
+    launches.update(counts)
+    dec_ok, counts = phase_decode_kernels(card, qeng, eng)
+    ok &= dec_ok
     launches.update(counts)
     entries = []
     for key, e in kern.items():

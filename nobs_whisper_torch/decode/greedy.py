@@ -13,13 +13,17 @@ explicit ``torch.Generator``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.config import WhisperConfig
-from ..models.whisper import decoder_forward, init_kv_cache, precompute_cross_kv
+from ..models.whisper import (decoder_forward, init_kv_cache,
+                              precompute_cross_kv, precompute_cross_kv_q8,
+                              xattn_kernel_enabled)
+from ..ops.attention_pallas import pack_cross_kv_bf16
 from .rules import (DecodeOptions, RuleTables, apply_logit_rules_scored,
                     check_supported)
 
@@ -27,9 +31,14 @@ _EXIT_CHECK = 8
 
 
 def kt_xattn_default(compute_dtype) -> bool:
-    """Packed (Dh, T) cross-K layout for the bf16 serving path (the
-    reference's default on its accelerator); the f32 path keeps the plain
-    layout."""
+    """Packed (Dh, T) cross-K layout, read at each call as the reference
+    reads it (decode/greedy.py:29-46), with the card in the TPU's place:
+    ``NWT_NO_KT_XATTN`` opts out, ``NWT_FORCE_KT`` forces it at any
+    compute dtype, otherwise on at bf16 (the serving path) and off at f32."""
+    if os.environ.get("NWT_NO_KT_XATTN"):
+        return False
+    if os.environ.get("NWT_FORCE_KT"):
+        return True
     return compute_dtype == torch.bfloat16
 
 
@@ -80,19 +89,26 @@ def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
                        tables: RuleTables, temperature: torch.Tensor,
                        generator: Optional[torch.Generator],
                        cfg: WhisperConfig, sample_len: int,
-                       compute_dtype=torch.float32, xattn_bf16: bool = False,
-                       sampling: bool = True):
+                       compute_dtype=torch.float32, q8_kv: bool = False,
+                       xattn_bf16: bool = False, sampling: bool = True):
     """Returns (tokens (B, sample_len), n_sampled (B,), sum_logprob (B,),
-    no_speech_prob (B,)), all device tensors."""
+    no_speech_prob (B,)), all device tensors. Cross-KV layouts: int8 with
+    ``q8_kv`` (projected and quantized one layer at a time), else packed
+    bf16 with ``xattn_bf16``, else plain."""
     b, p_max = prompt_tokens.shape
     dev = xa.device
-    cross_kv = precompute_cross_kv(params, xa, cfg)
-    if xattn_bf16:
-        from ..ops.attention_pallas import pack_cross_kv_bf16
-        kT, v = pack_cross_kv_bf16(cross_kv)
-        # the packed values are bf16; the scores/PV run on their f32
-        # copies, made once per window instead of once per step
-        cross_kv = ({"kT": kT["kT"].float()}, {"v": v["v"].float()})
+    if q8_kv:
+        cross_kv = precompute_cross_kv_q8(params, xa, cfg)
+    elif xattn_bf16:
+        kT, v = pack_cross_kv_bf16(precompute_cross_kv(params, xa, cfg))
+        cross_kv = (kT, v)
+        if not xattn_kernel_enabled():
+            # without K4 (which reads bf16) the scores/PV run on f32
+            # copies of the bf16 values, made once per window instead of
+            # once per step
+            cross_kv = ({"kT": kT["kT"].float()}, {"v": v["v"].float()})
+    else:
+        cross_kv = precompute_cross_kv(params, xa, cfg)
     t_cache = -(-(p_max + sample_len) // 8) * 8
     cache = init_kv_cache(cfg, b, dtype=compute_dtype,
                           t_ctx=min(t_cache, cfg.n_text_ctx), device=dev)
@@ -146,7 +162,7 @@ def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
 
 def frames_encode_decode_window_impl(
     params, frames, prompt_tokens, pad_lens, sot_idx, tables, temperature,
-    generator, cfg, sample_len, compute_dtype=torch.float32,
+    generator, cfg, sample_len, compute_dtype=torch.float32, q8_kv=False,
     xattn_bf16=False, sampling=True,
 ):
     """STFT-framed audio -> mel -> encoder -> decode loop: the serving
@@ -158,8 +174,8 @@ def frames_encode_decode_window_impl(
     xa = encode(params, mel, cfg, compute_dtype=compute_dtype)
     return decode_window_impl(params, xa, prompt_tokens, pad_lens, sot_idx,
                               tables, temperature, generator, cfg,
-                              sample_len, compute_dtype, xattn_bf16,
-                              sampling)
+                              sample_len, compute_dtype, q8_kv,
+                              xattn_bf16, sampling)
 
 
 def decode_window_dispatch(
@@ -193,12 +209,13 @@ def decode_window_dispatch(
     sampling = bool(np.any(temps > 0))
     if sampling and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    xattn_bf16 = opts.xattn_bf16 or kt_xattn_default(compute_dtype)
+    xattn_bf16 = (opts.xattn_bf16 or bool(os.environ.get("NWT_XATTN_BF16"))
+                  or kt_xattn_default(compute_dtype))
     args = (torch.as_tensor(prompt_np, dtype=torch.long, device=dev),
             torch.as_tensor(pad_np, dtype=torch.long, device=dev),
             torch.as_tensor(sot_np, device=dev), tables.to(dev),
             torch.as_tensor(temps, device=dev), generator, cfg, sample_len,
-            compute_dtype, xattn_bf16, sampling)
+            compute_dtype, opts.q8_cross_kv, xattn_bf16, sampling)
     if frames is not None:
         out = frames_encode_decode_window_impl(params, frames, *args)
     else:

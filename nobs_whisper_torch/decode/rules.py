@@ -20,9 +20,10 @@ NEG_INF = -1e30
 class DecodeOptions:
     """Sampling options (defaults = the reference's greedy configuration).
 
-    The port's first slice serves greedy and temperature sampling; beam,
-    speculative, word timestamps and int8 cross-KV raise
-    ``NotImplementedError`` where they would be used (ROADMAP.md)."""
+    The port serves greedy and temperature sampling, with plain, packed
+    bf16 (``xattn_bf16``) or int8 (``q8_cross_kv``) cross-KV; beam,
+    speculative and word timestamps raise ``NotImplementedError`` where
+    they would be used (ROADMAP.md)."""
 
     task: str = "transcribe"
     language: Optional[str] = None          # None = auto-detect
@@ -60,9 +61,6 @@ def check_supported(opts: DecodeOptions) -> None:
         raise NotImplementedError(
             "word timestamps are not ported yet (ROADMAP.md queue 1, "
             "item 10)")
-    if opts.q8_cross_kv:
-        raise NotImplementedError(
-            "int8 cross-KV is not ported yet (ROADMAP.md queue 2, K5)")
 
 
 @dataclasses.dataclass(frozen=True)

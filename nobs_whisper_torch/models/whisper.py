@@ -12,14 +12,19 @@ The encoder takes the hand-written kernels under the gates of the
 reference's single-device serving path (:func:`encoder_kernel_gates`):
 at bf16, attention through K1 (int8), K3 (float) or K9 (heads that do not
 pair), in ``ops/encoder_attention.py``; the int8 MLP through K2
-(``ops/fused_mlp.py``) at any compute dtype.
+(``ops/fused_mlp.py``) at any compute dtype. The decoder takes the
+reference's opt-in decode kernels under its knobs, read at each call:
+K6 (``ops/quant.py::q8_matmul``) in :func:`_dense`, K4 and K5
+(``ops/attention_pallas.py``) in the cross-attention.
 The decoder KV cache is updated in place (the reference's functional
 ``dynamic_update_slice`` writes the same slices).
 """
 
 from __future__ import annotations
 
+import collections
 import math
+import os
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -28,7 +33,8 @@ import torch.nn.functional as F
 
 from ..core.config import WhisperConfig
 from ..core.device import disable_tf32
-from ..ops.quant import dense_int8_dynamic, is_quantized, ln_f32
+from ..ops import attention_pallas as ap
+from ..ops.quant import dense_int8_dynamic, is_quantized, ln_f32, q8_matmul
 
 Params = Dict[str, Any]
 
@@ -134,11 +140,47 @@ def _attention_kt(q, kT, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return _softmax_pv(scores, v, mask)
 
 
+# ---------------------------------------------------------------------------
+# decode-kernel gates: the reference's knobs (whisper.py:715-721, :799-804,
+# :814-815) with the card in the TPU's place, read at each call; on the CPU
+# the same gates choose the kernels' plain versions
+# ---------------------------------------------------------------------------
+
+Q8_KERNEL_MAX_M = 256   # K6 takes matmuls of at most this many rows
+
+
+def q8_kernel_min_bytes() -> int:
+    """K6's weight-size threshold: ``NWT_Q8_KERNEL_MIN_BYTES``, unset =
+    2^62 (never)."""
+    return int(os.environ.get("NWT_Q8_KERNEL_MIN_BYTES", 0) or (1 << 62))
+
+
+def xattn_kernel_enabled() -> bool:
+    """K4 on the packed bf16 cross-KV (``NWT_XATTN_KERNEL``)."""
+    return bool(os.environ.get("NWT_XATTN_KERNEL"))
+
+
+def q8_kv_kernel_enabled() -> bool:
+    """K5 on the int8 cross-KV (``NWT_Q8_KV_PALLAS``)."""
+    return bool(os.environ.get("NWT_Q8_KV_PALLAS"))
+
+
 def _dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
-    """Linear on plain or int8 weights (the reference's XLA path: dequant
-    in the compute dtype, then matmul)."""
+    """Linear on plain or int8 weights. An int8 weight of at least
+    :func:`q8_kernel_min_bytes` bytes met by at most 256 rows runs K6,
+    whose f32 result returns to x.dtype (at f32 compute K6 still rounds x
+    and the weights to bf16, as the TPU does); otherwise the reference's
+    XLA path: dequant in the compute dtype, then matmul. The bias is added
+    after, in x.dtype."""
     if is_quantized(w):
-        y = x @ (w["q"].to(x.dtype) * w["s"].to(x.dtype))
+        lead = x.shape[:-1]
+        m = math.prod(lead)
+        if (m <= Q8_KERNEL_MAX_M
+                and math.prod(w["q"].shape[-2:]) >= q8_kernel_min_bytes()):
+            y = q8_matmul(x.reshape(m, x.shape[-1]), w)
+            y = y.reshape(*lead, -1).to(x.dtype)
+        else:
+            y = x @ (w["q"].to(x.dtype) * w["s"].to(x.dtype))
     else:
         y = x @ w
     return y if b is None else y + b
@@ -293,6 +335,31 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig
     return torch.stack(ks), torch.stack(vs)
 
 
+def precompute_cross_kv_q8(params: Params, xa: torch.Tensor,
+                           cfg: WhisperConfig):
+    """Per-layer cross-KV projection and int8 quantization
+    (``ops/attention_pallas.py::quant_kv_padded``): the same values as
+    ``quantize_cross_kv(precompute_cross_kv(...))``, but only one layer's
+    full-precision K/V exists at a time, which is what int8 cross-KV is
+    for. Returns ({"q": (L, B, H, Dh, Tp) int8, "s": (L, B, H, Tp)},
+    {"q": (L, B, H, Tp, Dh) int8, "s": (L, B, H, Tp)})."""
+    blocks = params["decoder"]["blocks"]
+    n_head = cfg.n_text_head
+    kq, ks, vq, vs = [], [], [], []
+    for i in range(cfg.n_text_layer):
+        p = _layer(blocks, i)
+        k8, k_s = ap.quant_kv_padded(
+            _split_heads(_dense(xa, p["xk_w"]), n_head))
+        v8, v_s = ap.quant_kv_padded(
+            _split_heads(_dense(xa, p["xv_w"], p["xv_b"]), n_head))
+        kq.append(k8.transpose(-1, -2))
+        ks.append(k_s)
+        vq.append(v8)
+        vs.append(v_s)
+    return ({"q": torch.stack(kq), "s": torch.stack(ks)},
+            {"q": torch.stack(vq), "s": torch.stack(vs)})
+
+
 def init_kv_cache(cfg: WhisperConfig, batch: int, dtype=torch.float32,
                   t_ctx: Optional[int] = None, device="cpu"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -302,6 +369,18 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, dtype=torch.float32,
     l, h, dh = cfg.n_text_layer, cfg.n_text_head, cfg.head_dim
     return (torch.zeros((l, batch, h, dh, t), dtype=dtype, device=device),
             torch.zeros((l, batch, h, t, dh), dtype=dtype, device=device))
+
+
+# decoder forwards run, by (cross-KV layout: "plain", "packed" or "q8",
+# batch, tokens): with the gates above, what the decode kernels should
+# launch
+decoder_forward_calls: collections.Counter = collections.Counter()
+
+
+def _cross_layout(xk) -> str:
+    if not isinstance(xk, dict):
+        return "plain"
+    return "packed" if "kT" in xk else "q8"
 
 
 @torch.inference_mode()
@@ -323,6 +402,7 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
     xk, xv = cross_kv
     t_ctx = ck.shape[-1]
     dev = tokens.device
+    decoder_forward_calls[(_cross_layout(xk), b, s)] += 1
 
     cache_idx = cache_start + torch.arange(s, device=dev)            # (S,)
     pos_idx = torch.clamp(cache_idx[None, :] - pad_lens[:, None], 0,
@@ -347,11 +427,19 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
     def cross_and_mlp(x, p, xk_l, xv_l):
         h = _layer_norm(x, p["lnx_g"], p["lnx_b"])
         q = _split_heads(_dense(h, p["xq_w"], p["xq_b"]), n_head)
-        if isinstance(xk_l, dict):
-            from ..ops.attention_pallas import cross_attention_kt_xla
-            a = cross_attention_kt_xla(
-                q, {"kT": xk_l["kT"], "v": xv_l["v"]},
-                cfg.n_audio_ctx).to(compute_dtype)
+        if isinstance(xk_l, dict) and "kT" in xk_l:
+            packed = {"kT": xk_l["kT"], "v": xv_l["v"]}
+            if q.shape[-2] == 1 and xattn_kernel_enabled():
+                a = ap.cross_attention_decode_bf16(q, packed, cfg.n_audio_ctx)
+            else:
+                a = ap.cross_attention_kt_xla(q, packed, cfg.n_audio_ctx)
+            a = a.to(compute_dtype)
+        elif isinstance(xk_l, dict):
+            if q.shape[-2] == 1 and q8_kv_kernel_enabled():
+                a = ap.cross_attention_decode_q8(q, xk_l, xv_l)
+            else:
+                a = ap.cross_attention_dequant_reference(q, xk_l, xv_l)
+            a = a.to(compute_dtype)
         else:
             a = _attention(q, xk_l.to(compute_dtype),
                            xv_l.to(compute_dtype), None)

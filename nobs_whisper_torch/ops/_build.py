@@ -23,7 +23,8 @@ from typing import Dict, List, Optional
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("encoder_attention", "fused_mlp")
+SOURCES = ("encoder_attention", "fused_mlp", "cross_attention_decode",
+           "q8_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

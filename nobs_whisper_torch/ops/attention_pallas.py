@@ -1,25 +1,57 @@
-"""Decoder cross-attention on the packed (Dh, T) K layout.
+"""Decoder cross-attention: the packed bf16 and the int8 cross-KV layouts,
+and the single-query decode kernels K4 and K5.
 
-Port of the two XLA functions of ``ops/attention_pallas.py`` that the
-serving decode loop runs: :func:`pack_cross_kv_bf16` (:138) and
-:func:`cross_attention_kt_xla` (:210). Both are plain torch. The decode-step
-Pallas kernels of that module (K4 ``cross_attention_decode_bf16``, K5
-``cross_attention_decode_q8``) are opt-in in the reference and not ported
-in this slice (ROADMAP.md).
+Port of ``ops/attention_pallas.py``:
+
+* the layouts: :func:`pack_cross_kv_bf16` (:138), K as (…, Dh, Tp) bf16;
+  :func:`quant_kv_padded` (:38) and :func:`quantize_cross_kv` (:57), int8
+  with per-position scales, K as (…, Dh, Tp); Tp is T padded to a multiple
+  of 128, the padded positions masked by index (bf16) or by a zero scale
+  (int8);
+* the XLA functions of the reference, plain torch here:
+  :func:`cross_attention_kt_xla` (:210), the packed layout's default;
+  :func:`cross_attention_dequant_reference` (:257), the int8 layout's
+  default and its path for S > 1; :func:`cross_attention_bf16_reference`
+  (:246);
+* K4 :func:`cross_attention_decode_bf16` (:174) and K5
+  :func:`cross_attention_decode_q8` (:95), opt-in in the reference
+  (``NWT_XATTN_KERNEL``, ``NWT_Q8_KV_PALLAS``; gates in
+  ``models/whisper.py``). Their CUDA kernels live in
+  ``csrc/cross_attention_decode.cu``, whose source note says what bounds
+  them on an H100. Each wrapper launches its kernel for a CUDA tensor (or
+  raises) and runs the ``*_plain`` version beside it for a CPU tensor;
+  ``k4_launch_count`` and ``k5_launch_count`` count kernel launches only.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
 
 _NEG = -1e30
 
+QKV = Dict[str, torch.Tensor]
+
+# head widths the decode kernels are built for
+KERNEL_HEAD_DIMS = (32, 64, 128)
+
+k4_launch_count = 0
+k5_launch_count = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIG = {"nwt_xattn_decode_bf16": [_P] * 4 + [_I] * 4 + [_F, _P],
+        "nwt_xattn_decode_q8": [_P] * 6 + [_I] * 3 + [_F, _P]}
+
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
+
+# ---------------------------------------------------------------------------
+# layouts
+# ---------------------------------------------------------------------------
 
 def pack_cross_kv_bf16(
     cross_kv: Tuple[torch.Tensor, torch.Tensor],
@@ -37,6 +69,41 @@ def pack_cross_kv_bf16(
     return {"kT": kT}, {"v": v}
 
 
+def quant_kv_padded(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp (..., T, Dh) -> (int8 (..., Tp, Dh), f32 scales (..., Tp)).
+
+    Per-position absmax quantization with this function's own floor,
+    s = max(absmax / 127, 1e-12), q = clip(round_half_even(x / s)); T is
+    padded to a multiple of 128 with zero-scale (masked) positions. Any
+    leading dims: a whole (L, B, H, ...) stack or one layer."""
+    t = x.shape[-2]
+    t_pad = _round_up(t, 128)
+    x32 = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
+    s = torch.clamp(absmax / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
+    q = torch.nn.functional.pad(q, (0, 0, 0, t_pad - t))
+    s = torch.nn.functional.pad(s[..., 0], (0, t_pad - t))   # 0 = masked
+    return q, s
+
+
+def quantize_cross_kv(
+    cross_kv: Tuple[torch.Tensor, torch.Tensor],
+) -> Tuple[QKV, QKV]:
+    """(xk, xv) fp (L, B, H, T, Dh) -> int8 with per-position scales: K
+    stored transposed (L, B, H, Dh, Tp) for the scores product, V
+    (L, B, H, Tp, Dh), scales (L, B, H, Tp)."""
+    xk, xv = cross_kv
+    kq, ks = quant_kv_padded(xk)
+    vq, vs = quant_kv_padded(xv)
+    return ({"q": kq.transpose(-1, -2).contiguous(), "s": ks},
+            {"q": vq, "s": vs})
+
+
+# ---------------------------------------------------------------------------
+# the reference's XLA functions (plain torch)
+# ---------------------------------------------------------------------------
+
 def cross_attention_kt_xla(q: torch.Tensor, packed, t_real: int
                            ) -> torch.Tensor:
     """Cross-attention on the packed layout: bf16 operands, f32 scores and
@@ -52,3 +119,163 @@ def cross_attention_kt_xla(q: torch.Tensor, packed, t_real: int
         scores[..., t_real:] = _NEG
     probs = torch.softmax(scores, dim=-1)
     return probs.to(torch.bfloat16).float() @ v.float()
+
+
+def cross_attention_bf16_reference(q: torch.Tensor, packed, t_real: int
+                                   ) -> torch.Tensor:
+    """The packed layout's f32 reference: K/V sliced to the real positions,
+    f32 scores and softmax, f32 probabilities @ V. Returns f32."""
+    kT = packed["kT"][..., :t_real].float()
+    v = packed["v"][..., :t_real, :].float()
+    dh = q.shape[-1]
+    scores = (q.float() @ kT) * (dh ** -0.5)
+    return torch.softmax(scores, dim=-1) @ v
+
+
+def cross_attention_dequant_reference(q: torch.Tensor, kq: QKV, vq: QKV
+                                      ) -> torch.Tensor:
+    """Int8 cross-KV in f32: K and V dequantized per position, scores
+    scaled by dh^-0.5, zero-scale positions at -1e30, f32 softmax and
+    probabilities @ V. q (B, H, S, Dh) -> (B, H, S, Dh) f32."""
+    k = kq["q"].float() * kq["s"][..., None, :]          # (B, H, Dh, Tp)
+    v = vq["q"].float() * vq["s"][..., None]             # (B, H, Tp, Dh)
+    dh = q.shape[-1]
+    scores = (q.float() @ k) * (dh ** -0.5)
+    scores = torch.where((kq["s"] > 0)[:, :, None, :], scores,
+                         torch.tensor(_NEG, dtype=scores.dtype,
+                                      device=scores.device))
+    return torch.softmax(scores, dim=-1) @ v
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5: single-query decode kernels
+# ---------------------------------------------------------------------------
+
+def _softmax_normalised(scores: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` as the TPU kernels compute it in f32:
+    exp(s - max) / sum, the row normalised before any bf16 cast."""
+    p = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
+    return p / torch.sum(p, dim=-1, keepdim=True)
+
+
+def cross_attention_decode_bf16_plain(q: torch.Tensor, packed,
+                                      t_real: int) -> torch.Tensor:
+    """Plain PyTorch K4 with the Pallas kernel's numerics: raw =
+    bf16(q) . kT in f32, scores = raw * dh^-0.5 with positions >= t_real
+    at -1e30, f32 softmax, out = bf16(probs) @ v in f32. (B, H, 1, Dh)
+    f32."""
+    kT, v = packed["kT"], packed["v"]
+    dh = q.shape[-1]
+    raw = q.to(torch.bfloat16).float() @ kT.float()     # (B, H, 1, Tp)
+    scores = raw * float(dh) ** -0.5
+    if t_real < kT.shape[-1]:
+        scores[..., t_real:] = _NEG
+    probs = _softmax_normalised(scores)
+    return probs.to(torch.bfloat16).float() @ v.float()
+
+
+def cross_attention_decode_q8_plain(q: torch.Tensor, kq: QKV, vq: QKV
+                                    ) -> torch.Tensor:
+    """Plain PyTorch K5 with the Pallas kernel's numerics
+    (``_xattn_kernel``): bf16(q) . kq in f32 (int8 is exact in bf16),
+    scores = (raw * ks) * dh^-0.5 where ks > 0 else -1e30, f32 softmax,
+    pv = bf16(probs * vs), out = pv @ vq in f32. (B, H, 1, Dh) f32."""
+    dh = q.shape[-1]
+    raw = q.to(torch.bfloat16).float() @ kq["q"].float()   # (B, H, 1, Tp)
+    ks = kq["s"][:, :, None, :]
+    scores = torch.where(ks > 0, raw * ks * float(dh) ** -0.5,
+                         torch.tensor(_NEG, device=raw.device))
+    probs = _softmax_normalised(scores)
+    pv = (probs * vq["s"][:, :, None, :]).to(torch.bfloat16).float()
+    return pv @ vq["q"].float()
+
+
+def _check_decode(q: torch.Tensor, what: str) -> Tuple[int, int, int]:
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, h, s, dh = q.shape
+    if s != 1:
+        raise ValueError(f"{what} is single-query, got S={s}")
+    if dh not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel is built for head widths "
+            f"{KERNEL_HEAD_DIMS}, got {dh} (ROADMAP.md queue 2, K4/K5 head "
+            "widths)")
+    return b, h, dh
+
+
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def cross_attention_decode_bf16(q: torch.Tensor, packed,
+                                t_real: int) -> torch.Tensor:
+    """K4: single-query cross-attention over the packed bf16 layout.
+
+    ``q``: (B, H, 1, Dh), rounded to bf16 as the reference's wrapper does;
+    ``packed``: {"kT": (B, H, Dh, Tp) bf16, "v": (B, H, Tp, Dh) bf16}; keys
+    at positions >= ``t_real`` are masked. Returns (B, H, 1, Dh) f32."""
+    global k4_launch_count
+    if q.device.type == "cpu":
+        return cross_attention_decode_bf16_plain(q, packed, t_real)
+    b, h, dh = _check_decode(q, "cross_attention_decode_bf16")
+    kT, v = packed["kT"], packed["v"]
+    tp = kT.shape[-1]
+    if (kT.dtype != torch.bfloat16 or v.dtype != torch.bfloat16
+            or tuple(kT.shape) != (b, h, dh, tp)
+            or tuple(v.shape) != (b, h, tp, dh)
+            or tp % 8 or not 0 < t_real <= tp):
+        raise ValueError(
+            f"K4 takes bf16 kT (B, H, Dh, Tp) and v (B, H, Tp, Dh) with "
+            f"Tp % 8 == 0 and 0 < t_real <= Tp; got kT {tuple(kT.shape)} "
+            f"{kT.dtype}, v {tuple(v.shape)} {v.dtype}, t_real {t_real}")
+    from . import _build
+    lib = _build.load("cross_attention_decode", _SIG)
+    qb = q.to(torch.bfloat16).contiguous()
+    kT, v = kT.contiguous(), v.contiguous()
+    out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=q.device)
+    ptr = lambda z: ctypes.c_void_p(z.data_ptr())
+    err = lib.nwt_xattn_decode_bf16(
+        ptr(qb), ptr(kT), ptr(v), ptr(out), b * h, dh, tp, int(t_real),
+        ctypes.c_float(float(dh) ** -0.5), _stream(q.device))
+    _build.check(err, "cross_attention_decode_bf16")
+    k4_launch_count += 1
+    return out
+
+
+def cross_attention_decode_q8(q: torch.Tensor, kq: QKV, vq: QKV
+                              ) -> torch.Tensor:
+    """K5: single-query cross-attention over int8 cross-KV.
+
+    ``q``: (B, H, 1, Dh), rounded to bf16 in the kernel's place;
+    ``kq``: {"q": (B, H, Dh, Tp) int8, "s": (B, H, Tp) f32};
+    ``vq``: {"q": (B, H, Tp, Dh) int8, "s": (B, H, Tp) f32}; a zero scale
+    masks its position. Returns (B, H, 1, Dh) f32."""
+    global k5_launch_count
+    if q.device.type == "cpu":
+        return cross_attention_decode_q8_plain(q, kq, vq)
+    b, h, dh = _check_decode(q, "cross_attention_decode_q8")
+    tp = kq["q"].shape[-1]
+    if (kq["q"].dtype != torch.int8 or vq["q"].dtype != torch.int8
+            or tuple(kq["q"].shape) != (b, h, dh, tp)
+            or tuple(vq["q"].shape) != (b, h, tp, dh)
+            or tuple(kq["s"].shape) != (b, h, tp)
+            or tuple(vq["s"].shape) != (b, h, tp) or tp % 8):
+        raise ValueError(
+            f"K5 takes int8 kq (B, H, Dh, Tp), vq (B, H, Tp, Dh) and f32 "
+            f"(B, H, Tp) scales with Tp % 8 == 0; got {tuple(kq['q'].shape)}"
+            f" {kq['q'].dtype}, {tuple(vq['q'].shape)} {vq['q'].dtype}")
+    from . import _build
+    lib = _build.load("cross_attention_decode", _SIG)
+    f32 = lambda z: z.to(torch.float32).contiguous()
+    qb = q.to(torch.bfloat16).contiguous()
+    kqq, vqq = kq["q"].contiguous(), vq["q"].contiguous()
+    ks, vs = f32(kq["s"]), f32(vq["s"])
+    out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=q.device)
+    ptr = lambda z: ctypes.c_void_p(z.data_ptr())
+    err = lib.nwt_xattn_decode_q8(
+        ptr(qb), ptr(kqq), ptr(ks), ptr(vqq), ptr(vs), ptr(out), b * h, dh,
+        tp, ctypes.c_float(float(dh) ** -0.5), _stream(q.device))
+    _build.check(err, "cross_attention_decode_q8")
+    k5_launch_count += 1
+    return out

@@ -7,31 +7,108 @@ device, where its shape rule allows), float64 for the shapes it refuses —
 an f32 sum of up to 5120 products of ±127 can pass 2^24 and stop being
 exact.
 
-The reference's Pallas dequantizing matmul (``q8_matmul``) is not on the
-serving path and is not ported here.
+K6, the reference's Pallas dequantizing matmul (:func:`q8_matmul`, opt-in
+behind ``NWT_Q8_KERNEL_MIN_BYTES``; gate in ``models/whisper.py::_dense``),
+is a CUDA kernel in ``csrc/q8_matmul.cu``, whose source note says what
+bounds it on an H100. The wrapper launches it for a CUDA tensor (or
+raises) and runs :func:`q8_matmul_plain` for a CPU tensor;
+``k6_launch_count`` counts kernel launches only.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import ctypes
+from typing import Any, Dict, Union
 
 import torch
 
 QTensor = Dict[str, torch.Tensor]
 
+k6_launch_count = 0
+
+_Q8_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_Q8_SIG = {"nwt_q8_matmul_bf16": _Q8_ARGS, "nwt_q8_matmul_f32": _Q8_ARGS}
+_Q8_ENTRY = {torch.bfloat16: "nwt_q8_matmul_bf16",
+             torch.float32: "nwt_q8_matmul_f32"}
+
 
 def quantize_int8(w: torch.Tensor) -> QTensor:
     """Per-output-channel symmetric int8: w ~= q * s, s = absmax/127.
-    Works on (K, N) and stacked (L, K, N) weights (channel = last axis)."""
+    Works on (K, N) and stacked (L, K, N) weights (channel = last axis).
+    ``q`` is row-major whatever the strides of ``w`` (the logit projection
+    quantizes a transposed view)."""
     w32 = w.to(torch.float32)
     absmax = torch.amax(torch.abs(w32), dim=-2, keepdim=True)
     s = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
-    return {"q": q, "s": s.to(torch.float32)}
+    return {"q": q.contiguous(), "s": s.to(torch.float32)}
+
+
+def dequantize_int8(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
+    return (qt["q"].to(torch.float32) * qt["s"]).to(dtype)
 
 
 def is_quantized(w: Any) -> bool:
     return isinstance(w, dict) and "q" in w and "s" in w
+
+
+# ---------------------------------------------------------------------------
+# K6: x (M, K) bf16/f32 @ dequant(w) -> (M, N) f32
+# ---------------------------------------------------------------------------
+
+def q8_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """Plain PyTorch K6 with the Pallas kernel's numerics
+    (``_q8_matmul_kernel``): w = bf16(bf16(q) * bf16(s)), x rounded to
+    bf16, products exact in f32 and summed in f32. (M, N) f32."""
+    w = qt["q"].to(torch.bfloat16) * qt["s"].to(torch.bfloat16)
+    return x.to(torch.bfloat16).float() @ w.float()
+
+
+def q8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K6: (M, K) bf16 or f32 @ int8 (K, N) with (1, N) f32 per-channel
+    scales -> (M, N) f32, each weight tile dequantized to bf16 on chip.
+    The reference's VMEM tiles ``block_m``/``block_n`` do not change the
+    result and have no counterpart here."""
+    global k6_launch_count
+    m, k = x.shape
+    k2, n = qt["q"].shape
+    assert k == k2, (k, k2)
+    if x.device.type == "cpu":
+        return q8_matmul_plain(x, qt)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if (x.dtype not in _Q8_ENTRY or qt["q"].dtype != torch.int8
+            or qt["s"].numel() != n):
+        raise ValueError(f"K6 takes bf16 or f32 x and an int8 (K, N) weight "
+                         f"with N scales; got {x.dtype}, "
+                         f"{qt['q'].dtype}, {qt['s'].numel()} scales")
+    from . import _build
+    lib = _build.load("q8_matmul", _Q8_SIG)
+    x = x.contiguous()
+    w = qt["q"].contiguous()
+    s = qt["s"].to(torch.float32).contiguous()
+    # split-K blocks add their partial sums into a zeroed output
+    out = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    ptr = lambda z: ctypes.c_void_p(z.data_ptr())
+    err = getattr(lib, _Q8_ENTRY[x.dtype])(
+        ptr(x), ptr(w), ptr(s), ptr(out), m, k, n,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    _build.check(err, "q8_matmul")
+    k6_launch_count += 1
+    return out
+
+
+def dense(x: torch.Tensor, w: Union[torch.Tensor, QTensor],
+          use_kernel: bool = False) -> torch.Tensor:
+    """The reference's linear dispatch for kernel A/B checks: a plain
+    weight uses ``@``; a quantized one dequantizes in x.dtype, or runs K6
+    with ``use_kernel`` on 2-D operands. The production dispatcher is
+    ``models/whisper.py::_dense``, which adds the bias and the gate."""
+    if not is_quantized(w):
+        return x @ w
+    if use_kernel and x.ndim == 2 and w["q"].ndim == 2:
+        return q8_matmul(x, w).to(x.dtype)
+    return x @ (w["q"].to(x.dtype) * w["s"].to(x.dtype))
 
 
 def int8_matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

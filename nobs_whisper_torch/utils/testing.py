@@ -182,22 +182,29 @@ def speech_like_audio(duration_s: float, seed: int = 0,
 
 
 class KernelSpies:
-    """Count calls of the encoder kernels' plain versions (what the
-    wrappers run on CPU tensors) while the port's encoder runs. ``patch``
-    is a setattr such as pytest's ``monkeypatch.setattr``, which undoes
-    the spies after the test; ``calls`` maps K1, K2, K3, K9 to counts."""
+    """Count calls of the kernels' plain versions (what the wrappers run
+    on CPU tensors) while the port runs on the CPU. ``patch`` is a setattr
+    such as pytest's ``monkeypatch.setattr``, which undoes the spies after
+    the test; ``calls`` maps each of ``kernels`` (by default the
+    encoder's: K1, K2, K3, K9) to its count."""
 
     NAMES = {"K1": ("ea", "encoder_attention_fused_qkv_plain"),
              "K3": ("ea", "encoder_attention_btd_plain"),
              "K9": ("ea", "encoder_attention_plain"),
-             "K2": ("fm", "encoder_mlp_int8_resident_plain")}
+             "K2": ("fm", "encoder_mlp_int8_resident_plain"),
+             "K4": ("ap", "cross_attention_decode_bf16_plain"),
+             "K5": ("ap", "cross_attention_decode_q8_plain"),
+             "K6": ("qt", "q8_matmul_plain")}
 
-    def __init__(self, patch):
+    def __init__(self, patch, kernels=("K1", "K2", "K3", "K9")):
+        from ..ops import attention_pallas as ap
         from ..ops import encoder_attention as ea
         from ..ops import fused_mlp as fm
-        mods = {"ea": ea, "fm": fm}
-        self.calls = dict.fromkeys(self.NAMES, 0)
-        for key, (mod, name) in self.NAMES.items():
+        from ..ops import quant as qt
+        mods = {"ea": ea, "fm": fm, "ap": ap, "qt": qt}
+        self.calls = dict.fromkeys(kernels, 0)
+        for key in kernels:
+            mod, name = self.NAMES[key]
             real = getattr(mods[mod], name)
 
             def spy(*a, _key=key, _real=real, **k):

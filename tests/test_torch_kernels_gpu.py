@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels K1, K2 (bf16 and f32 activations), K3 and K9
-against their plain PyTorch versions, on the card.
+"""Hand-written CUDA kernels K1, K2 (bf16 and f32 activations), K3, K9
+and the decode-step kernels K4, K5 and K6 against their plain PyTorch
+versions, on the card.
 
 Marked ``gpu``; each test asks a fixture whether there is a card and skips
 without one (the CPU suite runs the plain versions in the other
@@ -16,21 +17,29 @@ K3 and K9 are held to one bf16 step elementwise (rtol 2^-7, atol 2^-9, as
 tests/test_torch_kernels.py holds their plain versions to the Pallas
 kernels); K2, whose flipped int8 activation moves a whole row of fc2, to
 the JAX package's own bound of 0.05 (tests/test_fused_mlp.py:78), at both
-activation types.
+activation types. K4 and K5 (f32 output of bf16 probabilities times V) are
+held to one bf16 step elementwise, as their plain versions are held to the
+Pallas kernels (tests/test_torch_decode_kernels.py). K6 rounds the same
+bf16 operands as its plain version and differs in the order, and in the
+tensor cores the rounding, of its f32 sums: 1e-3 absolute plus 1e-3
+relative on outputs of order 1.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from nobs_whisper_torch.ops import attention_pallas as ap
 from nobs_whisper_torch.ops import encoder_attention as ea
 from nobs_whisper_torch.ops import fused_mlp as fm
+from nobs_whisper_torch.ops import quant as qt
 from nobs_whisper_torch.ops.quant import quantize_int8
 
 pytestmark = pytest.mark.gpu
 
 BF16_STEP = dict(rtol=2.0 ** -7, atol=2.0 ** -9)
 K2_TOL = 5e-2
+K6_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 @pytest.fixture
@@ -276,3 +285,133 @@ def test_int8_encoder_at_f32_serves_on_card(cuda):
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     err = (got.cpu() - ref).abs().max().item()
     assert err < 5e-2, err
+
+
+def _cross_kv(b, h, t, dh, dev, seed):
+    """q (B, H, 1, Dh) bf16 and one layer of cross-KV (1, B, H, T, Dh)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16)
+    k = torch.randn(1, b, h, t, dh, generator=g, device=dev)
+    v = torch.randn(1, b, h, t, dh, generator=g, device=dev)
+    return q, k, v
+
+
+DECODE_CASES = [
+    (2, 4, 300, 300, 64), (2, 4, 300, 40, 64),      # t_real in one tile
+    (1, 20, 1500, 1500, 64), (8, 20, 1500, 1500, 64),  # turbo, B = 1 and 8
+    (1, 20, 750, 750, 64),                           # audio_ctx 750
+    (2, 10, 300, 250, 128), (2, 4, 300, 300, 32),    # other head widths
+]
+
+
+@pytest.mark.parametrize("b,h,t,t_real,dh", DECODE_CASES)
+def test_k4_kernel_matches_plain(cuda, b, h, t, t_real, dh):
+    q, k, v = _cross_kv(b, h, t, dh, cuda, seed=t + dh)
+    kd, vd = ap.pack_cross_kv_bf16((k, v))
+    packed = {"kT": kd["kT"][0], "v": vd["v"][0]}
+    before = ap.k4_launch_count
+    got = ap.cross_attention_decode_bf16(q, packed, t_real)
+    torch.cuda.synchronize()
+    assert ap.k4_launch_count == before + 1
+    ref = ap.cross_attention_decode_bf16_plain(q, packed, t_real)
+    assert got.shape == ref.shape == (b, h, 1, dh)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    _step_close(got, ref)
+
+
+@pytest.mark.parametrize("b,h,t,t_real,dh", DECODE_CASES)
+def test_k5_kernel_matches_plain(cuda, b, h, t, t_real, dh):
+    q, k, v = _cross_kv(b, h, t, dh, cuda, seed=t + dh + 1)
+    kq, vq = ap.quantize_cross_kv((k[..., :t_real, :], v[..., :t_real, :]))
+    kq, vq = ({z: w[0] for z, w in kq.items()},
+              {z: w[0] for z, w in vq.items()})
+    before = ap.k5_launch_count
+    got = ap.cross_attention_decode_q8(q, kq, vq)
+    torch.cuda.synchronize()
+    assert ap.k5_launch_count == before + 1
+    ref = ap.cross_attention_decode_q8_plain(q, kq, vq)
+    assert got.shape == ref.shape == (b, h, 1, dh)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    _step_close(got, ref)
+
+
+def _q8_weight(k, n, dev, seed, offset=0):
+    """An int8 (K, N) QTensor on the card whose rows start ``offset`` bytes
+    into a larger buffer (the kernel takes any byte alignment)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = quantize_int8(torch.randn(k, n, generator=g, device=dev) * k ** -0.5)
+    if offset:
+        buf = torch.zeros(k * n + offset, dtype=torch.int8, device=dev)
+        buf[offset:] = w["q"].reshape(-1)
+        w["q"] = buf[offset:].view(k, n)
+    return w
+
+
+@pytest.mark.parametrize("m,k,n,x_dtype,offset", [
+    (1, 320, 1000, torch.bfloat16, 0),
+    (3, 64, 100, torch.float32, 0),                  # one slab, N % 4 != 0
+    (8, 1280, 51866, torch.float32, 0),              # the logit projection
+    (8, 1280, 51866, torch.bfloat16, 0),
+    (8, 1280, 5120, torch.bfloat16, 0),              # fc1
+    (8, 5120, 1280, torch.bfloat16, 0),              # fc2
+    (8, 1280, 1280, torch.bfloat16, 3),              # misaligned rows
+    (256, 1280, 51866, torch.bfloat16, 0),           # the largest M the gate takes
+    (256, 1280, 1280, torch.float32, 0),
+])
+def test_k6_kernel_matches_plain(cuda, m, k, n, x_dtype, offset):
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(x_dtype)
+    w = _q8_weight(k, n, cuda, seed=k + n, offset=offset)
+    before = qt.k6_launch_count
+    got = qt.q8_matmul(x, w)
+    torch.cuda.synchronize()
+    assert qt.k6_launch_count == before + 1
+    ref = qt.q8_matmul_plain(x, w)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               **K6_TOL)
+
+
+def test_int8_decoder_on_card_takes_decode_kernels(cuda, monkeypatch):
+    """A d=128 dh=64 int8 decoder on the card with the three knobs on:
+    int8 cross-KV (K5, K6) and the packed layout (K4, K6) each launch what
+    the gates predict, and at f32 compute the greedy tokens equal the same
+    model's run on the CPU (plain versions)."""
+    from nobs_whisper_torch.decode.greedy import decode_window
+    from nobs_whisper_torch.decode.rules import (DecodeOptions,
+                                                 build_rule_tables)
+    from nobs_whisper_torch.models import whisper as tw
+    from nobs_whisper_torch.ops.quant import quantize_decoder_params
+    from nobs_whisper_torch.utils.testing import tiny_test_config
+    for knob in ("NWT_XATTN_KERNEL", "NWT_Q8_KV_PALLAS",
+                 "NWT_Q8_KERNEL_MIN_BYTES"):
+        monkeypatch.setenv(knob, "1")
+    cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=160, n_text_ctx=64)
+    params = quantize_decoder_params(tw.init_params(6, cfg))
+    to_dev = lambda t: ({k: to_dev(v) for k, v in t.items()}
+                        if isinstance(t, dict) else t.to(cuda))
+    xa = torch.from_numpy(np.random.RandomState(6).randn(
+        2, cfg.n_audio_ctx, cfg.n_audio_state).astype(np.float32))
+    prompts = [[cfg.sot, cfg.lang_base, cfg.transcribe]] * 2
+    for opts in (DecodeOptions(q8_cross_kv=True),
+                 DecodeOptions(xattn_bf16=True)):
+        tables = build_rule_tables(cfg, opts)
+        counts = lambda: (ap.k4_launch_count, ap.k5_launch_count,
+                          qt.k6_launch_count)
+        before = counts()
+        tw.decoder_forward_calls.clear()
+        got = decode_window(to_dev(params), xa.to(cuda), prompts, cfg,
+                            tables, opts)
+        torch.cuda.synchronize()
+        launched = [a - b for a, b in zip(counts(), before)]
+        calls = dict(tw.decoder_forward_calls)
+        layout = "q8" if opts.q8_cross_kv else "packed"
+        single = sum(c for (lay, _, s), c in calls.items() if s == 1)
+        # 2 x 160 cross-KV rows: over 256, so K6 is not taken there
+        assert launched == [
+            cfg.n_text_layer * single * (layout == "packed"),
+            cfg.n_text_layer * single * (layout == "q8"),
+            (8 * cfg.n_text_layer + 1) * sum(calls.values())]
+        ref = decode_window(params, xa, prompts, cfg, tables, opts)
+        assert [r.tokens for r in got] == [r.tokens for r in ref]

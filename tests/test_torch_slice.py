@@ -28,13 +28,15 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _window_slice(compute_dtype, cfg=None, quantized=True, seed=7):
+def _window_slice(compute_dtype, cfg=None, quantized=True, seed=7,
+                  q8_kv=False, xattn_bf16=None):
     """The window program of both packages on one model (default: int8
     encoder and decoder at dh=64, so the K1 gate fires at bf16) and three
     framed windows with ragged prompts (one with a previous-text prefix);
-    the reference runs its Pallas kernels in interpret mode. Returns
-    (port, reference) outputs as numpy: tokens, n_sampled, sum_logprob,
-    no_speech."""
+    the reference runs its Pallas kernels in interpret mode. Cross-KV:
+    int8 with ``q8_kv``, else packed bf16 with ``xattn_bf16`` (default: at
+    bf16 compute, as both serving paths do). Returns (port, reference)
+    outputs as numpy: tokens, n_sampled, sum_logprob, no_speech."""
     from nobs_whisper_tpu.audio.mel import frame_window_np
     from nobs_whisper_tpu.decode import greedy as jg
     from nobs_whisper_tpu.decode import rules as jr
@@ -50,7 +52,8 @@ def _window_slice(compute_dtype, cfg=None, quantized=True, seed=7):
                 "bf16": (jnp.bfloat16, torch.bfloat16)}[compute_dtype]
     # the bf16 serving configuration also decodes on the packed kT
     # cross-attention layout, as both packages' serving paths do
-    xattn_bf16 = compute_dtype == "bf16"
+    if xattn_bf16 is None:
+        xattn_bf16 = compute_dtype == "bf16"
     cfg = cfg or tiny_test_config(d=128, heads=2, n_audio_ctx=32,
                                   n_text_ctx=64)
     jp = jw.init_params(jax.random.PRNGKey(seed), cfg, dtype=jdt)
@@ -76,13 +79,14 @@ def _window_slice(compute_dtype, cfg=None, quantized=True, seed=7):
             jp, jnp.asarray(frames), jnp.asarray(ptok), jnp.asarray(pad),
             jnp.asarray(sot_idx), jr.build_rule_tables(cfg, jr.DecodeOptions()),
             jnp.zeros(3), jax.random.PRNGKey(0), cfg, sample_len,
-            compute_dtype=jdt, xattn_bf16=xattn_bf16, sampling=False)
+            compute_dtype=jdt, q8_kv=q8_kv, xattn_bf16=xattn_bf16,
+            sampling=False)
     got = tg.frames_encode_decode_window_impl(
         tp, torch.from_numpy(frames), torch.from_numpy(ptok).long(),
         torch.from_numpy(pad).long(), torch.from_numpy(sot_idx).long(),
         trl.build_rule_tables(cfg, trl.DecodeOptions()), torch.zeros(3),
-        None, cfg, sample_len, compute_dtype=tdt, xattn_bf16=xattn_bf16,
-        sampling=False)
+        None, cfg, sample_len, compute_dtype=tdt, q8_kv=q8_kv,
+        xattn_bf16=xattn_bf16, sampling=False)
     return ([z.float().numpy() if z.is_floating_point() else z.numpy()
              for z in got[:4]],
             [np.asarray(z, np.float32 if z.dtype.kind == "f" else z.dtype)
@@ -348,12 +352,10 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
 
 
 @pytest.mark.parametrize("opts", [
-    dict(beam_size=5), dict(speculative=3), dict(word_timestamps=True),
-    dict(q8_cross_kv=True)])
+    dict(beam_size=5), dict(speculative=3), dict(word_timestamps=True)])
 def test_unported_options_raise(opts):
-    """Beam, speculative, word timestamps and int8 cross-KV are later
-    slices: they raise and name the ROADMAP item, never take another
-    path quietly."""
+    """Beam, speculative and word timestamps are later slices: they raise
+    and name the ROADMAP item, never take another path quietly."""
     from nobs_whisper_torch.api import WhisperEngine
     from nobs_whisper_torch.decode.rules import DecodeOptions
     from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine

@@ -14,14 +14,22 @@ heads: K9) and each weight seed it prints one line:
   windows give equal greedy tokens, port against reference and port
   against the nudged port.
 
+With ``decode`` it prints instead, for the int8 window program with the
+decode kernels' knobs on (``test_torch_decode_kernels``: int8 cross-KV
+with K5 and K6, or the packed layout with K4 and K6, the reference's
+kernels routed to interpret mode) and each weight seed, which windows give
+equal greedy tokens.
+
 Run from the repo root: ``PYTHONPATH=. python tests/torch_bf16_seed_sweep.py
-[n_seeds]`` (10 seeds take ~6 min on one CPU core).
+[n_seeds] [decode]`` (10 seeds take ~6 min on one CPU core, ~8 min with
+``decode``).
 """
 
 import os
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -69,6 +77,26 @@ class Nudge:
         tw._conv1d = self.real
 
 
+def windows_equal(a, b):
+    return "".join("=" if np.array_equal(a[0][i], b[0][i]) else "x"
+                   for i in range(len(a[0])))
+
+
+def decode_kernels(n_seeds):
+    import test_torch_decode_kernels as td
+    for mode in td.MODES:
+        for seed in range(n_seeds):
+            with pytest.MonkeyPatch.context() as mp:
+                for k in td.KNOBS:
+                    mp.setenv(k, "1")
+                td.route_reference_kernels(mp)
+                with jax.disable_jit():
+                    win, win_ref = ts._window_slice("bf16", seed=seed,
+                                                    **td.MODES[mode])
+            print(f"decode kernels {mode} seed={seed} | windows' tokens vs "
+                  f"ref {windows_equal(win, win_ref)}", flush=True)
+
+
 def main(n_seeds):
     torch.set_num_threads(1)
     for d, heads, kernel in tm.FLOAT_BF16_CASES:
@@ -88,9 +116,7 @@ def main(n_seeds):
                 with Nudge():
                     win_nudged, _ = ts._window_slice(
                         "bf16", cfg=cfg, quantized=False, seed=seed)
-            eq = lambda a, b: "".join(
-                "=" if np.array_equal(a[0][i], b[0][i]) else "x"
-                for i in range(len(a[0])))
+            eq = windows_equal
             print(f"{kernel} d={d} heads={heads} seed={seed} | states vs "
                   f"ref: {compare(ref, got)} | vs nudged port: "
                   f"{compare(got, nudged)} | windows' tokens vs ref "
@@ -99,4 +125,9 @@ def main(n_seeds):
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 10)
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 10
+    if "decode" in sys.argv[2:]:
+        torch.set_num_threads(1)
+        decode_kernels(n)
+    else:
+        main(n)
