@@ -12,7 +12,8 @@ arguments). Phases; any failure exits non-zero before the result line:
 2. kernels against their plain PyTorch versions at turbo width (K1 at
    B=2, T=1536, n_real=1500; K2 at M=2*1536, block_f=2560, with bf16 and
    with f32 activations; K3 at B=2, T=1536, d=1280, H=20, n_real=1500; K9
-   at B=2, H=10, T=1536, dh=128 and at an odd head count, H=15, dh=64):
+   at B=2, H=10, T=1536, dh=128, at an odd head count, H=15, dh=64, and
+   at the ``NWT_INT8_QKV`` path's H=20, dh=64):
    max error against the stated tolerance, kernel / plain / library ms
    (CUDA events) and the bound computed from the shapes against published
    H100 peaks;
@@ -25,8 +26,9 @@ arguments). Phases; any failure exits non-zero before the result line:
    ``BatchedEngine(max_batch=8)``: five concurrent window requests (one
    auto-language), two more fixed-language ones, and one 45 s long-form
    request; launch counters reset just before and read just after must
-   equal 32 x encoder batches; then one of the window requests again
-   under ``torch.profiler`` for where the device time goes;
+   equal 32 x encoder batches; then one of the window requests again,
+   one greedy rung of 224 steps, under ``torch.profiler`` for where the
+   device time goes;
 5. file transcription, the JAX package's default ``transcribe`` path:
    ``WhisperEngine.from_random("large-v3-turbo")`` unquantized at bf16,
    ``transcribe`` of a 12 s and a 45 s clip and of a 10 s clip on
@@ -48,14 +50,24 @@ arguments). Phases; any failure exits non-zero before the result line:
    on the unquantized engine: K4 once a layer in each single-token
    forward, K6 = 0). With no knob set, no earlier phase launches K4, K5
    or K6;
-7. one ``kernels`` JSON line, then the result line.
+7. the encoder's knob paths (``phase_encoder_knobs``): int8 serving with
+   ``NWT_INT8_QKV NWT_MLP_CHUNKED NWT_STEM_FUSED`` (K13 once per encoder
+   batch, K10, K9, K11 and K8 32 times per batch), a file transcription
+   with ``NWT_STEM_FUSED`` (K13, K3), an f32 int8 encoder batch (the f32
+   K10, K11 and K8), and one encoder batch under each of
+   ``NWT_ATTN_FUSED=0``, ``NWT_NO_INT8_MLP`` and ``NWT_ATTN_BHTD``. With
+   no knob set, no earlier phase launches K8, K10, K11 or K13;
+8. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 and K5 (B=8 and B=1, H=20, Dh=64, Tp=1536,
-t_real=1500) and K6 (the logit projection 1280 x 51,866 at M=8 with bf16
-and with f32 x, fc1 1280 x 5120, fc2 5120 x 1280, M=256); phase 3 also
-holds a d=128 dh=64 int8 decoder with the three knobs on against the same
-model on the CPU (f32: greedy tokens equal; bf16: prefill and step
-logits within a tolerance).
+t_real=1500), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
+and with f32 x, fc1 1280 x 5120, fc2 5120 x 1280, M=256), K10, K11 and
+K8 (block_f=1280) at the knob paths' rows (d=1280; M=3000 with bf16 and
+with f32 x, M=1500 with f32 x) and K13 (B=2, 3000 frames, d=1280: C_in=128 at t_out_pad 1536 and
+1504, C_in=80); phase 3 also holds a d=128 dh=64 int8 decoder with the
+three decode knobs on against the same model on the CPU (f32: greedy
+tokens equal; bf16: prefill and step logits within a tolerance), and the
+d=128 dh=64 int8 encoder with the three encoder knobs on (bf16 and f32).
 
 Imports nothing of JAX and nothing of ``nobs_whisper_tpu``.
 """
@@ -96,6 +108,20 @@ K6_TOL = dict(rtol=1e-3, atol=1e-3)
 # the decode kernels' knobs (models/whisper.py), set around their paths
 DECODE_KNOBS = ("NWT_XATTN_KERNEL", "NWT_Q8_KV_PALLAS",
                 "NWT_Q8_KERNEL_MIN_BYTES")
+# K10 and K11 share K2's int8 numerics: f32 summation order in LN and the
+# row scales can flip one int8 activation, which moves its row's outputs
+# by one int8 step times a weight; held, as K2, to the JAX tests' 0.05
+# (tests/test_fused_qkv.py:37,51). K8 is K2's function: K2's bound.
+QKV_TOL = 5e-2
+# K13 rounds the same bf16 operands as its plain version at the same
+# points; the order of its f32 sums differs, which can flip the bf16 sum
+# before a gelu, and where the gelu is flat that one step of its input is
+# several steps of its output: the JAX tests' 3e-2 (test_conv_stem.py:
+# 34-36) on the max error, and rows >= t_real exact zeros
+STEM_TOL = 3e-2
+# the encoder's opt-in kernel knobs of this slice, set around their paths
+SLICE_KNOBS = ("NWT_INT8_QKV", "NWT_MLP_CHUNKED", "NWT_STEM_FUSED")
+KNOB_KERNELS = ("K8", "K10", "K11", "K13")
 
 
 def log(*a):
@@ -283,14 +309,222 @@ def phase_kernels():
     out["K9"] = attention_kernel_check(
         "K9", "encoder_attention", "nobs_whisper_tpu/ops/"
         "encoder_attention.py:93", b=2, h=10, t=1536, dh=128, n_real=1500)
-    odd = attention_kernel_check(
-        "K9", "encoder_attention", "", b=2, h=15, t=1536, dh=64,
-        n_real=1500)
-    out["K9"]["ok"] &= odd["ok"]
+    # the odd head count, and the NWT_INT8_QKV path's own grid (20 heads
+    # of 64, the stem's 1500 rows padded to 1536 around each attention)
+    for h, dh in ((15, 64), (20, 64)):
+        _join(out, "K9", attention_kernel_check(
+            "K9", "encoder_attention", "", b=2, h=h, t=1536, dh=dh,
+            n_real=1500))
     torch.cuda.empty_cache()
     out.update(decode_kernel_checks())
     torch.cuda.empty_cache()
+    out.update(knob_kernel_checks())
+    torch.cuda.empty_cache()
     return out
+
+
+def _bound_int8(nbytes, ops):
+    """(bound ms, what bounds it) for int8 tensor-core work."""
+    tb, to = nbytes / PEAK_BYTES, ops / PEAK_INT8_OPS
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def _join(out, key, e):
+    """Fold a further check of kernel ``key`` into its line's entry: its
+    pass joins the entry's, its error raises the entry's if larger; the
+    first check's times and bound stay the line's."""
+    if key not in out:
+        out[key] = e
+        return
+    out[key]["ok"] &= e["ok"]
+    out[key]["max_abs_err"] = max(out[key]["max_abs_err"], e["max_abs_err"])
+
+
+def _entry(name, source, replaces, err, ms, plain_ms, bound, lib_ms, ok):
+    return dict(name=name, route="cuda",
+                source=f"nobs_whisper_torch/csrc/{source}",
+                replaces=f"nobs_whisper_tpu/ops/{replaces}", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=lib_ms, ok=ok)
+
+
+# The rows K10, K11 and K8 take on the knob paths: 1500 per window (the
+# K9 path does not pad the stem's rows), so 3000 for the serving wave's
+# batches of two and 1500 for the f32 encoder batch; neither is a
+# multiple of the 128-row tile. Each line keeps the times and bound of
+# its first shape; the others join its pass and error.
+KNOB_ROWS = (("bfloat16", 3000), ("float32", 3000), ("float32", 1500))
+
+
+def knob_kernel_checks():
+    """K10, K11 and K8 (block_f = 1280) at ``KNOB_ROWS``, d = 1280. K13 at
+    B = 2, 3000 frames, d = 1280: C_in = 128 at t_out_pad 1536 (the flat
+    path) and 1504 (the K9 path), and C_in = 80. Yardsticks, timed here
+    and used nowhere in the port: ``torch._int_mm`` of the same int8
+    shapes (K10: three, K11: one, K8: K2's two), and two bf16
+    ``F.conv1d`` with the same weights (K13)."""
+    import torch
+    out = {}
+    for dt, m in KNOB_ROWS:
+        xd = getattr(torch, dt)
+        tag = "" if xd == torch.bfloat16 else "-f32"
+        for key, e in qkv_checks(m, xd).items():
+            _join(out, key + tag, e)
+        torch.cuda.empty_cache()
+        _join(out, "K8" + tag, k8_check(m, xd))
+        torch.cuda.empty_cache()
+    # K13: the line keeps C_in = 128 at the flat path's 1536 rows
+    for c_in, t_pad in ((128, 1536), (128, 1504), (80, 1536)):
+        _join(out, "K13", stem_check(c_in, t_pad))
+    return out
+
+
+def qkv_checks(m, xd, d=1280):
+    """K10 and K11 at (m, d) with activations of type ``xd`` against their
+    plain versions on the card."""
+    import torch
+    from nobs_whisper_torch.ops import fused_qkv as fq
+    dev = torch.device("cuda")
+    tag = "" if xd == torch.bfloat16 else "-f32"
+    x, ln_g, ln_b, wq, bq, wk, wv, bv = k1_setup(dev, 1, 20, m, d, seed=12)
+    x = x[0].to(xd)
+    a = (torch.randn(m, d, device=dev) * 0.5).to(xd)
+    eb = x.element_size()
+    a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
+    lib3 = cuda_ms(lambda: [torch._int_mm(a8, w["q"]) for w in (wq, wk, wv)])
+    lib1 = cuda_ms(lambda: torch._int_mm(a8, wq["q"]))
+    out = {}
+    # K10
+    args = (x, ln_g, ln_b, wq, bq, wk, wv, bv)
+    got = fq.encoder_qkv_int8(*args)
+    torch.cuda.synchronize()
+    ref = fq.encoder_qkv_int8_plain(*args)
+    err = max((g.float() - r.float()).abs().max().item()
+              for g, r in zip(got, ref))
+    ok = err < QKV_TOL and all(g.dtype == xd for g in got) and all(
+        bool(torch.isfinite(g.float()).all()) for g in got)
+    ms = cuda_ms(lambda: fq.encoder_qkv_int8(*args))
+    plain_ms = cuda_ms(lambda: fq.encoder_qkv_int8_plain(*args),
+                       reps=3, warmup=1)
+    nbytes = 4 * m * d * eb + 3 * d * d + 8 * d * 4
+    bound = _bound_int8(nbytes, 3 * 2.0 * m * d * d)
+    log(f"[kernel] K10{tag} encoder_qkv_int8 M={m} d={d} x {xd}: "
+        f"max_abs_err {err:.3e} (tol {QKV_TOL}) -> "
+        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+        f"{nbytes / 1e6:.1f} MB), torch._int_mm x3 alone {lib3:.4f} ms")
+    out["K10"] = _entry(
+        "encoder_qkv_int8" + (" (f32 activations)" if tag else ""),
+        "fused_qkv.cu", "fused_qkv.py:79", err, ms, plain_ms, bound,
+        lib3, ok)
+    del got, ref
+    # K11
+    args = (x, a, wq, bq)
+    got = fq.residual_o_int8(*args)
+    torch.cuda.synchronize()
+    ref = fq.residual_o_int8_plain(*args)
+    err = (got.float() - ref.float()).abs().max().item()
+    ok = err < QKV_TOL and got.dtype == xd and \
+        bool(torch.isfinite(got.float()).all())
+    ms = cuda_ms(lambda: fq.residual_o_int8(*args))
+    plain_ms = cuda_ms(lambda: fq.residual_o_int8_plain(*args), reps=3,
+                       warmup=1)
+    nbytes = 3 * m * d * eb + d * d + 2 * d * 4
+    bound = _bound_int8(nbytes, 2.0 * m * d * d)
+    log(f"[kernel] K11{tag} residual_o_int8 M={m} d={d} x {xd}: "
+        f"max_abs_err {err:.3e} (tol {QKV_TOL}) -> "
+        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+        f"{nbytes / 1e6:.1f} MB), torch._int_mm alone {lib1:.4f} ms")
+    out["K11"] = _entry(
+        "residual_o_int8" + (" (f32 activations)" if tag else ""),
+        "fused_qkv.cu", "fused_qkv.py:131", err, ms, plain_ms, bound,
+        lib1, ok)
+    return out
+
+
+def k8_check(m, xd, d=1280, f=5120, bf=1280):
+    """K8, K2's function at the chunked kernel's block_f, at (m, d) with
+    activations of type ``xd`` against its plain version on the card."""
+    import torch
+    from nobs_whisper_torch.ops import fused_mlp as fm
+    dev = torch.device("cuda")
+    tag = "" if xd == torch.bfloat16 else "-f32"
+    args = k2_setup(dev, m, d, f, seed=8)
+    args = (args[0].to(xd),) + args[1:]
+    a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
+    h8 = torch.randint(-127, 128, (m, f), device=dev, dtype=torch.int8)
+    lib_ms = cuda_ms(lambda: (torch._int_mm(a8, args[3]["q"]),
+                              torch._int_mm(h8, args[5]["q"])))
+    got = fm.encoder_mlp_int8(*args, block_f=bf)
+    torch.cuda.synchronize()
+    ref = fm.encoder_mlp_int8_plain(*args, block_f=bf)
+    err = (got.float() - ref.float()).abs().max().item()
+    ok = err < K2_TOL and got.dtype == xd and \
+        bool(torch.isfinite(got.float()).all())
+    ms = cuda_ms(lambda: fm.encoder_mlp_int8(*args, block_f=bf))
+    plain_ms = cuda_ms(lambda: fm.encoder_mlp_int8_plain(
+        *args, block_f=bf), reps=3, warmup=1)
+    nbytes = 2 * m * d * args[0].element_size() + 2 * d * f + \
+        (f + d) * 4 * 2 + 2 * d * 4
+    bound = _bound_int8(nbytes, 2.0 * m * d * f * 2)
+    log(f"[kernel] K8{tag} encoder_mlp_int8 M={m} d={d} ffn={f} "
+        f"block_f={bf} x {xd}: max_abs_err {err:.3e} (tol {K2_TOL}) -> "
+        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+        f"torch._int_mm fc1+fc2 alone {lib_ms:.4f} ms")
+    return _entry("encoder_mlp_int8" + (" (f32 activations)" if tag else ""),
+                  "fused_mlp.cu", "fused_mlp.py:173", err, ms, plain_ms,
+                  bound, lib_ms, ok)
+
+
+def stem_check(c_in, t_pad, b=2, n_frames=3000, d=1280, seed=13):
+    """K13 at one geometry against its plain version (both on the card);
+    the yardstick is the two bf16 ``F.conv1d`` of the unfused stem on the
+    same bf16 mel and weights."""
+    import torch
+    import torch.nn.functional as F
+    from nobs_whisper_torch.ops import conv_stem as cs
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + c_in + t_pad)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    mel = rn(b, c_in, n_frames) * 0.5
+    w1 = (rn(3, c_in, d) * (3 * c_in) ** -0.5).to(torch.bfloat16)
+    w2 = (rn(3, d, d) * (3 * d) ** -0.5).to(torch.bfloat16)
+    b1, b2 = (0.1 * rn(d)).to(torch.bfloat16), (0.1 * rn(d)).to(torch.bfloat16)
+    pos = (0.1 * rn(n_frames // 2, d)).to(torch.bfloat16)
+    args = (mel, w1, b1, w2, b2, pos, t_pad)
+    t_half = n_frames // 2
+    got = cs.encoder_stem_fused(*args)
+    torch.cuda.synchronize()
+    ref = cs.encoder_stem_fused_plain(*args)
+    diff = (got.float() - ref.float()).abs()
+    err = diff.max().item()
+    frac = (diff > 0).float().mean().item()
+    zeros = not bool(got[:, t_half:].any())
+    ok = err < STEM_TOL and zeros and got.shape == (b, t_pad, d) and \
+        bool(torch.isfinite(got.float()).all())
+    ms = cuda_ms(lambda: cs.encoder_stem_fused(*args))
+    plain_ms = cuda_ms(lambda: cs.encoder_stem_fused_plain(*args), reps=3,
+                       warmup=1)
+    xb = mel.to(torch.bfloat16)
+    k1 = w1.permute(2, 1, 0).contiguous()
+    k2 = w2.permute(2, 1, 0).contiguous()
+    a = torch.randn(b, d, n_frames, device=dev, dtype=torch.bfloat16)
+    lib_ms = cuda_ms(lambda: (F.conv1d(xb, k1, b1, padding=1),
+                              F.conv1d(a, k2, b2, stride=2, padding=1)))
+    flops = 2.0 * b * n_frames * 3 * c_in * d + 2.0 * b * t_half * 3 * d * d
+    nbytes = (mel.numel() * 4 + (w1.numel() + w2.numel() + pos.numel()) * 2
+              + 2 * d * 2 + b * t_pad * d * 2)
+    bound = _bound(nbytes, flops)
+    log(f"[kernel] K13 encoder_stem_fused B={b} C_in={c_in} frames="
+        f"{n_frames} d={d} t_out_pad={t_pad}: max_abs_err {err:.3e} (tol "
+        f"{STEM_TOL}), {frac:.2e} of elements differ, rows >= {t_half} zero "
+        f"{zeros} -> {'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+        f"{nbytes / 1e6:.1f} MB), F.conv1d x2 (bf16) {lib_ms:.4f} ms")
+    return _entry("encoder_stem_fused", "conv_stem.cu", "conv_stem.py:160",
+                  err, ms, plain_ms, bound, lib_ms, ok)
 
 
 def _bound(nbytes, flops):
@@ -600,24 +834,63 @@ def phase_reference():
     log(f"[reference] int8 encoder d=128 dh=64 f32 card (K2 f32, no K1) vs "
         f"CPU plain: max_abs_err {err:.3e} (tol {ENC_TOL}), launches per "
         f"layer {through} -> {'PASS' if f32_ok else 'FAIL'}")
+    with knobs(SLICE_KNOBS):
+        slice_ok = reference_knob_slice(dev, cfg, mel, to_dev)
     with knobs(DECODE_KNOBS):
         dec_ok = reference_decoder(dev)
-    return xa_ok and tok_ok and enc_ok and k3_ok and f32_ok and dec_ok
+    return (xa_ok and tok_ok and enc_ok and k3_ok and f32_ok and slice_ok
+            and dec_ok)
+
+
+def reference_knob_slice(dev, cfg, mel, to_dev):
+    """The d=128 dh=64 int8 encoder with the slice's three knobs on, on
+    the card against the same model's plain run on the CPU: at bf16 K13
+    once, then K10, K9, K11 and K8 once a layer; at f32 K10, K11 and K8
+    (f32 variants) once a layer, no attention kernel and no K13."""
+    import torch
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops.quant import quantize_encoder_params
+    n = cfg.n_audio_layer
+    ok = True
+    for dt in (torch.bfloat16, torch.float32):
+        qp = quantize_encoder_params(mw.init_params(3, cfg, dtype=dt))
+        reset_counts()
+        got = mw.encode(to_dev(qp), mel.to(dev), cfg, compute_dtype=dt)
+        torch.cuda.synchronize()
+        c = read_counts()
+        if dt == torch.bfloat16:
+            want = dict(K13=1, K10=n, K9=n, K11=n, K8=n)
+        else:
+            want = {"K10-f32": n, "K11-f32": n, "K8-f32": n, "K13": 0,
+                    "K9": 0}
+        through = all(c[k] == v for k, v in want.items()) and \
+            c["K1"] == c["K2"] == c["K3"] == 0
+        ref = mw.encode(qp, mel, cfg, compute_dtype=dt)
+        err = (got.float().cpu() - ref.float()).abs().max().item()
+        this = through and bool(torch.isfinite(got.float()).all()) \
+            and err < ENC_TOL and got.dtype == dt
+        log(f"[reference] int8 encoder d=128 dh=64 {str(dt)[6:]} with "
+            f"{' '.join(SLICE_KNOBS)}, card vs CPU plain: max_abs_err "
+            f"{err:.3e} (tol {ENC_TOL}); launches {_launch_summary(c)} "
+            f"(want {want}, K1 = K2 = K3 = 0) -> "
+            f"{'PASS' if this else 'FAIL'}")
+        ok &= this
+    return ok
 
 
 DEC_LOGIT_TOL = 5e-2   # bf16 decoder, 2 layers: see reference_decoder
 
 
 class knobs:
-    """Set environment knobs to "1" in-process; restore them on exit."""
+    """Set environment knobs in-process, each of ``names`` to "1" and each
+    of ``values`` to its value; restore them on exit."""
 
-    def __init__(self, names):
-        self.names = names
+    def __init__(self, names=(), **values):
+        self.values = {**{k: "1" for k in names}, **values}
 
     def __enter__(self):
-        self.saved = {k: os.environ.get(k) for k in self.names}
-        for k in self.names:
-            os.environ[k] = "1"
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
 
     def __exit__(self, *exc):
         for k, v in self.saved.items():
@@ -811,7 +1084,8 @@ def phase_serving(card, eng):
         counts_ok = (batches > 0 and launches["K1"] == want
                      and launches["K2"] == want
                      and c["K3"] == c["K9"] == c["K2-f32"] == 0
-                     and c["K4"] == c["K5"] == c["K6"] == 0)
+                     and c["K4"] == c["K5"] == c["K6"] == 0
+                     and no_knob_kernels(c))
         log(f"[serve] {card}: wall {wall:.2f} s; batch sizes "
             f"{be.batcher.batch_sizes}; encoder batches {batches}; "
             f"launches K1 {launches['K1']} K2 {launches['K2']} "
@@ -831,17 +1105,26 @@ def profile_wave(be, wave, card):
     """One more concurrent wave under torch.profiler: device time by
     kernel, the device's idle share of the wave's wall time, and the
     device time of dtype copies (``copy`` kernels: on the int8 decoder's
-    default path, the per-step dequantization of every weight). Outside
-    the counted run; a profiler failure is reported, not fatal."""
+    default path, the per-step dequantization of every weight). The wave
+    runs on a batcher of its own over ``be``'s engine and options with one
+    greedy rung per window (224 decode steps; random weights never emit
+    eot, so the six-rung ladder would repeat them six times, and the
+    trace's processing takes minutes per rung). Outside the counted run;
+    a profiler failure is reported, not fatal."""
+    import dataclasses
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    one = BatchedEngine(be.engine, max_batch=8, opts=dataclasses.replace(
+        be.opts, temperature_increment=0.0))
     try:
-        t0 = time.perf_counter()
         with profile(activities=acts) as prof:
-            _run_wave(be, wave, card)
+            # the wave's own wall: not the profiler's start (seconds the
+            # first time) nor the trace's processing at exit
+            t0 = time.perf_counter()
+            _run_wave(one, wave, card)
             torch.cuda.synchronize()
-            # the wave's own wall, not the trace's processing at exit
             wall = time.perf_counter() - t0
         ka = prof.key_averages()
         attr = ("self_device_time_total"
@@ -852,6 +1135,8 @@ def profile_wave(be, wave, card):
     except Exception as e:
         log(f"[profile] not measured: {e!r}")
         return
+    finally:
+        one.close()
     copy_ms = sum(getattr(e, attr) for e in ka if "copy" in e.key) / 1e3
     top_copies = sum("copy" in e.key for e in rows[:15])
     log(f"[profile] {card}: profiled wave wall {wall:.3f} s, device busy "
@@ -868,28 +1153,47 @@ def profile_wave(be, wave, card):
 def reset_counts():
     from nobs_whisper_torch.models import whisper as mw
     from nobs_whisper_torch.ops import attention_pallas as ap
+    from nobs_whisper_torch.ops import conv_stem as cs
     from nobs_whisper_torch.ops import encoder_attention as ea
     from nobs_whisper_torch.ops import fused_mlp as fm
+    from nobs_whisper_torch.ops import fused_qkv as fq
     from nobs_whisper_torch.ops import quant as qt
     ea.launch_count = ea.k3_launch_count = ea.k9_launch_count = 0
     fm.launch_count = fm.launch_count_f32 = 0
+    fm.k8_launch_count = fm.k8_launch_count_f32 = 0
+    fq.k10_launch_count = fq.k10_launch_count_f32 = 0
+    fq.k11_launch_count = fq.k11_launch_count_f32 = 0
+    cs.launch_count = 0
     ap.k4_launch_count = ap.k5_launch_count = qt.k6_launch_count = 0
     mw.encode_count = 0
     mw.decoder_forward_calls.clear()
 
 
 def read_counts():
+    """Launches of each kernel since :func:`reset_counts`; "K2", "K8",
+    "K10" and "K11" count both activation types, "*-f32" the f32 ones."""
     from nobs_whisper_torch.models import whisper as mw
     from nobs_whisper_torch.ops import attention_pallas as ap
+    from nobs_whisper_torch.ops import conv_stem as cs
     from nobs_whisper_torch.ops import encoder_attention as ea
     from nobs_whisper_torch.ops import fused_mlp as fm
+    from nobs_whisper_torch.ops import fused_qkv as fq
     from nobs_whisper_torch.ops import quant as qt
     return {"K1": ea.launch_count, "K3": ea.k3_launch_count,
             "K9": ea.k9_launch_count, "K2": fm.launch_count,
-            "K2-f32": fm.launch_count_f32, "K4": ap.k4_launch_count,
+            "K2-f32": fm.launch_count_f32, "K8": fm.k8_launch_count,
+            "K8-f32": fm.k8_launch_count_f32, "K10": fq.k10_launch_count,
+            "K10-f32": fq.k10_launch_count_f32,
+            "K11": fq.k11_launch_count, "K11-f32": fq.k11_launch_count_f32,
+            "K13": cs.launch_count, "K4": ap.k4_launch_count,
             "K5": ap.k5_launch_count, "K6": qt.k6_launch_count,
             "batches": mw.encode_count,
             "forwards": dict(mw.decoder_forward_calls)}
+
+
+def no_knob_kernels(c):
+    """With no encoder knob set, K8, K10, K11 and K13 never launch."""
+    return not any(c[k] for k in KNOB_KERNELS)
 
 
 def _launch_summary(c):
@@ -939,8 +1243,8 @@ def phase_transcribe(card, eng):
     torch.cuda.synchronize()
     c = read_counts()
     want = cfg.n_audio_layer * c["batches"]
-    k3_ok = c["batches"] > 0 and c["K3"] == want and \
-        c["K1"] == c["K9"] == c["K2"] == c["K4"] == c["K5"] == c["K6"] == 0
+    k3_ok = c["batches"] > 0 and c["K3"] == want and no_knob_kernels(c) \
+        and c["K1"] == c["K9"] == c["K2"] == c["K4"] == c["K5"] == c["K6"] == 0
     log(f"[transcribe] {card}: encoder batches {c['batches']}; launches "
         f"{_launch_summary(c)} (want K3 = {cfg.n_audio_layer} x "
         f"{c['batches']} = {want}, others 0) -> "
@@ -959,8 +1263,8 @@ def phase_transcribe(card, eng):
     torch.cuda.synchronize()
     c = read_counts()
     want = cfg.n_audio_layer * c["batches"]
-    k9_ok = c["batches"] > 0 and c["K9"] == want and \
-        c["K1"] == c["K3"] == c["K4"] == c["K5"] == c["K6"] == 0
+    k9_ok = c["batches"] > 0 and c["K9"] == want and no_knob_kernels(c) \
+        and c["K1"] == c["K3"] == c["K4"] == c["K5"] == c["K6"] == 0
     log(f"[transcribe] {card}: 10 heads of 128: launches "
         f"{_launch_summary(c)} (want K9 = {cfg.n_audio_layer} x "
         f"{c['batches']} = {want}) -> {'PASS' if k9_ok else 'FAIL'}")
@@ -980,7 +1284,7 @@ def phase_transcribe(card, eng):
     torch.cuda.synchronize()
     c = read_counts()
     f32_ok = (c["K2-f32"] == c["K2"] == cfg.n_audio_layer and c["K1"] == 0
-              and xa.dtype == torch.float32
+              and no_knob_kernels(c) and xa.dtype == torch.float32
               and tuple(xa.shape) == (1, cfg.n_audio_ctx, cfg.n_audio_state)
               and bool(torch.isfinite(xa).all()))
     log(f"[transcribe] {card}: int8 encoder at f32, one batch: launches "
@@ -1032,7 +1336,8 @@ def phase_decode_kernels(card, qeng, eng):
             counts_ok = (c["batches"] > 0 and q8_forwards > 0
                          and want["K4"] == 0
                          and all(c[k] == want[k] for k in want)
-                         and c["K3"] == c["K9"] == c["K2-f32"] == 0)
+                         and c["K3"] == c["K9"] == c["K2-f32"] == 0
+                         and no_knob_kernels(c))
             log(f"[decode] {card}: int8 cross-KV wave wall {wall:.2f} s; "
                 f"batch sizes {be.batcher.batch_sizes}; decoder forwards "
                 f"{c['forwards']}; launches {_launch_summary(c)} (want "
@@ -1053,12 +1358,132 @@ def phase_decode_kernels(card, qeng, eng):
         c = read_counts()
     want = predicted_decode_launches(c["forwards"], n_layer)
     k4_ok = (c["K4"] == want["K4"] > 0 and c["K5"] == c["K6"] == 0
-             and c["K3"] == cfg.n_audio_layer * c["batches"])
+             and c["K3"] == cfg.n_audio_layer * c["batches"]
+             and no_knob_kernels(c))
     log(f"[decode] {card}: file path with NWT_XATTN_KERNEL=1: decoder "
         f"forwards {c['forwards']}; launches {_launch_summary(c)} (want K4 "
         f"{want['K4']}, K5 = K6 = 0) -> {'PASS' if k4_ok else 'FAIL'}")
     launches["K4"] = c["K4"]
     return ok and k4_ok, launches
+
+
+def phase_encoder_knobs(card, qeng, eng):
+    """The encoder's knob paths at full large-v3-turbo width and depth,
+    the knobs set in-process around each path and restored after; counts
+    set to 0 just before each path and read just after it:
+
+    (a) int8 serving (``qeng``) with ``NWT_INT8_QKV NWT_MLP_CHUNKED
+        NWT_STEM_FUSED``, one concurrent wave of two requests (one
+        auto-language): K13 once per encoder batch, K10, K9, K11 and K8
+        32 times per batch, K1 = K2 = K3 = 0;
+    (b) one ``transcribe`` of a 12 s clip on the unquantized engine
+        (``eng``) with ``NWT_STEM_FUSED``: K13 once per batch and K3 32
+        times (the flat path, the stem padded to 1536 rows);
+    (c) one f32 int8 encoder batch with ``NWT_INT8_QKV NWT_MLP_CHUNKED``:
+        the f32 K10, K11 and K8 32 times each, no attention kernel, no K13;
+    (d) one ``encode`` each under the repaired gates: ``NWT_ATTN_FUSED=0``
+        (K3, not K1), ``NWT_NO_INT8_MLP`` (no K2), ``NWT_ATTN_BHTD`` (K9).
+    """
+    import numpy as np
+    import torch
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops.quant import quantize_encoder_params
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    cfg = qeng.cfg
+    n = cfg.n_audio_layer
+    launches = {}
+
+    # (a) the slice: int8 serving with the three knobs
+    wave1, _ = _request_audio()
+    with knobs(SLICE_KNOBS):
+        be = BatchedEngine(qeng, max_batch=8)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            ok = _run_wave(be, [wave1[1], wave1[4]], card)   # 12 s, auto 8 s
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = read_counts()
+        finally:
+            be.close()
+    nb = c["batches"]
+    a_ok = (nb > 0 and c["K13"] == nb and c["K10"] == c["K9"] == c["K11"]
+            == c["K8"] == n * nb and c["K1"] == c["K2"] == c["K3"] == 0
+            and c["K10-f32"] == c["K11-f32"] == c["K8-f32"] == 0)
+    log(f"[knobs] {card}: int8 serving with {' '.join(SLICE_KNOBS)}: wall "
+        f"{wall:.2f} s; batch sizes {be.batcher.batch_sizes}; launches "
+        f"{_launch_summary(c)} (want K13 = {nb}, K10 = K9 = K11 = K8 = "
+        f"{n} x {nb} = {n * nb}, K1 = K2 = K3 = 0) -> "
+        f"{'PASS' if a_ok else 'FAIL'}")
+    ok &= a_ok
+    launches.update(K13=c["K13"], K10=c["K10"], K9=c["K9"], K11=c["K11"],
+                    K8=c["K8"])
+
+    # (b) the fused stem on the file path (flat attention, K3)
+    opts = DecodeOptions(temperature_increment=0.0)
+    with knobs(("NWT_STEM_FUSED",)):
+        reset_counts()
+        ok &= _transcribe_one(eng, "en-12s K13", speech_like_audio(
+            12.0, seed=28), card, opts)
+        torch.cuda.synchronize()
+        c = read_counts()
+    nb = c["batches"]
+    b_ok = (nb > 0 and c["K13"] == nb and c["K3"] == n * nb
+            and c["K1"] == c["K9"] == c["K10"] == c["K8"] == 0)
+    log(f"[knobs] {card}: file path with NWT_STEM_FUSED=1: launches "
+        f"{_launch_summary(c)} (want K13 = {nb}, K3 = {n} x {nb}) -> "
+        f"{'PASS' if b_ok else 'FAIL'}")
+    ok &= b_ok
+
+    # (c) the int8 encoder at f32 compute with K10, K11 and K8
+    enc32 = {"encoder": {k: (v.float() if torch.is_tensor(v) else
+                             {kk: vv.float() for kk, vv in v.items()})
+                         for k, v in eng.params["encoder"].items()}}
+    enc32 = quantize_encoder_params(enc32)
+    mel = torch.from_numpy(np.random.RandomState(29).randn(
+        1, cfg.n_mels, 2 * cfg.n_audio_ctx).astype(np.float32)).cuda()
+    with knobs(SLICE_KNOBS):
+        reset_counts()
+        xa = mw.encode(enc32, mel, cfg, compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        c = read_counts()
+    c_ok = (c["K10-f32"] == c["K11-f32"] == c["K8-f32"] == c["K10"]
+            == c["K11"] == c["K8"] == n and c["K13"] == 0
+            and c["K1"] == c["K3"] == c["K9"] == c["K2"] == 0
+            and xa.dtype == torch.float32
+            and tuple(xa.shape) == (1, cfg.n_audio_ctx, cfg.n_audio_state)
+            and bool(torch.isfinite(xa).all()))
+    log(f"[knobs] {card}: int8 encoder at f32 with {' '.join(SLICE_KNOBS)}, "
+        f"one batch: launches {_launch_summary(c)} (want K10 = K11 = K8 = "
+        f"{n}, all f32; no attention kernel, no K13), states "
+        f"{tuple(xa.shape)} finite -> {'PASS' if c_ok else 'FAIL'}")
+    ok &= c_ok
+    launches.update({"K10-f32": c["K10-f32"], "K11-f32": c["K11-f32"],
+                     "K8-f32": c["K8-f32"]})
+    del enc32, xa
+    torch.cuda.empty_cache()
+
+    # (d) the repaired gates, one encoder batch each on the int8 engine
+    for env, want in ((dict(NWT_ATTN_FUSED="0"), dict(K3=n, K1=0, K2=n)),
+                      (dict(NWT_NO_INT8_MLP="1"), dict(K1=n, K2=0)),
+                      (dict(NWT_ATTN_BHTD="1"), dict(K9=n, K1=0, K2=n))):
+        with knobs(**env):
+            reset_counts()
+            xa = mw.encode(qeng.params, mel, cfg,
+                           compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            c = read_counts()
+        d_ok = (all(c[k] == v for k, v in want.items())
+                and no_knob_kernels(c) and bool(torch.isfinite(
+                    xa.float()).all()))
+        (name, value), = env.items()
+        log(f"[knobs] {card}: int8 encoder at bf16 with {name}={value}: "
+            f"launches {_launch_summary(c)} (want {want}) -> "
+            f"{'PASS' if d_ok else 'FAIL'}")
+        ok &= d_ok
+    return ok, launches
 
 
 def phase_cli(card):
@@ -1101,34 +1526,44 @@ def main():
     from nobs_whisper_torch.core.device import disable_tf32
     disable_tf32()
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def took(name):
+        marks.append(time.perf_counter())
+        log(f"[time] {name}: {marks[-1] - marks[-2]:.1f} s")
+
     smi = phase_card_and_build()
     card = smi
+    took("card and build")
     ok, launches = True, {}
     kern = phase_kernels()
+    took("kernels")
     ok &= phase_reference()
+    took("reference")
     from nobs_whisper_torch.api import WhisperEngine
-    t0 = time.perf_counter()
     eng = WhisperEngine.from_random("large-v3-turbo", seed=0, device="cuda")
     torch.cuda.synchronize()
     cfg = eng.cfg
     log(f"[engine] large-v3-turbo d={cfg.n_audio_state} enc_layers="
         f"{cfg.n_audio_layer} dec_layers={cfg.n_text_layer} heads "
         f"{cfg.n_audio_head}, random weights from seed 0, bf16: built "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"in {time.perf_counter() - marks[-1]:.1f} s")
     t0 = time.perf_counter()
     qeng = eng.quantize()
     torch.cuda.synchronize()
     log(f"[serve] engine large-v3-turbo int8 encoder and decoder, bf16 "
         f"compute, seed 0: quantized in {time.perf_counter() - t0:.1f} s")
-    serve_ok, counts = phase_serving(card, qeng)
-    ok &= serve_ok
-    launches.update(counts)
-    tr_ok, counts = phase_transcribe(card, eng)
-    ok &= tr_ok
-    launches.update(counts)
-    dec_ok, counts = phase_decode_kernels(card, qeng, eng)
-    ok &= dec_ok
-    launches.update(counts)
+    took("engines")
+    for name, phase, args in (
+            ("serving", phase_serving, (card, qeng)),
+            ("transcribe", phase_transcribe, (card, eng)),
+            ("decode kernels", phase_decode_kernels, (card, qeng, eng)),
+            ("encoder knobs", phase_encoder_knobs, (card, qeng, eng))):
+        phase_ok, counts = phase(*args)
+        ok &= phase_ok
+        for key, n in counts.items():     # K9 runs on two phases' paths
+            launches[key] = launches.get(key, 0) + n
+        took(name)
     entries = []
     for key, e in kern.items():
         e = dict(e)

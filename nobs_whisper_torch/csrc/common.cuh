@@ -1,17 +1,21 @@
 // Shared device code for the encoder kernels (sm_90a, plain C interface).
 //
-// Two building blocks used by both encoder_attention.cu (K1) and
-// fused_mlp.cu (K2):
+// Building blocks used by encoder_attention.cu (K1), fused_mlp.cu (K2, K8)
+// and fused_qkv.cu (K10, K11):
 //
 //   * ln_quant_kernel: LayerNorm in f32 (eps 1e-5) of bf16 or f32 rows and
 //     dynamic per-row int8 quantization, s = max(absmax, 1e-6) / 127, q = clip(rint(h / s)).
 //     This is the Pallas kernels' numerics (encoder_attention.py:416-427,
-//     fused_mlp.py:231-239), not dense_int8_dynamic's 1e-8 floor.
+//     fused_mlp.py:231-239, fused_qkv.py:31-41), not dense_int8_dynamic's
+//     1e-8 floor. With LN = false it quantizes the rows as they are (K11's
+//     attention input, fused_qkv.py:107-110).
 //   * an int8 x int8 -> int32 tiled GEMM on the tensor cores with
 //     mma.sync.m16n8k32 (128 x 128 x 64 block tile, 8 warps of 64 x 32).
 //     The weight operand stays in the reference (K, N) row-major layout;
 //     each tile is transposed into n-major shared memory on the way in, so
 //     every fragment register is one 32-bit shared load.
+//   * qkv_gemm_kernel: the three (d, d) int8 projections of one quantized
+//     row block in one launch (K1 with its q pre-scaled, K10 without).
 //
 // Arithmetic in the epilogues uses the _rn intrinsics so that nvcc does not
 // contract a multiply and an add into one FMA: the plain PyTorch versions
@@ -64,8 +68,18 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
 }
 
-// T: the activations' type, bf16 or float (the int8 encoder at f32 compute)
-template <typename T>
+// tanh gelu with f32 internals, op by op in the reference's order:
+// (0.5 a) (1 + tanh(c (a + ((0.044715 a) a) a))), c = sqrt(2 / pi); tanhf,
+// never a fast approximation (fused_mlp.py:126-128, conv_stem.py:48-50)
+__device__ __forceinline__ float gelu_tanh(float a) {
+  const float a3 = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, a), a), a);
+  const float th = tanhf(__fmul_rn(0.7978845608028654f, __fadd_rn(a, a3)));
+  return __fmul_rn(__fmul_rn(0.5f, a), __fadd_rn(1.0f, th));
+}
+
+// T: the activations' type, bf16 or float (the int8 encoder at f32 compute);
+// LN: LayerNorm with g, b first, else the rows are quantized as they are
+template <typename T, bool LN = true>
 __global__ void __launch_bounds__(LNQ_WARPS * 32)
 ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ g,
                 const float* __restrict__ b, int8_t* __restrict__ xq,
@@ -77,26 +91,29 @@ ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ g,
   float* h = lnq_smem + (size_t)warp * d;
   const T* xr = x + (size_t)row * d;
 
-  float s = 0.f;
+  float s = 0.f, amax = 0.f;
   for (int c = lane; c < d; c += 32) {
     float v = to_f32(xr[c]);
     h[c] = v;
     s += v;
-  }
-  const float mean = __fdiv_rn(warp_sum(s), (float)d);
-  float s2 = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    float dv = __fsub_rn(h[c], mean);
-    s2 = __fadd_rn(s2, __fmul_rn(dv, dv));
-  }
-  const float var = __fdiv_rn(warp_sum(s2), (float)d);
-  const float rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, 1e-5f)));
-  float amax = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    float v = __fmul_rn(__fsub_rn(h[c], mean), rs);
-    v = __fadd_rn(__fmul_rn(v, g[c]), b[c]);
-    h[c] = v;
     amax = fmaxf(amax, fabsf(v));
+  }
+  if (LN) {
+    const float mean = __fdiv_rn(warp_sum(s), (float)d);
+    float s2 = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      float dv = __fsub_rn(h[c], mean);
+      s2 = __fadd_rn(s2, __fmul_rn(dv, dv));
+    }
+    const float var = __fdiv_rn(warp_sum(s2), (float)d);
+    const float rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, 1e-5f)));
+    amax = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      float v = __fmul_rn(__fsub_rn(h[c], mean), rs);
+      v = __fadd_rn(__fmul_rn(v, g[c]), b[c]);
+      h[c] = v;
+      amax = fmaxf(amax, fabsf(v));
+    }
   }
   amax = warp_max(amax);
   const float scale = __fdiv_rn(fmaxf(amax, 1e-6f), 127.0f);
@@ -104,19 +121,19 @@ ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ g,
   if (lane == 0) sx[row] = scale;
 }
 
-template <typename T>
+template <typename T, bool LN = true>
 inline cudaError_t launch_ln_quant(const T* x, const float* g,
                                    const float* b, int8_t* xq, float* sx,
                                    int M, int d, cudaStream_t st) {
   const size_t smem = (size_t)LNQ_WARPS * d * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        ln_quant_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ln_quant_kernel<T, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  ln_quant_kernel<T><<<(M + LNQ_WARPS - 1) / LNQ_WARPS, LNQ_WARPS * 32, smem,
-                    st>>>(x, g, b, xq, sx, M, d);
+  ln_quant_kernel<T, LN><<<(M + LNQ_WARPS - 1) / LNQ_WARPS, LNQ_WARPS * 32,
+                           smem, st>>>(x, g, b, xq, sx, M, d);
   return cudaGetLastError();
 }
 
@@ -135,6 +152,16 @@ struct GemmSmem {
   uint8_t a[GBM][GLDS];   // [m][k]
   uint8_t b[GBN][GLDS];   // [n][k]  (transposed from the (K, N) weight)
 };
+
+// bf16 x bf16 -> f32 tensor-core tile (K1/K3/K9, K6, K13)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
@@ -218,6 +245,106 @@ __device__ __forceinline__ int acc_col(int n0, int nt, int e) {
 // acc_int32 -> f32 x row scale x column scale, in that order.
 __device__ __forceinline__ float dequant(int acc, float s_row, float s_col) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), s_col);
+}
+
+// The block's 128 x 128 tile of A (M, K) @ W (K, N), both int8 row-major,
+// K % 64 == 0, N % 128 == 0; rows of A >= M read as zero.
+__device__ __forceinline__ void gemm_s8_tile(GemmSmem& sm, const int8_t* A,
+                                             const int8_t* W, int m0, int n0,
+                                             int M, int K, int N,
+                                             int (&acc)[4][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  for (int k0 = 0; k0 < K; k0 += GBK) {
+    load_a_s8(sm, A, K, m0, k0, M);
+    load_b_s8(sm, W, N, k0, n0);
+    __syncthreads();
+    mma_slab(sm, acc);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// q/k/v projections of quantized rows: grid (d / 128, ceil(M / 128), 3),
+// blockIdx.z picks q, k or v. Epilogue (acc * s_row * s_col + bias) in f32,
+// q then times q_scale (K1: dh^-0.5; K10: 1, which leaves it unchanged),
+// written in OutT.
+// ---------------------------------------------------------------------------
+
+template <typename OutT>
+struct QKVArgs {
+  const int8_t* xq;
+  const float* sx;
+  const int8_t* w[3];
+  const float* s[3];
+  const float* bias[3];   // k has none (nullptr)
+  OutT* out[3];
+  float q_scale;
+  int M, d;
+};
+
+template <typename OutT>
+__global__ void __launch_bounds__(GTHREADS)
+qkv_gemm_kernel(QKVArgs<OutT> p) {
+  __shared__ __align__(16) GemmSmem sm;
+  const int z = blockIdx.z;
+  const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * GBM;
+  int acc[4][4][4];
+  gemm_s8_tile(sm, p.xq, p.w[z], m0, n0, p.M, p.d, p.d, acc);
+
+  const float* s_col = p.s[z];
+  const float* bias = p.bias[z];
+  OutT* out = p.out[z];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = acc_row(m0, mt, e), c = acc_col(n0, nt, e);
+        if (r >= p.M) continue;
+        float v = dequant(acc[mt][nt][e], p.sx[r], s_col[c]);
+        if (bias) v = __fadd_rn(v, bias[c]);
+        if (z == 0) v = __fmul_rn(v, p.q_scale);
+        out[(size_t)r * p.d + c] = from_f32<OutT>(v);
+      }
+}
+
+// xq (M, d) int8 and sx (M,) from ln_quant_kernel; weights (d, d) int8
+// row-major with (d,) f32 column scales; bq, bv (d,) f32; q, k, v (M, d).
+template <typename OutT>
+inline cudaError_t launch_qkv_gemm(const void* xq, const void* sx,
+                                   const void* wq, const void* sq,
+                                   const void* bq, const void* wk,
+                                   const void* sk, const void* wv,
+                                   const void* sv, const void* bv, void* q,
+                                   void* k, void* v, float q_scale, int M,
+                                   int d, cudaStream_t st) {
+  QKVArgs<OutT> a;
+  a.xq = static_cast<const int8_t*>(xq);
+  a.sx = static_cast<const float*>(sx);
+  a.w[0] = static_cast<const int8_t*>(wq);
+  a.w[1] = static_cast<const int8_t*>(wk);
+  a.w[2] = static_cast<const int8_t*>(wv);
+  a.s[0] = static_cast<const float*>(sq);
+  a.s[1] = static_cast<const float*>(sk);
+  a.s[2] = static_cast<const float*>(sv);
+  a.bias[0] = static_cast<const float*>(bq);
+  a.bias[1] = nullptr;
+  a.bias[2] = static_cast<const float*>(bv);
+  a.out[0] = static_cast<OutT*>(q);
+  a.out[1] = static_cast<OutT*>(k);
+  a.out[2] = static_cast<OutT*>(v);
+  a.q_scale = q_scale;
+  a.M = M;
+  a.d = d;
+  const dim3 grid(d / GBN, (M + GBM - 1) / GBM, 3);
+  qkv_gemm_kernel<OutT><<<grid, GTHREADS, 0, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace nwt

@@ -27,11 +27,12 @@
 //      steps reuse (encoder_attention.py:416-433). GPU blocks run in
 //      parallel and in no order, so this is a separate pass writing int8
 //      rows + scales.
-//   2. qkv_gemm_kernel (K1 only): the three projections as one int8
-//      mma.sync GEMM launch (grid.z picks q, k or v). The epilogue
-//      dequantizes (acc * s_row * s_col + bias) and writes bf16(q * dh^-0.5),
-//      bf16(k), bf16(v) — exactly the operands the TPU kernel feeds its bf16
-//      dots. The outputs make one round trip through device memory
+//   2. qkv_gemm_kernel (common.cuh, shared with K10): the three
+//      projections as one int8 mma.sync GEMM launch (grid.z picks q, k or
+//      v). The epilogue dequantizes (acc * s_row * s_col + bias) and writes
+//      bf16(q * dh^-0.5), bf16(k), bf16(v) — exactly the operands the TPU
+//      kernel feeds its bf16 dots. The outputs make one round trip through
+//      device memory
 //      (3 x B x T x d bf16), which the TPU kernel keeps in VMEM.
 //   3. attn_kernel: one block per (64 query rows, head, batch row), one warp
 //      per 16 query rows, bf16 mma.sync with f32 accumulation. Strides say
@@ -60,60 +61,6 @@
 namespace nwt {
 
 // ---------------------------------------------------------------------------
-// q/k/v projections
-// ---------------------------------------------------------------------------
-
-struct QKVArgs {
-  const int8_t* xq;
-  const float* sx;
-  const int8_t* w[3];
-  const float* s[3];
-  const float* bias[3];   // k has none (nullptr)
-  bf16* out[3];
-  float q_scale;
-  int M, d;
-};
-
-__global__ void __launch_bounds__(GTHREADS)
-qkv_gemm_kernel(QKVArgs p) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int z = blockIdx.z;
-  const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * GBM;
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  for (int k0 = 0; k0 < p.d; k0 += GBK) {
-    load_a_s8(sm, p.xq, p.d, m0, k0, p.M);
-    load_b_s8(sm, p.w[z], p.d, k0, n0);
-    __syncthreads();
-    mma_slab(sm, acc);
-    __syncthreads();
-  }
-
-  const float* s_col = p.s[z];
-  const float* bias = p.bias[z];
-  bf16* out = p.out[z];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = acc_row(m0, mt, e), c = acc_col(n0, nt, e);
-        if (r >= p.M) continue;
-        float v = dequant(acc[mt][nt][e], p.sx[r], s_col[c]);
-        if (bias) v = __fadd_rn(v, bias[c]);
-        if (z == 0) v = __fmul_rn(v, p.q_scale);
-        out[(size_t)r * p.d + c] = __float2bfloat16_rn(v);
-      }
-}
-
-// ---------------------------------------------------------------------------
 // attention: one (batch row, head) per blockIdx.(z, y), 64 query rows per
 // block, head width DH. Strides in elements: a head's row t of batch row b
 // starts at b * sb + h * sh + t * st (flat (B, T, d): sb = T d, sh = dh,
@@ -133,15 +80,6 @@ struct AttnArgs {
   int n_real;
   float q_scale;   // q enters the scores as bf16(f32(q) * q_scale)
 };
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -335,27 +273,8 @@ extern "C" int nwt_encoder_attention_fused_qkv(
       static_cast<float*>(sx), M, d, st);
   if (e != cudaSuccess) return (int)e;
 
-  QKVArgs a;
-  a.xq = static_cast<const int8_t*>(xq);
-  a.sx = static_cast<const float*>(sx);
-  a.w[0] = static_cast<const int8_t*>(wq);
-  a.w[1] = static_cast<const int8_t*>(wk);
-  a.w[2] = static_cast<const int8_t*>(wv);
-  a.s[0] = static_cast<const float*>(sq);
-  a.s[1] = static_cast<const float*>(sk);
-  a.s[2] = static_cast<const float*>(sv);
-  a.bias[0] = static_cast<const float*>(bq);
-  a.bias[1] = nullptr;
-  a.bias[2] = static_cast<const float*>(bv);
-  a.out[0] = static_cast<bf16*>(q);
-  a.out[1] = static_cast<bf16*>(k);
-  a.out[2] = static_cast<bf16*>(v);
-  a.q_scale = sm_scale;
-  a.M = M;
-  a.d = d;
-  dim3 ggrid(d / GBN, (M + GBM - 1) / GBM, 3);
-  qkv_gemm_kernel<<<ggrid, GTHREADS, 0, st>>>(a);
-  e = cudaGetLastError();
+  e = launch_qkv_gemm<bf16>(xq, sx, wq, sq, bq, wk, sk, wv, sv, bv, q, k, v,
+                            sm_scale, M, d, st);
   if (e != cudaSuccess) return (int)e;
 
   AttnArgs at{static_cast<const bf16*>(q), static_cast<const bf16*>(k),

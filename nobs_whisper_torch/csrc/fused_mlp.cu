@@ -1,10 +1,24 @@
-// K2: out = x + fc2(requant(gelu_tanh(fc1(quant(LN2 x))))) + b2 with int8
-// weights, per-row int8 activations and the fc2 input re-quantized per
-// (row, FFN chunk).
+// K2 and K8: out = x + fc2(requant(gelu_tanh(fc1(quant(LN2 x))))) + b2
+// with int8 weights, per-row int8 activations and the fc2 input
+// re-quantized per (row, FFN chunk).
 //
-// Replaces the TPU kernel nobs_whisper_tpu/ops/fused_mlp.py::
-// encoder_mlp_int8_resident (pallas_call at :298, kernel
-// _enc_mlp_res_kernel :211).
+// Replaces two TPU kernels of nobs_whisper_tpu/ops/fused_mlp.py, both
+// hand-written here, neither a library call:
+//   K2 nwt_encoder_mlp_int8[_f32]: encoder_mlp_int8_resident (pallas_call at
+//      :298, kernel _enc_mlp_res_kernel :211), the quantized encoder's
+//      default MLP, block_f 2560 at its call site (whisper.py:551);
+//   K8 nwt_encoder_mlp_int8_chunked[_f32]: encoder_mlp_int8 (pallas_call at
+//      :173, kernel _enc_mlp_kernel :94), taken under NWT_MLP_CHUNKED with
+//      block_f 1280.
+// The two TPU kernels compute one function (tests/test_fused_mlp.py:81-108
+// holds them equal at equal block_f): "resident" keeps the whole w1/w2 in
+// VMEM across the row tiles, "chunked" streams them chunk by chunk. That is
+// a VMEM residency choice with no counterpart on this card, where every
+// block reads its weight tiles through L2 and fc1's output goes through
+// device memory in either case. What K8 changes is the function's one
+// parameter: the granularity block_f at which the fc2 input is
+// re-quantized. So K8 is its own entry point, counted on its own, on the
+// same templated kernels below.
 //
 // Bound on an H100 at large-v3-turbo (M = 1536 rows per window, d = 1280,
 // ffn = 5120), per window and layer: 40.3 G int8 operations, about 20 us at
@@ -55,24 +69,10 @@ fc1_gemm_kernel(FC1Args p) {
   __shared__ __align__(16) GemmSmem sm;
   const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * GBM;
   int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  for (int k0 = 0; k0 < p.d; k0 += GBK) {
-    load_a_s8(sm, p.xq, p.d, m0, k0, p.M);
-    load_b_s8(sm, p.w1, p.F, k0, n0);
-    __syncthreads();
-    mma_slab(sm, acc);
-    __syncthreads();
-  }
+  gemm_s8_tile(sm, p.xq, p.w1, m0, n0, p.M, p.d, p.F, acc);
 
   const int n_chunks = p.F / p.block_f;
   const int chunk = n0 / p.block_f;         // a 128-wide tile is in one chunk
-  const float c = 0.7978845608028654f;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
     float mx[2] = {0.f, 0.f};               // rows g and g + 8
@@ -84,9 +84,7 @@ fc1_gemm_kernel(FC1Args p) {
         if (r >= p.M) continue;
         float v = __fadd_rn(dequant(acc[mt][nt][e], p.sx[r], p.s1[col]),
                             p.b1[col]);
-        const float v3 = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, v), v), v);
-        const float th = tanhf(__fmul_rn(c, __fadd_rn(v, v3)));
-        v = __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.0f, th));
+        v = gelu_tanh(v);
         p.a[(size_t)r * p.F + col] = v;
         mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(v));
       }
@@ -279,5 +277,14 @@ extern "C" int nwt_encoder_mlp_int8(NWT_MLP_ARGS) {
 // the same function on f32 activations: the arithmetic is f32 throughout
 // already; only the residual read and the output write change type
 extern "C" int nwt_encoder_mlp_int8_f32(NWT_MLP_ARGS) {
+  return encoder_mlp_int8<float>(NWT_MLP_PASS);
+}
+
+// K8: the chunked kernel's entry points (its default block_f is 1280)
+extern "C" int nwt_encoder_mlp_int8_chunked(NWT_MLP_ARGS) {
+  return encoder_mlp_int8<bf16>(NWT_MLP_PASS);
+}
+
+extern "C" int nwt_encoder_mlp_int8_chunked_f32(NWT_MLP_ARGS) {
   return encoder_mlp_int8<float>(NWT_MLP_PASS);
 }

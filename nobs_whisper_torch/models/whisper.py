@@ -8,11 +8,13 @@ f32. Where the reference asks XLA for an f32 result of bf16 operands
 (``preferred_element_type``), the port multiplies f32 copies of the bf16
 values: their products are exact in f32.
 
-The encoder takes the hand-written kernels under the gates of the
-reference's single-device serving path (:func:`encoder_kernel_gates`):
-at bf16, attention through K1 (int8), K3 (float) or K9 (heads that do not
-pair), in ``ops/encoder_attention.py``; the int8 MLP through K2
-(``ops/fused_mlp.py``) at any compute dtype. The decoder takes the
+The encoder takes the hand-written kernels under the gates and knobs of
+the reference's single-device serving path, read at each call
+(:func:`encoder_kernel_gates`): at bf16, attention through K1 (int8), K3
+(float) or K9 (heads that do not pair), in ``ops/encoder_attention.py``;
+the int8 MLP through K2 or K8 (``ops/fused_mlp.py``) at any compute dtype;
+under the opt-in knobs K10/K11 (``ops/fused_qkv.py``) and K13
+(``ops/conv_stem.py``). The decoder takes the
 reference's opt-in decode kernels under its knobs, read at each call:
 K6 (``ops/quant.py::q8_matmul``) in :func:`_dense`, K4 and K5
 (``ops/attention_pallas.py``) in the cross-attention.
@@ -201,38 +203,92 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 class EncoderGates(NamedTuple):
+    stem: Optional[str]        # "K13", or None: torch ops
+    qkv: Optional[str]         # "K1" (inside its attention), "K10", or None
     attention: Optional[str]   # "K1", "K3", "K9", or None: torch ops
-    mlp: bool                  # K2
+    o: Optional[str]           # "K11", or None: x + o projection
+    mlp: Optional[str]         # "K2", "K8", or None: torch ops
+    block_f: int               # the int8 MLP's fc2-input requant chunk
+    block_q: int               # the T padding quantum (NWT_ATTN_BQ)
 
 
-def encoder_kernel_gates(cfg: WhisperConfig, blocks,
-                         compute_dtype) -> EncoderGates:
-    """The kernels of the reference's single-device serving path
-    (whisper.py:266-314, :414-447, :466-483, :528), with the card in the
-    TPU's place; the CPU runs the same gates on the kernels' plain
-    versions. Attention kernels need bf16 compute (``use_flash``):
+def _unported(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 2, the next encoder "
+        "slice); unset it to run the encoder's other kernels")
 
-    * K1 for a quantized ``q_w`` whose heads pair into 128 lanes (even
-      head count, 2 * dh == 128);
-    * K3 for a float ``q_w`` with the same head geometry;
-    * K9 for any other head geometry, float or int8 projections;
 
-    at f32 the attention is LN, the projections and :func:`_attention` in
-    torch ops (XLA in the reference). K2 runs for a quantized ``fc1_w``
-    at a width that is a multiple of 128, at any compute dtype."""
+def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
+                         n_frames: Optional[int] = None,
+                         pos_len: Optional[int] = None) -> EncoderGates:
+    """What the encoder runs: the reference's single-device serving gates
+    and knobs (whisper.py:266-353, :395-558), read at each call, with the
+    card in the TPU's place; the CPU runs the same gates on the kernels'
+    plain versions. ``n_frames`` and ``pos_len`` (the mel length and the
+    position table's rows) default to a whole window.
+
+    * Attention kernels need bf16 compute (``use_flash``, off with
+      ``NWT_NO_FLASH``): the flat path where heads pair into 128 lanes
+      (even head count, 2 * dh == 128), unless ``NWT_ATTN_BHTD``,
+      ``NWT_INT8_QKV`` or ``NWT_LIB_FLASH`` turn it off: K1 for a
+      quantized ``q_w`` (``NWT_ATTN_FUSED`` != 0), else LN, the
+      projections and K3; otherwise K9 on split heads. At f32, LN, the
+      projections and :func:`_attention` in torch ops.
+    * ``NWT_INT8_QKV`` (any dtype): K10 for a quantized ``q_w`` and K11
+      for a quantized ``o_w``.
+    * The int8 MLP for a quantized ``fc1_w`` at a width that is a
+      multiple of 128, at any compute dtype, unless ``NWT_NO_INT8_MLP``:
+      K2, or K8 with ``NWT_MLP_CHUNKED``; ``NWT_MLP_BF`` sets the chunk.
+    * ``NWT_STEM_FUSED`` at bf16: K13 for a width that is a multiple of
+      128, an even mel length and a whole position table.
+
+    Raises NotImplementedError where the reference would take a kernel
+    that is not ported: the library flash kernel (``NWT_LIB_FLASH`` at
+    bf16), K12 and K1's fused o (``NWT_ATTN_FUSED`` 3 and 2), and the int8
+    variants of the flat path (``NWT_ATTN_I8``, ``NWT_ATTN_I8PV``)."""
+    env = os.environ.get
     d, n_head = cfg.n_audio_state, cfg.n_audio_head
-    attention = None
-    if compute_dtype == torch.bfloat16:
-        if n_head % 2 == 0 and 2 * (d // n_head) == 128:
-            attention = "K1" if is_quantized(blocks["q_w"]) else "K3"
-        else:
-            attention = "K9"
-    return EncoderGates(attention,
-                        is_quantized(blocks["fc1_w"]) and d % 128 == 0)
+    bf16 = compute_dtype == torch.bfloat16
+    quant = {k: is_quantized(blocks[k])
+             for k in ("q_w", "o_w", "fc1_w", "fc2_w")}
+    use_flash = bf16 and not env("NWT_NO_FLASH")
+    lib_flash = bool(env("NWT_LIB_FLASH"))
+    int8_mlp = d % 128 == 0 and not env("NWT_NO_INT8_MLP")
+    int8_qkv = bool(env("NWT_INT8_QKV"))
+    use_btd = (use_flash and not lib_flash and not int8_qkv
+               and n_head % 2 == 0 and 2 * (d // n_head) == 128
+               and not env("NWT_ATTN_BHTD"))
+    block_q = int(env("NWT_ATTN_BQ", 0)) or 256
+    attn_fused = int(env("NWT_ATTN_FUSED", "1") or "0")
+    chunked = bool(env("NWT_MLP_CHUNKED"))
+    block_f = int(env("NWT_MLP_BF", 0)) or (1280 if chunked else 2560)
 
+    if use_btd and attn_fused >= 3 and all(quant.values()) and int8_mlp:
+        _unported("NWT_ATTN_FUSED=3 (K12, the whole-layer kernel)")
+    if use_btd and attn_fused and quant["q_w"]:
+        if attn_fused >= 2 and quant["o_w"]:
+            _unported("NWT_ATTN_FUSED=2 (K1 with the o projection fused)")
+        qkv = attention = "K1"
+    elif use_btd:
+        qkv, attention = None, "K3"
+    else:
+        qkv = "K10" if int8_qkv and quant["q_w"] else None
+        if use_flash and lib_flash:
+            _unported("NWT_LIB_FLASH (the JAX library's flash kernel)")
+        attention = "K9" if use_flash else None
+    if use_btd and (env("NWT_ATTN_I8") or env("NWT_ATTN_I8PV")):
+        _unported("NWT_ATTN_I8 / NWT_ATTN_I8PV (int8 scores and PV in K1/K3)")
 
-ATTN_BLOCK_Q = 256     # the reference's T padding quantum (NWT_ATTN_BQ)
-MLP_BLOCK_F = 2560     # the reference's call site (whisper.py:551)
+    n_frames = n_frames or 2 * cfg.n_audio_ctx
+    pos_len = pos_len or cfg.n_audio_ctx
+    stem = ("K13" if bf16 and env("NWT_STEM_FUSED") and d % 128 == 0
+            and n_frames % 2 == 0 and 2 * pos_len == n_frames else None)
+    return EncoderGates(
+        stem=stem, qkv=qkv, attention=attention,
+        o="K11" if int8_qkv and quant["o_w"] else None,
+        mlp=(("K8" if chunked else "K2") if int8_mlp and quant["fc1_w"]
+             else None),
+        block_f=block_f, block_q=block_q)
 
 
 encode_count = 0      # encoder batches run (each runs every layer once)
@@ -250,26 +306,43 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
 
 def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
             compute_dtype) -> torch.Tensor:
+    """The reference's ``_encode`` (whisper.py:242-565) in its order."""
+    from ..ops import conv_stem as cs
     from ..ops import encoder_attention as ea
-    from ..ops.fused_mlp import encoder_mlp_int8_resident
+    from ..ops import fused_mlp as fm
+    from ..ops import fused_qkv as fq
 
     enc = params["encoder"]
     gelu = _gelu_fast if compute_dtype == torch.bfloat16 else _gelu
     n_head = cfg.n_audio_head
     blocks = enc["blocks"]
-    attn, use_k2 = encoder_kernel_gates(cfg, blocks, compute_dtype)
-
-    x = mel.transpose(-1, -2).to(compute_dtype)              # (B, T, mels)
-    x = gelu(_conv1d(x, enc["conv1_w"], enc["conv1_b"], stride=1))
-    x = gelu(_conv1d(x, enc["conv2_w"], enc["conv2_b"], stride=2))
-    x = x + enc["pos"][: x.shape[1]].to(compute_dtype)
-    bsz, t_real, d = x.shape
-    # the attention kernels' T: padded keys are masked and padded rows
-    # sliced off, once around the stack for the flat kernels (K1, K3),
-    # around each layer's attention for K9
-    pad = (0, 0, 0, -(-t_real // ATTN_BLOCK_Q) * ATTN_BLOCK_Q - t_real)
-    if attn in ("K1", "K3"):
-        x = F.pad(x, pad)
+    gates = encoder_kernel_gates(cfg, blocks, compute_dtype, mel.shape[-1],
+                                 enc["pos"].shape[0])
+    flat = gates.attention in ("K1", "K3")
+    # The attention kernels' T: padded keys are masked and padded rows
+    # sliced off, once around the stack on the flat path (K1, K3), around
+    # each layer's attention for K9. The reference pads to a multiple of
+    # NWT_ATTN_BQ; the card's kernels take T % 64 == 0, so the quantum is
+    # rounded up to that (the rows past t_real never reach a real one).
+    quantum = math.lcm(gates.block_q, 64)
+    if gates.stem == "K13":
+        t_real = mel.shape[-1] // 2
+        align = quantum if flat else 8
+        x = cs.encoder_stem_fused(mel, enc["conv1_w"], enc["conv1_b"],
+                                  enc["conv2_w"], enc["conv2_b"], enc["pos"],
+                                  -(-t_real // align) * align)
+        if not flat:
+            x = x[:, :t_real]
+    else:
+        x = mel.transpose(-1, -2).to(compute_dtype)          # (B, T, mels)
+        x = gelu(_conv1d(x, enc["conv1_w"], enc["conv1_b"], stride=1))
+        x = gelu(_conv1d(x, enc["conv2_w"], enc["conv2_b"], stride=2))
+        x = x + enc["pos"][: x.shape[1]].to(compute_dtype)
+        t_real = x.shape[1]
+        if flat:
+            x = F.pad(x, (0, 0, 0, -(-t_real // quantum) * quantum - t_real))
+    bsz, t, d = x.shape
+    head_pad = (0, 0, 0, -(-t_real // quantum) * quantum - t_real)
 
     def lin(h, w, bias=None):
         if is_quantized(w):
@@ -277,38 +350,50 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
         y = h @ w
         return y if bias is None else y + bias
 
+    def rows(z):
+        return z.reshape(bsz * t, d)
+
     sm_scale = float(d // n_head) ** -0.5
     for i in range(cfg.n_audio_layer):
         p = _layer(blocks, i)
-        if attn == "K1":
+        if gates.attention == "K1":
             a = ea.encoder_attention_fused_qkv(
                 x, p["ln1_g"], p["ln1_b"], p["q_w"], p["q_b"], p["k_w"],
                 p["v_w"], p["v_b"], t_real, sm_scale, n_head)
         else:
-            h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
-            q = lin(h, p["q_w"], p["q_b"])
-            k = lin(h, p["k_w"])
-            v = lin(h, p["v_w"], p["v_b"])
-            if attn == "K3":
+            if gates.qkv == "K10":
+                q, k, v = (z.reshape(bsz, t, d) for z in fq.encoder_qkv_int8(
+                    rows(x), p["ln1_g"], p["ln1_b"], p["q_w"], p["q_b"],
+                    p["k_w"], p["v_w"], p["v_b"]))
+            else:
+                h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
+                q = lin(h, p["q_w"], p["q_b"])
+                k = lin(h, p["k_w"])
+                v = lin(h, p["v_w"], p["v_b"])
+            if gates.attention == "K3":
                 a = ea.encoder_attention_btd(q, k, v, t_real, sm_scale,
                                              n_head)
-            elif attn == "K9":
+            elif gates.attention == "K9":
                 a = ea.encoder_attention(
-                    *(F.pad(_split_heads(z, n_head), pad) for z in (q, k, v)),
-                    t_real, sm_scale)[..., :t_real, :]
+                    *(F.pad(_split_heads(z, n_head), head_pad)
+                      for z in (q, k, v)), t_real, sm_scale)[..., :t_real, :]
                 a = _merge_heads(a.to(x.dtype))
             else:
                 a = _merge_heads(_attention(_split_heads(q, n_head),
                                             _split_heads(k, n_head),
                                             _split_heads(v, n_head),
                                             mask=None))
-        x = x + lin(a, p["o_w"], p["o_b"])
-        if use_k2:
-            t = x.shape[1]
-            x = encoder_mlp_int8_resident(
-                x.reshape(bsz * t, d), p["ln2_g"], p["ln2_b"],
-                p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"],
-                block_f=MLP_BLOCK_F).reshape(bsz, t, d)
+        if gates.o == "K11":
+            x = fq.residual_o_int8(rows(x), rows(a), p["o_w"],
+                                   p["o_b"]).reshape(bsz, t, d)
+        else:
+            x = x + lin(a, p["o_w"], p["o_b"])
+        if gates.mlp:
+            mlp = (fm.encoder_mlp_int8 if gates.mlp == "K8"
+                   else fm.encoder_mlp_int8_resident)
+            x = mlp(rows(x), p["ln2_g"], p["ln2_b"], p["fc1_w"], p["fc1_b"],
+                    p["fc2_w"], p["fc2_b"],
+                    block_f=gates.block_f).reshape(bsz, t, d)
         else:
             h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
             h = gelu(lin(h, p["fc1_w"], p["fc1_b"]))

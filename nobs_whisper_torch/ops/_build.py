@@ -24,7 +24,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("encoder_attention", "fused_mlp", "cross_attention_decode",
-           "q8_matmul")
+           "q8_matmul", "fused_qkv", "conv_stem")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

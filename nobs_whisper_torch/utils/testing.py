@@ -186,22 +186,29 @@ class KernelSpies:
     on CPU tensors) while the port runs on the CPU. ``patch`` is a setattr
     such as pytest's ``monkeypatch.setattr``, which undoes the spies after
     the test; ``calls`` maps each of ``kernels`` (by default the
-    encoder's: K1, K2, K3, K9) to its count."""
+    encoder's default ones: K1, K2, K3, K9) to its count."""
 
     NAMES = {"K1": ("ea", "encoder_attention_fused_qkv_plain"),
              "K3": ("ea", "encoder_attention_btd_plain"),
              "K9": ("ea", "encoder_attention_plain"),
              "K2": ("fm", "encoder_mlp_int8_resident_plain"),
+             "K8": ("fm", "encoder_mlp_int8_plain"),
+             "K10": ("fq", "encoder_qkv_int8_plain"),
+             "K11": ("fq", "residual_o_int8_plain"),
+             "K13": ("cs", "encoder_stem_fused_plain"),
              "K4": ("ap", "cross_attention_decode_bf16_plain"),
              "K5": ("ap", "cross_attention_decode_q8_plain"),
              "K6": ("qt", "q8_matmul_plain")}
+    ENCODER = ("K1", "K2", "K3", "K8", "K9", "K10", "K11", "K13")
 
     def __init__(self, patch, kernels=("K1", "K2", "K3", "K9")):
         from ..ops import attention_pallas as ap
+        from ..ops import conv_stem as cs
         from ..ops import encoder_attention as ea
         from ..ops import fused_mlp as fm
+        from ..ops import fused_qkv as fq
         from ..ops import quant as qt
-        mods = {"ea": ea, "fm": fm, "ap": ap, "qt": qt}
+        mods = {"ea": ea, "fm": fm, "fq": fq, "cs": cs, "ap": ap, "qt": qt}
         self.calls = dict.fromkeys(kernels, 0)
         for key in kernels:
             mod, name = self.NAMES[key]

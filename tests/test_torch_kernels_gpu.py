@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels K1, K2 (bf16 and f32 activations), K3, K9
-and the decode-step kernels K4, K5 and K6 against their plain PyTorch
+"""Hand-written CUDA kernels K1, K2 (bf16 and f32 activations), K3, K9,
+the decode-step kernels K4, K5 and K6, and the encoder knobs' K8, K10,
+K11 (bf16 and f32 activations) and K13 against their plain PyTorch
 versions, on the card.
 
 Marked ``gpu``; each test asks a fixture whether there is a card and skips
@@ -22,7 +23,12 @@ held to one bf16 step elementwise, as their plain versions are held to the
 Pallas kernels (tests/test_torch_decode_kernels.py). K6 rounds the same
 bf16 operands as its plain version and differs in the order, and in the
 tensor cores the rounding, of its f32 sums: 1e-3 absolute plus 1e-3
-relative on outputs of order 1.
+relative on outputs of order 1. K8, K10 and K11 share K2's int8
+numerics and its bound of 0.05 (tests/test_fused_qkv.py:37,51). K13 rounds
+the same bf16 operands at the same points in another summation order; a
+flipped bf16 sum before a flat stretch of the gelu is several output
+steps: the JAX tests' 3e-2 (tests/test_conv_stem.py:34-36), padded rows
+exact zeros.
 """
 
 import numpy as np
@@ -30,8 +36,10 @@ import pytest
 import torch
 
 from nobs_whisper_torch.ops import attention_pallas as ap
+from nobs_whisper_torch.ops import conv_stem as cs
 from nobs_whisper_torch.ops import encoder_attention as ea
 from nobs_whisper_torch.ops import fused_mlp as fm
+from nobs_whisper_torch.ops import fused_qkv as fq
 from nobs_whisper_torch.ops import quant as qt
 from nobs_whisper_torch.ops.quant import quantize_int8
 
@@ -176,6 +184,7 @@ def test_k3_kernel_matches_plain(cuda, b, t, h, dh, n_real):
     (2, 3, 256, 64, 250), (1, 3, 256, 64, 40),     # odd heads
     (2, 4, 256, 32, 256), (2, 4, 512, 128, 300),   # other head widths
     (2, 10, 1536, 128, 1500),                      # turbo width, dh = 128
+    (2, 20, 1536, 64, 1500),                       # turbo, NWT_INT8_QKV
 ])
 def test_k9_kernel_matches_plain(cuda, b, h, t, dh, n_real):
     q, k, v = _attn_inputs((b, h, t, dh), cuda, seed=dh + n_real)
@@ -415,3 +424,80 @@ def test_int8_decoder_on_card_takes_decode_kernels(cuda, monkeypatch):
             (8 * cfg.n_text_layer + 1) * sum(calls.values())]
         ref = decode_window(params, xa, prompts, cfg, tables, opts)
         assert [r.tokens for r in got] == [r.tokens for r in ref]
+
+
+# ---------------------------------------------------------------------------
+# the encoder knobs' kernels: K10, K11, K8 and K13
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d", [(300, 256), (3000, 1280), (1500, 1280)])
+def test_k10_k11_kernels_match_plain(cuda, m, d, x_dtype):
+    """Ragged m (300 is not a multiple of the 128-row tile) and the
+    large-v3-turbo width at two windows and at one window of 1500 rows."""
+    x, g, be, wq, bq, wk, wv, bv = _k1_inputs(1, 2, m, d, cuda, seed=m)
+    x = x[0].to(x_dtype)
+    before = (fq.k10_launch_count, fq.k10_launch_count_f32)
+    got = fq.encoder_qkv_int8(x, g, be, wq, bq, wk, wv, bv)
+    torch.cuda.synchronize()
+    f32 = int(x_dtype == torch.float32)
+    assert (fq.k10_launch_count, fq.k10_launch_count_f32) == \
+        (before[0] + 1, before[1] + f32)
+    ref = fq.encoder_qkv_int8_plain(x, g, be, wq, bq, wk, wv, bv)
+    for z, r in zip(got, ref):
+        assert z.dtype == x_dtype and z.shape == r.shape
+        assert (z.float() - r.float()).abs().max().item() < K2_TOL
+    a = (torch.randn(m, d, device=cuda) * 0.5).to(x_dtype)
+    before = fq.k11_launch_count
+    got = fq.residual_o_int8(x, a, wq, bq)
+    torch.cuda.synchronize()
+    assert fq.k11_launch_count == before + 1
+    ref = fq.residual_o_int8_plain(x, a, wq, bq)
+    assert got.dtype == x_dtype
+    assert (got.float() - ref.float()).abs().max().item() < K2_TOL
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d,f,block_f", [
+    (300, 256, 512, 128), (2 * 1536, 1280, 5120, 1280),
+    # the knob path's rows: 1500 per window, the last 128-row tile ragged
+    (2 * 1500, 1280, 5120, 1280), (1500, 1280, 5120, 1280)])
+def test_k8_kernel_matches_plain(cuda, m, d, f, block_f, x_dtype):
+    args = _k2_inputs(m, d, f, cuda)
+    args = (args[0].to(x_dtype),) + args[1:]
+    before = (fm.k8_launch_count, fm.launch_count)
+    got = fm.encoder_mlp_int8(*args, block_f=block_f)
+    torch.cuda.synchronize()
+    assert (fm.k8_launch_count, fm.launch_count) == (before[0] + 1,
+                                                      before[1])
+    ref = fm.encoder_mlp_int8_plain(*args, block_f=block_f)
+    assert got.dtype == x_dtype
+    assert (got.float() - ref.float()).abs().max().item() < K2_TOL
+
+
+@pytest.mark.parametrize("b,c_in,n_frames,d,t_pad", [
+    (1, 80, 64, 128, 32), (2, 80, 64, 128, 48), (1, 128, 100, 256, 56),
+    (2, 128, 3000, 1280, 1536), (2, 128, 3000, 1280, 1504),
+    (1, 80, 3000, 1280, 1536)])
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_k13_kernel_matches_plain(cuda, b, c_in, n_frames, d, t_pad,
+                                  p_dtype):
+    """Weights, biases and pos as f32 or bf16: the wrapper converts the
+    biases to f32 copies, which must live until the launch."""
+    rng = np.random.RandomState(c_in + t_pad)
+    mk = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.randn(*s) * sc).astype(np.float32)).to(cuda)
+    mel = mk(b, c_in, n_frames, sc=0.5)
+    params = [z.to(p_dtype) for z in (
+        mk(3, c_in, d, sc=(3 * c_in) ** -0.5), mk(d, sc=0.1),
+        mk(3, d, d, sc=(3 * d) ** -0.5), mk(d, sc=0.1),
+        mk(n_frames // 2, d, sc=0.1))]
+    args = (mel, *params, t_pad)
+    before = cs.launch_count
+    got = cs.encoder_stem_fused(*args)
+    torch.cuda.synchronize()
+    assert cs.launch_count == before + 1
+    ref = cs.encoder_stem_fused_plain(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, t_pad, d)
+    assert not got[:, n_frames // 2:].any()      # padded rows: exact zeros
+    assert (got.float() - ref.float()).abs().max().item() < 3e-2

@@ -153,8 +153,8 @@ def test_int8_encoder_through_kernels_matches_interpret(monkeypatch):
     cfg = _dh64_cfg()
     jp = jq(jw.init_params(jax.random.PRNGKey(2), cfg, dtype=jnp.bfloat16))
     tp = tw.params_from_jax(_np_tree(jp), dtype=torch.bfloat16)
-    assert tw.encoder_kernel_gates(cfg, tp["encoder"]["blocks"],
-                                   torch.bfloat16) == ("K1", True)
+    g = tw.encoder_kernel_gates(cfg, tp["encoder"]["blocks"], torch.bfloat16)
+    assert (g.attention, g.mlp) == ("K1", "K2")
     mel = np.random.RandomState(4).randn(2, 80, 64).astype(np.float32)
     with jw.kernel_override("interpret"):
         ref = np.asarray(jw.encode(jp, jnp.asarray(mel), cfg,
@@ -349,8 +349,10 @@ def test_int8_encoder_gates_follow_reference_at_any_dtype():
     cfg = _dh64_cfg()
     blocks = quantize_encoder_params(
         tw.init_params(2, cfg))["encoder"]["blocks"]
-    assert tw.encoder_kernel_gates(cfg, blocks, torch.bfloat16) == ("K1", True)
-    assert tw.encoder_kernel_gates(cfg, blocks, torch.float32) == (None, True)
+    for dtype, want in ((torch.bfloat16, ("K1", "K2")),
+                        (torch.float32, (None, "K2"))):
+        g = tw.encoder_kernel_gates(cfg, blocks, dtype)
+        assert (g.attention, g.mlp) == want
     eng = WhisperEngine.from_random("tiny-test", dtype=torch.float32,
                                     device="cpu")
     eng = dataclasses.replace(eng, cfg=cfg, params=tw.init_params(2, cfg),
@@ -365,22 +367,24 @@ def test_int8_encoder_gates_follow_reference_at_any_dtype():
 
 
 @pytest.mark.parametrize("d,heads,quant,dtype,want", [
-    (128, 2, False, torch.bfloat16, ("K3", False)),
-    (192, 3, False, torch.bfloat16, ("K9", False)),   # odd heads
-    (192, 3, True, torch.bfloat16, ("K9", False)),    # d % 128 != 0: no K2
-    (256, 2, True, torch.bfloat16, ("K9", True)),     # dh = 128: no pairs
-    (64, 4, False, torch.bfloat16, ("K9", False)),    # dh = 16
-    (128, 2, False, torch.float32, (None, False)),
-    (256, 2, True, torch.float32, (None, True)),
+    (128, 2, False, torch.bfloat16, ("K3", None)),
+    (192, 3, False, torch.bfloat16, ("K9", None)),    # odd heads
+    (192, 3, True, torch.bfloat16, ("K9", None)),     # d % 128 != 0: no K2
+    (256, 2, True, torch.bfloat16, ("K9", "K2")),     # dh = 128: no pairs
+    (64, 4, False, torch.bfloat16, ("K9", None)),     # dh = 16
+    (128, 2, False, torch.float32, (None, None)),
+    (256, 2, True, torch.float32, (None, "K2")),
 ])
 def test_encoder_gates_table(d, heads, quant, dtype, want):
+    """With no knob set: the attention kernel and the MLP kernel."""
     from nobs_whisper_torch.ops.quant import quantize_encoder_params
     cfg = tiny_test_config(d=d, heads=heads, n_audio_ctx=32)
     params = tw.init_params(0, cfg, device="meta")
     if quant:
         params = quantize_encoder_params(params)
-    assert tw.encoder_kernel_gates(cfg, params["encoder"]["blocks"],
-                                   dtype) == want
+    g = tw.encoder_kernel_gates(cfg, params["encoder"]["blocks"], dtype)
+    assert (g.attention, g.mlp) == want
+    assert (g.stem, g.o, g.block_f, g.block_q) == (None, None, 2560, 256)
 
 
 def test_int8_encoder_f32_matches_tpu_gate(monkeypatch):

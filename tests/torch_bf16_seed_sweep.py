@@ -20,9 +20,18 @@ with K5 and K6, or the packed layout with K4 and K6, the reference's
 kernels routed to interpret mode) and each weight seed, which windows give
 equal greedy tokens.
 
+With ``knobs`` it prints, for each weight seed, the encoder knobs that
+change the function (``test_torch_encoder_knobs.FUNCTION_CASES``: the
+reference's encoder on one TPU with its kernels in interpret mode, run op
+by op): the port's states against the reference's with the knob set, and
+how far the knob moves the reference's states from its knobless run
+(largest and mean absolute difference); then, for the int8 window program
+with ``NWT_INT8_QKV NWT_MLP_CHUNKED NWT_STEM_FUSED`` on (K13, K10, K9,
+K11, K8), which windows give equal greedy tokens.
+
 Run from the repo root: ``PYTHONPATH=. python tests/torch_bf16_seed_sweep.py
-[n_seeds] [decode]`` (10 seeds take ~6 min on one CPU core, ~8 min with
-``decode``).
+[n_seeds] [decode | knobs]`` (10 seeds take ~6 min on one CPU core, ~8 min
+with ``decode``, ~8 min with ``knobs``).
 """
 
 import os
@@ -97,6 +106,33 @@ def decode_kernels(n_seeds):
                   f"ref {windows_equal(win, win_ref)}", flush=True)
 
 
+def encoder_knobs(n_seeds):
+    import test_torch_encoder_knobs as te
+    diff = lambda a, b: (f"max {np.abs(a - b).max():.3e} mean "
+                         f"{np.abs(a - b).mean():.3e}")
+    for seed in range(n_seeds):
+        base = {}
+        for case, model, dtype in te.FUNCTION_CASES:
+            if (model, dtype) not in base:
+                with pytest.MonkeyPatch.context() as mp:
+                    base[model, dtype] = te.run_both(mp, model, dtype, {},
+                                                     seed)[1]
+            with pytest.MonkeyPatch.context() as mp:
+                got, ref, _, _ = te.run_both(mp, model, dtype,
+                                             te.KNOB_CASES[case], seed)
+            print(f"encoder knob {case} {model} {dtype} seed={seed} | port "
+                  f"vs ref {diff(got, ref)} | ref moved by the knob "
+                  f"{diff(ref, base[model, dtype])}", flush=True)
+        with pytest.MonkeyPatch.context() as mp:
+            for k, v in te.SLICE.items():
+                mp.setenv(k, v)
+            te.route_reference(mp)
+            with jax.disable_jit():
+                win, win_ref = ts._window_slice("bf16", seed=seed)
+        print(f"encoder knobs seed={seed} | windows' tokens vs ref "
+              f"{windows_equal(win, win_ref)}", flush=True)
+
+
 def main(n_seeds):
     torch.set_num_threads(1)
     for d, heads, kernel in tm.FLOAT_BF16_CASES:
@@ -129,5 +165,8 @@ if __name__ == "__main__":
     if "decode" in sys.argv[2:]:
         torch.set_num_threads(1)
         decode_kernels(n)
+    elif "knobs" in sys.argv[2:]:
+        torch.set_num_threads(1)
+        encoder_knobs(n)
     else:
         main(n)
