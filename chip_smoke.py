@@ -57,17 +57,29 @@ arguments). Phases; any failure exits non-zero before the result line:
    K10, K11 and K8), and one encoder batch under each of
    ``NWT_ATTN_FUSED=0``, ``NWT_NO_INT8_MLP`` and ``NWT_ATTN_BHTD``. With
    no knob set, no earlier phase launches K8, K10, K11 or K13;
-8. one ``kernels`` JSON line, then the result line.
+8. the last encoder variants (``phase_attention_variants``): int8 serving
+   with ``NWT_ATTN_FUSED=3`` (K12 32 times per encoder batch, no K1, K2,
+   K3 or K8), one int8 encoder batch each with ``NWT_ATTN_FUSED=2`` (K1
+   with the o projection fused, K2), ``NWT_ATTN_I8``, ``NWT_ATTN_I8PV``
+   and both (that K1 variant, K2) and ``NWT_ATTN_FUSED=3`` with both (K12
+   with both), a file transcription with both (K3 with both) and a float
+   encoder batch with each alone (that K3 variant). With none of these
+   knobs set, no earlier phase launches K12 or a K1/K3 variant;
+9. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 and K5 (B=8 and B=1, H=20, Dh=64, Tp=1536,
 t_real=1500), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
 and with f32 x, fc1 1280 x 5120, fc2 5120 x 1280, M=256), K10, K11 and
 K8 (block_f=1280) at the knob paths' rows (d=1280; M=3000 with bf16 and
 with f32 x, M=1500 with f32 x) and K13 (B=2, 3000 frames, d=1280: C_in=128 at t_out_pad 1536 and
-1504, C_in=80); phase 3 also holds a d=128 dh=64 int8 decoder with the
+1504, C_in=80) and the variants at K1's shapes (K1 with fused o, K1 and
+K3 with int8 scores, int8 PV and both, K12 and K12 with both at
+ffn=5120, block_f=1280); phase 3 also holds a d=128 dh=64 int8 decoder with the
 three decode knobs on against the same model on the CPU (f32: greedy
 tokens equal; bf16: prefill and step logits within a tolerance), and the
-d=128 dh=64 int8 encoder with the three encoder knobs on (bf16 and f32).
+d=128 dh=64 int8 encoder with the three encoder knobs on (bf16 and f32),
+with ``NWT_ATTN_FUSED=3`` and both int8 knobs, and with
+``NWT_ATTN_FUSED=2``.
 
 Imports nothing of JAX and nothing of ``nobs_whisper_tpu``.
 """
@@ -320,7 +332,206 @@ def phase_kernels():
     torch.cuda.empty_cache()
     out.update(knob_kernel_checks())
     torch.cuda.empty_cache()
+    out.update(variant_kernel_checks())
+    torch.cuda.empty_cache()
     return out
+
+
+# The last encoder variants, held to their plain versions on the card
+# (tests/test_torch_kernels_gpu.py::VAR_TOL): the attention-only variants
+# (K1 and K3 with int8 scores or PV) to 2e-2 on the max and 1e-4 on the
+# mean (a flipped LN1 int8 activation in the row that holds a head's absmax
+# of k or v moves that head's scale); K1 with the o projection fused to
+# K2's 5e-2 and a mean of 2e-4 (an int8 flip of its requantized input
+# moves a row; with int8 scores a moved head scale feeds that flip);
+# K12 end to end to 1e-1 and a mean of 5e-3: its bf16 x2 differs from the
+# plain one by a bf16 step in 7% of the elements at turbo width (one int8
+# flip of the o input moves its row by about half a step), so in most
+# rows, and LN2 requantizes each such row. K12 is besides held bit for
+# bit to K1 with fused o then K2 (its kernels on one stream), and its MLP
+# half, on the kernel's own x2, to K2's 5e-2.
+VAR_TOL = {"attn": (2e-2, 1e-4), "o": (5e-2, 2e-4), "K12": (1e-1, 5e-3)}
+# the variants' knobs (models/whisper.py::encoder_kernel_gates)
+VARIANT_KNOBS = ("NWT_ATTN_FUSED", "NWT_ATTN_I8", "NWT_ATTN_I8PV")
+
+
+def variant_names():
+    """Every variant counter: K1 with fused o and/or int8 scores / PV, K3
+    with int8 scores / PV, K12 and its int8 variants."""
+    from nobs_whisper_torch.utils.testing import KernelSpies
+    return [n for k in ("K1", "K3", "K12") for n in KernelSpies.VARIANTS[k]
+            if n not in ("K1", "K3")]
+
+
+def _var_err(got, ref, n_real, kind):
+    import torch
+    tol, mean = VAR_TOL[kind]
+    diff = (got.float() - ref.float())[:, :n_real].abs()
+    err, avg = diff.max().item(), diff.mean().item()
+    frac = (diff > 0).float().mean().item()
+    ok = (err < tol and avg < mean and got.dtype == torch.bfloat16
+          and bool(torch.isfinite(got.float()).all()))
+    return err, avg, frac, ok
+
+
+def variant_kernel_checks():
+    """K1 with fused o; K1 and K3 with int8 scores, int8 PV and both; K12
+    and K12 with both int8 variants: at turbo shapes (B = 2 windows, T =
+    1536, n_real = 1500, d = 1280, H = 20, ffn = 5120, K12's block_f 1280)
+    against their plain versions on the card. Bounds: the int8 and bf16
+    work of each at the published peaks, summed, against the bytes in and
+    out. Yardsticks, timed here and used nowhere in the port: SDPA on the
+    same bf16 q/k/v (K1, K3); for K12 SDPA plus ``torch._int_mm`` of the
+    layer's six int8 GEMM shapes."""
+    import torch
+    import torch.nn.functional as F
+    from nobs_whisper_torch.ops import encoder_attention as ea
+    from nobs_whisper_torch.ops import fused_layer as fl
+    from nobs_whisper_torch.ops.quant import quantize_int8
+    dev = torch.device("cuda")
+    b, h, t, d, f, n_real, bf = 2, 20, 1536, 1280, 5120, 1500, 1280
+    m = b * t
+    sm = 0.125
+    out = {}
+    qkv = [torch.randn(b, h, t, 64, device=dev, dtype=torch.bfloat16)
+           for _ in range(3)]
+    mask = torch.zeros(1, t, device=dev, dtype=torch.bool)
+    mask[:, :n_real] = True
+    sdpa = lambda: F.scaled_dot_product_attention(*qkv, attn_mask=mask,
+                                                  scale=sm)
+    sdpa_ms = cuda_ms(sdpa)
+    attn_ops = 2.0 * b * h * t * n_real * 64     # QK^T, and again PV
+
+    def attn_bound(s8, pv, int8_ops, nbytes):
+        i8 = int8_ops + attn_ops * (s8 + pv)
+        b16 = attn_ops * (2 - s8 - pv)
+        return _bound_mixed(nbytes, i8, b16)
+
+    def check(key, kind, fn, plain, bound, lib_ms, lib_name, source,
+              replaces, name, shape):
+        got = fn()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, avg, frac, ok = _var_err(got, ref, n_real, kind)
+        del got, ref
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        tol = VAR_TOL[kind]
+        log(f"[kernel] {key} {name} {shape}: max_abs_err {err:.3e} mean "
+            f"{avg:.3e}, {frac:.2e} of elements differ "
+            f"(tol {tol[0]}, mean {tol[1]}) -> {'PASS' if ok else 'FAIL'}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), {lib_name} {lib_ms:.4f} ms")
+        out[key] = _entry(f"{name} ({key})", source, replaces, err, ms,
+                          plain_ms, bound, lib_ms, ok)
+
+    # ---- K1: fused o, int8 scores / PV ----
+    args = k1_setup(dev, b, h, t, d, seed=14)
+    g = torch.Generator(device=dev).manual_seed(15)
+    wo = quantize_int8(torch.randn(d, d, generator=g, device=dev) * d ** -0.5)
+    bo = 0.1 * torch.randn(d, generator=g, device=dev)
+    proj_ops = 2.0 * m * d * 3 * d
+    for fuse_o, s8, pv in ((True, False, False), (False, True, False),
+                           (False, False, True), (False, True, True)):
+        kw = dict(int8_scores=s8, int8_pv=pv,
+                  **(dict(wo=wo, bo=bo) if fuse_o else {}))
+        key = ea.variant("K1", fuse_o, s8, pv)
+        nbytes = 2 * m * d * 2 + (3 + fuse_o) * d * d + 8 * d * 4
+        bound = attn_bound(s8, pv, proj_ops + fuse_o * 2.0 * m * d * d,
+                           nbytes)
+        check(key, "o" if fuse_o else "attn",
+              lambda: ea.encoder_attention_fused_qkv(*args, n_real, sm, h,
+                                                     **kw),
+              lambda: ea.encoder_attention_fused_qkv_plain(*args, n_real, sm,
+                                                           h, **kw),
+              bound, sdpa_ms, "SDPA on q/k/v alone", "encoder_attention.cu",
+              "encoder_attention.py:565", "encoder_attention_fused_qkv",
+              f"B={b} T={t} d={d} H={h} n_real={n_real}")
+    torch.cuda.empty_cache()
+
+    # ---- K3: int8 scores / PV ----
+    gq = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = ((torch.randn(b, t, d, generator=gq, device=dev) * 0.5).to(
+        torch.bfloat16) for _ in range(3))
+    for s8, pv in ((True, False), (False, True), (True, True)):
+        key = ea.variant("K3", False, s8, pv)
+        check(key, "attn",
+              lambda: ea.encoder_attention_btd(q, k, v, n_real, sm, h,
+                                               int8_scores=s8, int8_pv=pv),
+              lambda: ea.encoder_attention_btd_plain(q, k, v, n_real, sm, h,
+                                                     s8, pv),
+              attn_bound(s8, pv, 0, 4 * m * d * 2), sdpa_ms, "SDPA",
+              "encoder_attention.cu", "encoder_attention.py:185",
+              "encoder_attention_btd", f"B={b} T={t} H={h} dh=64 "
+              f"n_real={n_real}")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- K12 ----
+    x, g1, b1n, wq, bq, wk, wv, bv = args
+    _, g2, b2n, fc1, fc1_b, fc2, fc2_b = k2_setup(dev, 8, d, f, seed=17)
+    largs = (x, g1, b1n, wq, bq, wk, wv, bv, wo, bo, g2, b2n, fc1, fc1_b,
+             fc2, fc2_b)
+    a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
+    h8 = torch.randint(-127, 128, (m, f), device=dev, dtype=torch.int8)
+    lib_ms = cuda_ms(lambda: (sdpa(), [torch._int_mm(a8, w["q"]) for w in
+                                       (wq, wk, wv, wo, fc1)],
+                              torch._int_mm(h8, fc2["q"])))
+    layer_ops = 2.0 * m * d * (4 * d + 2 * f)
+    nbytes = 2 * m * d * 2 + 4 * d * d + 2 * d * f + (13 * d + 2 * f) * 4
+    for s8, pv in ((False, False), (True, True)):
+        key = ea.variant("K12", False, s8, pv)
+        halves_ok = k12_halves_check(largs, n_real, sm, h, bf, s8, pv, key)
+        check(key, "K12",
+              lambda: fl.encoder_layer_fused(*largs, n_real, sm, h,
+                                             block_f=bf, int8_scores=s8,
+                                             int8_pv=pv),
+              lambda: fl.encoder_layer_fused_plain(*largs, n_real, sm, h,
+                                                   block_f=bf,
+                                                   int8_scores=s8,
+                                                   int8_pv=pv),
+              attn_bound(s8, pv, layer_ops, nbytes), lib_ms,
+              "SDPA + torch._int_mm x6 (the layer's GEMM shapes)",
+              "fused_layer.cu", "fused_layer.py:217", "encoder_layer_fused",
+              f"B={b} T={t} d={d} H={h} ffn={f} block_f={bf} "
+              f"n_real={n_real}")
+        out[key]["ok"] &= halves_ok
+    return out
+
+
+def k12_halves_check(largs, n_real, sm, h, bf, s8, pv, key):
+    """K12 on the card against its two halves: bit for bit K1 with fused o
+    then K2 at K12's chunk (the same kernels on one stream), and its MLP
+    half on the kernel's own x2 within K2's 5e-2 of K2's plain version."""
+    import torch
+    from nobs_whisper_torch.ops import encoder_attention as ea
+    from nobs_whisper_torch.ops import fused_layer as fl
+    from nobs_whisper_torch.ops import fused_mlp as fm
+    b, t, d = largs[0].shape
+    got = fl.encoder_layer_fused(*largs, n_real, sm, h, block_f=bf,
+                                 int8_scores=s8, int8_pv=pv)
+    x2 = ea.encoder_attention_fused_qkv(
+        *largs[:8], n_real, sm, h, int8_scores=s8, int8_pv=pv,
+        wo=largs[8], bo=largs[9]).reshape(b * t, d)
+    want = fm.encoder_mlp_int8_resident(x2, *largs[10:], block_f=bf)
+    torch.cuda.synchronize()
+    exact = torch.equal(got.reshape(b * t, d), want)
+    half = fm.encoder_mlp_int8_resident_plain(x2, *largs[10:], block_f=bf)
+    err = (want.float() - half.float()).reshape(b, t, d)[:, :n_real].abs()
+    err = err.max().item()
+    ok = exact and err < K2_TOL
+    log(f"[kernel] {key} halves: K12 == K2(K1 with fused o) on the card bit "
+        f"for bit {exact}; MLP half on the kernel's x2 vs K2 plain max_abs_err "
+        f"{err:.3e} (tol {K2_TOL}) -> {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def _bound_mixed(nbytes, int8_ops, bf16_flops):
+    """(bound ms, what bounds it): int8 and bf16 tensor-core work at their
+    published peaks, one after the other, against the bytes."""
+    tb = nbytes / PEAK_BYTES
+    to = int8_ops / PEAK_INT8_OPS + bf16_flops / PEAK_BF16_FLOPS
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def _bound_int8(nbytes, ops):
@@ -836,10 +1047,11 @@ def phase_reference():
         f"layer {through} -> {'PASS' if f32_ok else 'FAIL'}")
     with knobs(SLICE_KNOBS):
         slice_ok = reference_knob_slice(dev, cfg, mel, to_dev)
+    var_ok = reference_variants(dev, cfg, mel, to_dev)
     with knobs(DECODE_KNOBS):
         dec_ok = reference_decoder(dev)
     return (xa_ok and tok_ok and enc_ok and k3_ok and f32_ok and slice_ok
-            and dec_ok)
+            and var_ok and dec_ok)
 
 
 def reference_knob_slice(dev, cfg, mel, to_dev):
@@ -1155,6 +1367,7 @@ def reset_counts():
     from nobs_whisper_torch.ops import attention_pallas as ap
     from nobs_whisper_torch.ops import conv_stem as cs
     from nobs_whisper_torch.ops import encoder_attention as ea
+    from nobs_whisper_torch.ops import fused_layer as fl
     from nobs_whisper_torch.ops import fused_mlp as fm
     from nobs_whisper_torch.ops import fused_qkv as fq
     from nobs_whisper_torch.ops import quant as qt
@@ -1165,17 +1378,23 @@ def reset_counts():
     fq.k11_launch_count = fq.k11_launch_count_f32 = 0
     cs.launch_count = 0
     ap.k4_launch_count = ap.k5_launch_count = qt.k6_launch_count = 0
+    ea.variant_launch_count.clear()
+    fl.launch_count = 0
+    fl.variant_launch_count.clear()
     mw.encode_count = 0
     mw.decoder_forward_calls.clear()
 
 
 def read_counts():
     """Launches of each kernel since :func:`reset_counts`; "K2", "K8",
-    "K10" and "K11" count both activation types, "*-f32" the f32 ones."""
+    "K10" and "K11" count both activation types, "*-f32" the f32 ones;
+    "K1" and "K3" their default variants, the others by variant name
+    ("K1-o", "K3-i8s-i8pv", "K12", ...)."""
     from nobs_whisper_torch.models import whisper as mw
     from nobs_whisper_torch.ops import attention_pallas as ap
     from nobs_whisper_torch.ops import conv_stem as cs
     from nobs_whisper_torch.ops import encoder_attention as ea
+    from nobs_whisper_torch.ops import fused_layer as fl
     from nobs_whisper_torch.ops import fused_mlp as fm
     from nobs_whisper_torch.ops import fused_qkv as fq
     from nobs_whisper_torch.ops import quant as qt
@@ -1187,17 +1406,22 @@ def read_counts():
             "K11": fq.k11_launch_count, "K11-f32": fq.k11_launch_count_f32,
             "K13": cs.launch_count, "K4": ap.k4_launch_count,
             "K5": ap.k5_launch_count, "K6": qt.k6_launch_count,
+            **{n: ea.variant_launch_count[n] + fl.variant_launch_count[n]
+               for n in variant_names()},
+            "K12": fl.launch_count,
             "batches": mw.encode_count,
             "forwards": dict(mw.decoder_forward_calls)}
 
 
 def no_knob_kernels(c):
-    """With no encoder knob set, K8, K10, K11 and K13 never launch."""
-    return not any(c[k] for k in KNOB_KERNELS)
+    """With no encoder knob set, K8, K10, K11, K13, K12 and the variants
+    of K1 and K3 never launch."""
+    return not any(c[k] for k in KNOB_KERNELS + tuple(variant_names()))
 
 
 def _launch_summary(c):
-    return {k: v for k, v in c.items() if k != "forwards"}
+    """The counts that are not 0 (the rest are 0), batches included."""
+    return {k: v for k, v in c.items() if k != "forwards" and v}
 
 
 def _transcribe_one(eng, name, audio, card, opts):
@@ -1486,6 +1710,162 @@ def phase_encoder_knobs(card, qeng, eng):
     return ok, launches
 
 
+ENCODER_KERNELS = ("K1", "K2", "K2-f32", "K3", "K8", "K9", "K10", "K11",
+                   "K13", "K4", "K5", "K6")
+
+
+def only(c, want):
+    """Every encoder kernel (and K4-K6) launched as ``want`` says, the
+    others not at all."""
+    return all(c[k] == want.get(k, 0)
+               for k in ENCODER_KERNELS + ("K12",) + tuple(variant_names()))
+
+
+def phase_attention_variants(card, qeng, eng):
+    """The last encoder variants' paths at full large-v3-turbo width and
+    depth, the knobs set in-process around each path and restored after;
+    counts set to 0 just before each path and read just after it:
+
+    (a) int8 serving (``qeng``) with ``NWT_ATTN_FUSED=3``, one concurrent
+        wave of the 12 s and the auto-language 8 s requests: K12 32 times
+        per encoder batch, no K1, K2, K3 or K8;
+    (b) one int8 encoder batch with ``NWT_ATTN_FUSED=2``: K1 with the o
+        projection fused and K2, 32 each, no default K1;
+    (c) one int8 encoder batch each with ``NWT_ATTN_I8``, ``NWT_ATTN_I8PV``
+        and both: that K1 variant and K2, 32 each;
+    (d) one ``transcribe`` of a 12 s clip on the unquantized engine
+        (``eng``) with both int8 knobs: K3 with both variants 32 times per
+        batch; and one float encoder batch each with ``NWT_ATTN_I8`` and
+        with ``NWT_ATTN_I8PV``: that K3 variant 32 times;
+    (e) one int8 encoder batch with ``NWT_ATTN_FUSED=3 NWT_ATTN_I8=1
+        NWT_ATTN_I8PV=1``: K12 with both int8 variants 32 times."""
+    import numpy as np
+    import torch
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    cfg = qeng.cfg
+    n = cfg.n_audio_layer
+    launches = {}
+
+    # (a) int8 serving through K12
+    wave1, _ = _request_audio()
+    with knobs(NWT_ATTN_FUSED="3"):
+        be = BatchedEngine(qeng, max_batch=8)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            ok = _run_wave(be, [wave1[1], wave1[4]], card)   # 12 s, auto 8 s
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = read_counts()
+        finally:
+            be.close()
+    nb = c["batches"]
+    a_ok = nb > 0 and only(c, {"K12": n * nb})
+    log(f"[variants] {card}: int8 serving with NWT_ATTN_FUSED=3: wall "
+        f"{wall:.2f} s; batch sizes {be.batcher.batch_sizes}; launches "
+        f"{_launch_summary(c)} (want K12 = {n} x {nb} = {n * nb}, no other "
+        f"encoder kernel) -> {'PASS' if a_ok else 'FAIL'}")
+    ok &= a_ok
+    launches["K12"] = c["K12"]
+
+    # (b), (c), (e): one int8 encoder batch under each knob set
+    mel = torch.from_numpy(np.random.RandomState(31).randn(
+        1, cfg.n_mels, 2 * cfg.n_audio_ctx).astype(np.float32)).cuda()
+    i8 = dict(NWT_ATTN_I8="1", NWT_ATTN_I8PV="1")
+    cases = [(dict(NWT_ATTN_FUSED="2"), {"K1-o": n, "K2": n}),
+             (dict(NWT_ATTN_I8="1"), {"K1-i8s": n, "K2": n}),
+             (dict(NWT_ATTN_I8PV="1"), {"K1-i8pv": n, "K2": n}),
+             (i8, {"K1-i8s-i8pv": n, "K2": n}),
+             (dict(NWT_ATTN_FUSED="3", **i8), {"K12-i8s-i8pv": n})]
+    for env, want in cases:
+        with knobs(**env):
+            reset_counts()
+            xa = mw.encode(qeng.params, mel, cfg,
+                           compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            c = read_counts()
+        this = only(c, want) and tuple(xa.shape) == (
+            1, cfg.n_audio_ctx, cfg.n_audio_state) and bool(
+            torch.isfinite(xa.float()).all())
+        log(f"[variants] {card}: int8 encoder batch with "
+            f"{' '.join(f'{k}={v}' for k, v in env.items())}: launches "
+            f"{_launch_summary(c)} (want {want}) -> "
+            f"{'PASS' if this else 'FAIL'}")
+        ok &= this
+        for k in want:
+            if k != "K2":
+                launches[k] = launches.get(k, 0) + c[k]
+
+    # (d) the unquantized file path through K3's int8 variants
+    opts = DecodeOptions(temperature_increment=0.0)
+    with knobs(**i8):
+        reset_counts()
+        ok &= _transcribe_one(eng, "en-12s K3 int8", speech_like_audio(
+            12.0, seed=32), card, opts)
+        torch.cuda.synchronize()
+        c = read_counts()
+    nb = c["batches"]
+    d_ok = nb > 0 and only(c, {"K3-i8s-i8pv": n * nb})
+    log(f"[variants] {card}: file path with NWT_ATTN_I8=1 NWT_ATTN_I8PV=1: "
+        f"launches {_launch_summary(c)} (want K3-i8s-i8pv = {n} x {nb}) -> "
+        f"{'PASS' if d_ok else 'FAIL'}")
+    ok &= d_ok
+    launches["K3-i8s-i8pv"] = c["K3-i8s-i8pv"]
+    for env, key in ((dict(NWT_ATTN_I8="1"), "K3-i8s"),
+                     (dict(NWT_ATTN_I8PV="1"), "K3-i8pv")):
+        with knobs(**env):
+            reset_counts()
+            xa = mw.encode(eng.params, mel, cfg,
+                           compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            c = read_counts()
+        this = only(c, {key: n}) and bool(torch.isfinite(xa.float()).all())
+        log(f"[variants] {card}: float encoder batch with "
+            f"{' '.join(f'{k}={v}' for k, v in env.items())}: launches "
+            f"{_launch_summary(c)} (want {key} = {n}) -> "
+            f"{'PASS' if this else 'FAIL'}")
+        ok &= this
+        launches[key] = c[key]
+    return ok, launches
+
+
+def reference_variants(dev, cfg, mel, to_dev):
+    """The d=128 dh=64 int8 encoder at bf16 with ``NWT_ATTN_FUSED=3
+    NWT_ATTN_I8=1 NWT_ATTN_I8PV=1`` (K12 with both int8 variants once a
+    layer) and with ``NWT_ATTN_FUSED=2`` (K1 with the o projection and K2
+    once a layer), on the card against the same model's plain run on the
+    CPU."""
+    import torch
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops.quant import quantize_encoder_params
+    n = cfg.n_audio_layer
+    qp = quantize_encoder_params(mw.init_params(3, cfg, dtype=torch.bfloat16))
+    ok = True
+    for env, want in ((dict(NWT_ATTN_FUSED="3", NWT_ATTN_I8="1",
+                            NWT_ATTN_I8PV="1"), {"K12-i8s-i8pv": n}),
+                      (dict(NWT_ATTN_FUSED="2"), {"K1-o": n, "K2": n})):
+        with knobs(**env):
+            reset_counts()
+            got = mw.encode(to_dev(qp), mel.to(dev), cfg,
+                            compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            c = read_counts()
+            ref = mw.encode(qp, mel, cfg, compute_dtype=torch.bfloat16)
+        err = (got.float().cpu() - ref.float()).abs().max().item()
+        this = only(c, want) and bool(torch.isfinite(got.float()).all()) \
+            and err < ENC_TOL
+        log(f"[reference] int8 encoder d=128 dh=64 bf16 with "
+            f"{' '.join(f'{k}={v}' for k, v in env.items())}, card vs CPU "
+            f"plain: max_abs_err {err:.3e} (tol {ENC_TOL}); launches "
+            f"{_launch_summary(c)} (want {want}) -> "
+            f"{'PASS' if this else 'FAIL'}")
+        ok &= this
+    return ok
+
+
 def phase_cli(card):
     """``python -m nobs_whisper_torch.cli transcribe`` in a subprocess on
     the card (default device and dtype: cuda, bf16), on a dh=64 tiny GGML
@@ -1558,7 +1938,9 @@ def main():
             ("serving", phase_serving, (card, qeng)),
             ("transcribe", phase_transcribe, (card, eng)),
             ("decode kernels", phase_decode_kernels, (card, qeng, eng)),
-            ("encoder knobs", phase_encoder_knobs, (card, qeng, eng))):
+            ("encoder knobs", phase_encoder_knobs, (card, qeng, eng)),
+            ("attention variants", phase_attention_variants,
+             (card, qeng, eng))):
         phase_ok, counts = phase(*args)
         ok &= phase_ok
         for key, n in counts.items():     # K9 runs on two phases' paths

@@ -1,7 +1,7 @@
 // Shared device code for the encoder kernels (sm_90a, plain C interface).
 //
-// Building blocks used by encoder_attention.cu (K1), fused_mlp.cu (K2, K8)
-// and fused_qkv.cu (K10, K11):
+// Building blocks used by encoder_attention.cu (K1), fused_mlp.cu (K2, K8),
+// fused_qkv.cu (K10, K11) and fused_layer.cu (K12):
 //
 //   * ln_quant_kernel: LayerNorm in f32 (eps 1e-5) of bf16 or f32 rows and
 //     dynamic per-row int8 quantization, s = max(absmax, 1e-6) / 127, q = clip(rint(h / s)).
@@ -15,7 +15,13 @@
 //     each tile is transposed into n-major shared memory on the way in, so
 //     every fragment register is one 32-bit shared load.
 //   * qkv_gemm_kernel: the three (d, d) int8 projections of one quantized
-//     row block in one launch (K1 with its q pre-scaled, K10 without).
+//     row block in one launch (K1 with its q pre-scaled, K10 without; K1's
+//     int8 scores take q unscaled in f32).
+//   * chunk_gemm_kernel: out = x + b + sum over K chunks of (acc_chunk *
+//     s_row_chunk) * s_col, the int32 accumulator flushed into an f32 one
+//     at every chunk boundary, chunks in order (K2/K8's fc2 with the
+//     per-(row, chunk) requant scales, K1's fused o projection with the
+//     per-(row, head pair) ones).
 //
 // Arithmetic in the epilogues uses the _rn intrinsics so that nvcc does not
 // contract a multiply and an add into one FMA: the plain PyTorch versions
@@ -283,6 +289,7 @@ struct QKVArgs {
   const float* s[3];
   const float* bias[3];   // k has none (nullptr)
   OutT* out[3];
+  float* q32;             // non-null: q goes here in f32, unscaled
   float q_scale;
   int M, d;
 };
@@ -309,6 +316,10 @@ qkv_gemm_kernel(QKVArgs<OutT> p) {
         if (r >= p.M) continue;
         float v = dequant(acc[mt][nt][e], p.sx[r], s_col[c]);
         if (bias) v = __fadd_rn(v, bias[c]);
+        if (z == 0 && p.q32) {
+          p.q32[(size_t)r * p.d + c] = v;
+          continue;
+        }
         if (z == 0) v = __fmul_rn(v, p.q_scale);
         out[(size_t)r * p.d + c] = from_f32<OutT>(v);
       }
@@ -323,7 +334,8 @@ inline cudaError_t launch_qkv_gemm(const void* xq, const void* sx,
                                    const void* sk, const void* wv,
                                    const void* sv, const void* bv, void* q,
                                    void* k, void* v, float q_scale, int M,
-                                   int d, cudaStream_t st) {
+                                   int d, cudaStream_t st,
+                                   float* q32 = nullptr) {
   QKVArgs<OutT> a;
   a.xq = static_cast<const int8_t*>(xq);
   a.sx = static_cast<const float*>(sx);
@@ -339,11 +351,107 @@ inline cudaError_t launch_qkv_gemm(const void* xq, const void* sx,
   a.out[0] = static_cast<OutT*>(q);
   a.out[1] = static_cast<OutT*>(k);
   a.out[2] = static_cast<OutT*>(v);
+  a.q32 = q32;
   a.q_scale = q_scale;
   a.M = M;
   a.d = d;
   const dim3 grid(d / GBN, (M + GBM - 1) / GBM, 3);
   qkv_gemm_kernel<OutT><<<grid, GTHREADS, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Residual GEMM with per-(row, chunk) activation scales: grid (N / 128,
+// ceil(M / 128)). out = x + b + sum_c (f32(A[:, chunk c] @ W[chunk c, :]) *
+// s_rc) * s_col, accumulated in f32 in chunk order; the row-chunk scale s_rc
+// is max(amax[r, c], 1e-6) / 127 from float bits (K2/K8's fc2), or read
+// from sa[r, c] when amax is null (K1's fused o, chunk 128).
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct FC2Args {
+  const int8_t* aq;      // (M, F) int8 activations
+  const unsigned* amax;  // (M, n_chunks) float bits, or null
+  const float* sa;       // (M, n_chunks) scales when amax is null
+  const int8_t* w2;      // (F, N) int8 row-major
+  const float* s2;       // (N,) column scales
+  const float* b2;       // (N,)
+  const T* x;            // residual (M, N)
+  T* out;                // (M, N)
+  int M, d, F, block_f;  // d = N, F = K
+};
+
+__device__ __forceinline__ float chunk_scale(const unsigned* amax, int row,
+                                             int n_chunks, int chunk) {
+  const float m = __uint_as_float(amax[(size_t)row * n_chunks + chunk]);
+  return __fdiv_rn(fmaxf(m, 1e-6f), 127.0f);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(GTHREADS)
+fc2_gemm_kernel(FC2Args<T> p) {
+  __shared__ __align__(16) GemmSmem sm;
+  const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * GBM;
+  const int n_chunks = p.F / p.block_f;
+  int acc[4][4][4];
+  float facc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[mt][nt][e] = 0;
+        const int r = acc_row(m0, mt, e), col = acc_col(n0, nt, e);
+        facc[mt][nt][e] =
+            r < p.M ? __fadd_rn(to_f32(p.x[(size_t)r * p.d + col]), p.b2[col])
+                    : 0.f;
+      }
+
+  for (int k0 = 0; k0 < p.F; k0 += GBK) {
+    const int chunk = k0 / p.block_f;
+    load_a_s8(sm, p.aq, p.F, m0, k0, p.M);
+    load_b_s8(sm, p.w2, p.d, k0, n0);
+    __syncthreads();
+    mma_slab(sm, acc);
+    __syncthreads();
+    if ((k0 + GBK) % p.block_f == 0) {      // chunk boundary: flush
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = acc_row(m0, mt, e);
+          float sa = 0.f;
+          if (r < p.M)
+            sa = p.amax ? chunk_scale(p.amax, r, n_chunks, chunk)
+                        : p.sa[(size_t)r * n_chunks + chunk];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int col = acc_col(n0, nt, e);
+            facc[mt][nt][e] = __fadd_rn(
+                facc[mt][nt][e], dequant(acc[mt][nt][e], sa, p.s2[col]));
+            acc[mt][nt][e] = 0;
+          }
+        }
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = acc_row(m0, mt, e), col = acc_col(n0, nt, e);
+        if (r < p.M)
+          p.out[(size_t)r * p.d + col] = from_f32<T>(facc[mt][nt][e]);
+      }
+}
+
+template <typename T>
+inline cudaError_t launch_fc2_gemm(const FC2Args<T>& a, cudaStream_t st) {
+  fc2_gemm_kernel<T><<<dim3(a.d / GBN, (a.M + GBM - 1) / GBM), GTHREADS, 0,
+                       st>>>(a);
   return cudaGetLastError();
 }
 

@@ -33,9 +33,9 @@
 //      float bits (non-negative floats order like their bit patterns).
 //   3. requant_kernel: the fc2 input re-quantized with the per-(row, chunk)
 //      scale max(absmax, 1e-6)/127, once per element.
-//   4. fc2_gemm_kernel: int8 fc2; the int32 accumulator is flushed into an
-//      f32 one (initialized to x + b2) at every chunk boundary, as the TPU
-//      kernel's acc += p * sa * w2s.
+//   4. fc2_gemm_kernel (common.cuh): int8 fc2; the int32 accumulator is
+//      flushed into an f32 one (initialized to x + b2) at every chunk
+//      boundary, as the TPU kernel's acc += p * sa * w2s.
 //   The per-(row, chunk) absmax needs the whole chunk row (2560 values)
 //   before any of it is quantized; this first version therefore writes
 //   fc1's output to device memory (M x ffn f32) and its int8 re-quantized
@@ -100,24 +100,6 @@ fc1_gemm_kernel(FC1Args p) {
   }
 }
 
-template <typename T>
-struct FC2Args {
-  const int8_t* aq;      // (M, F) re-quantized gelu output
-  const unsigned* amax;  // (M, n_chunks)
-  const int8_t* w2;
-  const float* s2;
-  const float* b2;
-  const T* x;            // residual (M, d)
-  T* out;                // (M, d)
-  int M, d, F, block_f;
-};
-
-__device__ __forceinline__ float chunk_scale(const unsigned* amax, int row,
-                                             int n_chunks, int chunk) {
-  const float m = __uint_as_float(amax[(size_t)row * n_chunks + chunk]);
-  return __fdiv_rn(fmaxf(m, 1e-6f), 127.0f);
-}
-
 // fc2 input: aq = clip(rint(a / s)) with s the (row, chunk) scale; four
 // consecutive values per thread (a chunk is a multiple of 128 wide).
 __global__ void __launch_bounds__(256)
@@ -133,65 +115,6 @@ requant_kernel(const float* __restrict__ a, const unsigned* __restrict__ amax,
       ((uint32_t)(uint8_t)quant_s8(v.y, s) << 8) |
       ((uint32_t)(uint8_t)quant_s8(v.z, s) << 16) |
       ((uint32_t)(uint8_t)quant_s8(v.w, s) << 24);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(GTHREADS)
-fc2_gemm_kernel(FC2Args<T> p) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * GBM;
-  const int n_chunks = p.F / p.block_f;
-  int acc[4][4][4];
-  float facc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[mt][nt][e] = 0;
-        const int r = acc_row(m0, mt, e), col = acc_col(n0, nt, e);
-        facc[mt][nt][e] =
-            r < p.M ? __fadd_rn(to_f32(p.x[(size_t)r * p.d + col]), p.b2[col])
-                    : 0.f;
-      }
-
-  for (int k0 = 0; k0 < p.F; k0 += GBK) {
-    const int chunk = k0 / p.block_f;
-    load_a_s8(sm, p.aq, p.F, m0, k0, p.M);
-    load_b_s8(sm, p.w2, p.d, k0, n0);
-    __syncthreads();
-    mma_slab(sm, acc);
-    __syncthreads();
-    if ((k0 + GBK) % p.block_f == 0) {      // chunk boundary: flush
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = acc_row(m0, mt, e);
-          const float sa = r < p.M ? chunk_scale(p.amax, r, n_chunks, chunk)
-                                   : 0.f;
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int col = acc_col(n0, nt, e);
-            facc[mt][nt][e] = __fadd_rn(
-                facc[mt][nt][e], dequant(acc[mt][nt][e], sa, p.s2[col]));
-            acc[mt][nt][e] = 0;
-          }
-        }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = acc_row(m0, mt, e), col = acc_col(n0, nt, e);
-        if (r < p.M)
-          p.out[(size_t)r * p.d + col] = from_f32<T>(facc[mt][nt][e]);
-      }
 }
 
 // x (M, d) of type T (bf16, or float for the int8 encoder at f32 compute);
@@ -243,6 +166,7 @@ int encoder_mlp_int8(
   FC2Args<T> f2;
   f2.aq = static_cast<const int8_t*>(aq);
   f2.amax = static_cast<const unsigned*>(amax);
+  f2.sa = nullptr;
   f2.w2 = static_cast<const int8_t*>(w2);
   f2.s2 = static_cast<const float*>(s2);
   f2.b2 = static_cast<const float*>(b2);
@@ -252,9 +176,7 @@ int encoder_mlp_int8(
   f2.d = d;
   f2.F = F;
   f2.block_f = block_f;
-  fc2_gemm_kernel<T><<<dim3(d / GBN, (M + GBM - 1) / GBM), GTHREADS, 0, st>>>(
-      f2);
-  return (int)cudaGetLastError();
+  return (int)launch_fc2_gemm(f2, st);
 }
 
 }  // namespace nwt

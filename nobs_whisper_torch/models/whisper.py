@@ -204,18 +204,20 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 class EncoderGates(NamedTuple):
     stem: Optional[str]        # "K13", or None: torch ops
-    qkv: Optional[str]         # "K1" (inside its attention), "K10", or None
-    attention: Optional[str]   # "K1", "K3", "K9", or None: torch ops
-    o: Optional[str]           # "K11", or None: x + o projection
-    mlp: Optional[str]         # "K2", "K8", or None: torch ops
+    qkv: Optional[str]         # "K1"/"K12" (inside), "K10", or None
+    attention: Optional[str]   # "K1", "K3", "K9", "K12", or None: torch ops
+    o: Optional[str]           # "K1"/"K12" (fused), "K11", or None
+    mlp: Optional[str]         # "K2", "K8", "K12" (inside), or None
     block_f: int               # the int8 MLP's fc2-input requant chunk
     block_q: int               # the T padding quantum (NWT_ATTN_BQ)
+    int8_scores: bool = False  # K1/K3/K12's int8 QK^T (NWT_ATTN_I8)
+    int8_pv: bool = False      # K1/K3/K12's int8 PV (NWT_ATTN_I8PV)
 
 
 def _unported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 2, the next encoder "
-        "slice); unset it to run the encoder's other kernels")
+        f"{what} is not ported (ROADMAP.md queue 2, not queued); unset it "
+        "to run the encoder's other kernels")
 
 
 def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
@@ -230,9 +232,14 @@ def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
     * Attention kernels need bf16 compute (``use_flash``, off with
       ``NWT_NO_FLASH``): the flat path where heads pair into 128 lanes
       (even head count, 2 * dh == 128), unless ``NWT_ATTN_BHTD``,
-      ``NWT_INT8_QKV`` or ``NWT_LIB_FLASH`` turn it off: K1 for a
-      quantized ``q_w`` (``NWT_ATTN_FUSED`` != 0), else LN, the
-      projections and K3; otherwise K9 on split heads. At f32, LN, the
+      ``NWT_INT8_QKV`` or ``NWT_LIB_FLASH`` turn it off. There: K12, the
+      whole layer, with ``NWT_ATTN_FUSED`` >= 3, every linear of the layer
+      quantized and the int8 MLP on (its chunk ``NWT_MLP_BF`` or 1280);
+      else K1 for a quantized ``q_w`` (``NWT_ATTN_FUSED`` != 0), with the
+      o projection fused for ``NWT_ATTN_FUSED`` >= 2 and a quantized
+      ``o_w``; else LN, the projections and K3. ``NWT_ATTN_I8`` and
+      ``NWT_ATTN_I8PV`` pick the int8 scores and PV of whichever of the
+      three runs. Off the flat path K9 on split heads. At f32, LN, the
       projections and :func:`_attention` in torch ops.
     * ``NWT_INT8_QKV`` (any dtype): K10 for a quantized ``q_w`` and K11
       for a quantized ``o_w``.
@@ -242,10 +249,9 @@ def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
     * ``NWT_STEM_FUSED`` at bf16: K13 for a width that is a multiple of
       128, an even mel length and a whole position table.
 
-    Raises NotImplementedError where the reference would take a kernel
-    that is not ported: the library flash kernel (``NWT_LIB_FLASH`` at
-    bf16), K12 and K1's fused o (``NWT_ATTN_FUSED`` 3 and 2), and the int8
-    variants of the flat path (``NWT_ATTN_I8``, ``NWT_ATTN_I8PV``)."""
+    Raises NotImplementedError where the reference would take the JAX
+    library's flash kernel (``NWT_LIB_FLASH`` at bf16), which is not
+    ported."""
     env = os.environ.get
     d, n_head = cfg.n_audio_state, cfg.n_audio_head
     bf16 = compute_dtype == torch.bfloat16
@@ -262,13 +268,18 @@ def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
     attn_fused = int(env("NWT_ATTN_FUSED", "1") or "0")
     chunked = bool(env("NWT_MLP_CHUNKED"))
     block_f = int(env("NWT_MLP_BF", 0)) or (1280 if chunked else 2560)
+    o = "K11" if int8_qkv and quant["o_w"] else None
+    mlp = (("K8" if chunked else "K2") if int8_mlp and quant["fc1_w"]
+           else None)
 
     if use_btd and attn_fused >= 3 and all(quant.values()) and int8_mlp:
-        _unported("NWT_ATTN_FUSED=3 (K12, the whole-layer kernel)")
-    if use_btd and attn_fused and quant["q_w"]:
-        if attn_fused >= 2 and quant["o_w"]:
-            _unported("NWT_ATTN_FUSED=2 (K1 with the o projection fused)")
+        # K12's own chunk (whisper.py:410), not K2's or K8's
+        qkv = attention = o = mlp = "K12"
+        block_f = int(env("NWT_MLP_BF", 0)) or 1280
+    elif use_btd and attn_fused and quant["q_w"]:
         qkv = attention = "K1"
+        if attn_fused >= 2 and quant["o_w"]:
+            o = "K1"
     elif use_btd:
         qkv, attention = None, "K3"
     else:
@@ -276,19 +287,16 @@ def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
         if use_flash and lib_flash:
             _unported("NWT_LIB_FLASH (the JAX library's flash kernel)")
         attention = "K9" if use_flash else None
-    if use_btd and (env("NWT_ATTN_I8") or env("NWT_ATTN_I8PV")):
-        _unported("NWT_ATTN_I8 / NWT_ATTN_I8PV (int8 scores and PV in K1/K3)")
 
     n_frames = n_frames or 2 * cfg.n_audio_ctx
     pos_len = pos_len or cfg.n_audio_ctx
     stem = ("K13" if bf16 and env("NWT_STEM_FUSED") and d % 128 == 0
             and n_frames % 2 == 0 and 2 * pos_len == n_frames else None)
     return EncoderGates(
-        stem=stem, qkv=qkv, attention=attention,
-        o="K11" if int8_qkv and quant["o_w"] else None,
-        mlp=(("K8" if chunked else "K2") if int8_mlp and quant["fc1_w"]
-             else None),
-        block_f=block_f, block_q=block_q)
+        stem=stem, qkv=qkv, attention=attention, o=o, mlp=mlp,
+        block_f=block_f, block_q=block_q,
+        int8_scores=use_btd and bool(env("NWT_ATTN_I8")),
+        int8_pv=use_btd and bool(env("NWT_ATTN_I8PV")))
 
 
 encode_count = 0      # encoder batches run (each runs every layer once)
@@ -309,6 +317,7 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     """The reference's ``_encode`` (whisper.py:242-565) in its order."""
     from ..ops import conv_stem as cs
     from ..ops import encoder_attention as ea
+    from ..ops import fused_layer as fl
     from ..ops import fused_mlp as fm
     from ..ops import fused_qkv as fq
 
@@ -318,9 +327,9 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     blocks = enc["blocks"]
     gates = encoder_kernel_gates(cfg, blocks, compute_dtype, mel.shape[-1],
                                  enc["pos"].shape[0])
-    flat = gates.attention in ("K1", "K3")
+    flat = gates.attention in ("K1", "K3", "K12")
     # The attention kernels' T: padded keys are masked and padded rows
-    # sliced off, once around the stack on the flat path (K1, K3), around
+    # sliced off, once around the stack on the flat path (K1, K3, K12), around
     # each layer's attention for K9. The reference pads to a multiple of
     # NWT_ATTN_BQ; the card's kernels take T % 64 == 0, so the quantum is
     # rounded up to that (the rows past t_real never reach a real one).
@@ -354,12 +363,23 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
         return z.reshape(bsz * t, d)
 
     sm_scale = float(d // n_head) ** -0.5
+    i8 = dict(int8_scores=gates.int8_scores, int8_pv=gates.int8_pv)
     for i in range(cfg.n_audio_layer):
         p = _layer(blocks, i)
+        if gates.attention == "K12":
+            x = fl.encoder_layer_fused(
+                x, p["ln1_g"], p["ln1_b"], p["q_w"], p["q_b"], p["k_w"],
+                p["v_w"], p["v_b"], p["o_w"], p["o_b"], p["ln2_g"],
+                p["ln2_b"], p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"],
+                t_real, sm_scale, n_head, block_f=gates.block_f, **i8)
+            continue
         if gates.attention == "K1":
+            fuse_o = gates.o == "K1"
             a = ea.encoder_attention_fused_qkv(
                 x, p["ln1_g"], p["ln1_b"], p["q_w"], p["q_b"], p["k_w"],
-                p["v_w"], p["v_b"], t_real, sm_scale, n_head)
+                p["v_w"], p["v_b"], t_real, sm_scale, n_head,
+                wo=p["o_w"] if fuse_o else None,
+                bo=p["o_b"] if fuse_o else None, **i8)
         else:
             if gates.qkv == "K10":
                 q, k, v = (z.reshape(bsz, t, d) for z in fq.encoder_qkv_int8(
@@ -372,7 +392,7 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
                 v = lin(h, p["v_w"], p["v_b"])
             if gates.attention == "K3":
                 a = ea.encoder_attention_btd(q, k, v, t_real, sm_scale,
-                                             n_head)
+                                             n_head, **i8)
             elif gates.attention == "K9":
                 a = ea.encoder_attention(
                     *(F.pad(_split_heads(z, n_head), head_pad)
@@ -383,7 +403,9 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
                                             _split_heads(k, n_head),
                                             _split_heads(v, n_head),
                                             mask=None))
-        if gates.o == "K11":
+        if gates.o == "K1":
+            x = a              # the residual and o projection are done
+        elif gates.o == "K11":
             x = fq.residual_o_int8(rows(x), rows(a), p["o_w"],
                                    p["o_b"]).reshape(bsz, t, d)
         else:

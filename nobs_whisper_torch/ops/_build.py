@@ -24,7 +24,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("encoder_attention", "fused_mlp", "cross_attention_decode",
-           "q8_matmul", "fused_qkv", "conv_stem")
+           "q8_matmul", "fused_qkv", "conv_stem", "fused_layer")
+# sources a source includes besides the headers (K12 is K1 then K2)
+INCLUDES = {"fused_layer": ("encoder_attention", "fused_mlp")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,7 +57,8 @@ def _stale(name: str) -> bool:
     if not os.path.exists(lib):
         return True
     t = os.path.getmtime(lib)
-    deps = [os.path.join(CSRC, f"{name}.cu")] + [
+    deps = [os.path.join(CSRC, f"{n}.cu")
+            for n in (name, *INCLUDES.get(name, ()))] + [
         os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
     return any(os.path.getmtime(p) > t for p in deps)
 

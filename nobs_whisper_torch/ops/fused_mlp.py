@@ -61,10 +61,11 @@ def gelu_tanh(a: torch.Tensor) -> torch.Tensor:
     return 0.5 * a * (1.0 + torch.tanh(c * (a + 0.044715 * a * a * a)))
 
 
-def _mlp_int8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
+def mlp_int8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
                     block_f: int) -> torch.Tensor:
     """The Pallas kernels' function (``_enc_mlp_kernel``,
-    ``_enc_mlp_res_kernel``) in plain PyTorch. x: (M, d)."""
+    ``_enc_mlp_res_kernel``) in plain PyTorch, shared by K2's, K8's and
+    K12's plain versions. x: (M, d)."""
     m, d = x.shape
     ffn = fc1["q"].shape[-1]
     block_f = resolve_block_f(block_f, ffn)
@@ -86,14 +87,14 @@ def _mlp_int8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
 def encoder_mlp_int8_resident_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
                                     block_f: int = 640) -> torch.Tensor:
     """Plain PyTorch K2 with the Pallas kernel's numerics. x: (M, d)."""
-    return _mlp_int8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f)
+    return mlp_int8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f)
 
 
 def encoder_mlp_int8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
                            block_f: int = 640) -> torch.Tensor:
     """Plain PyTorch K8 with the Pallas kernel's numerics: K2's function
     at the given ``block_f``. x: (M, d)."""
-    return _mlp_int8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f)
+    return mlp_int8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f)
 
 
 def encoder_mlp_int8_resident(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,

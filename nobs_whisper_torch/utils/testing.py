@@ -181,15 +181,26 @@ def speech_like_audio(duration_s: float, seed: int = 0,
     return out
 
 
+def _attention_variants(key, fuse_o=(False,)):
+    from itertools import product
+    return tuple("-".join([key] + ["o"] * o + ["i8s"] * s8 + ["i8pv"] * pv)
+                 for o, s8, pv in product(fuse_o, (False, True),
+                                          (False, True)))
+
+
 class KernelSpies:
     """Count calls of the kernels' plain versions (what the wrappers run
     on CPU tensors) while the port runs on the CPU. ``patch`` is a setattr
     such as pytest's ``monkeypatch.setattr``, which undoes the spies after
     the test; ``calls`` maps each of ``kernels`` (by default the
-    encoder's default ones: K1, K2, K3, K9) to its count."""
+    encoder's default ones: K1, K2, K3, K9) to its count. The attention
+    kernels count by variant (``ops/encoder_attention.py::variant``):
+    "K1" is the default K1 alone, "K1-o-i8s" K1 with the o projection
+    fused and int8 scores, and so on."""
 
     NAMES = {"K1": ("ea", "encoder_attention_fused_qkv_plain"),
              "K3": ("ea", "encoder_attention_btd_plain"),
+             "K12": ("fl", "encoder_layer_fused_plain"),
              "K9": ("ea", "encoder_attention_plain"),
              "K2": ("fm", "encoder_mlp_int8_resident_plain"),
              "K8": ("fm", "encoder_mlp_int8_plain"),
@@ -199,22 +210,35 @@ class KernelSpies:
              "K4": ("ap", "cross_attention_decode_bf16_plain"),
              "K5": ("ap", "cross_attention_decode_q8_plain"),
              "K6": ("qt", "q8_matmul_plain")}
-    ENCODER = ("K1", "K2", "K3", "K8", "K9", "K10", "K11", "K13")
+    VARIANTS = {"K1": _attention_variants("K1", (False, True)),
+                "K3": _attention_variants("K3"),
+                "K12": _attention_variants("K12")}
+    ENCODER = (VARIANTS["K1"] + ("K2",) + VARIANTS["K3"] + ("K8", "K9")
+               + ("K10", "K11") + VARIANTS["K12"] + ("K13",))
 
     def __init__(self, patch, kernels=("K1", "K2", "K3", "K9")):
         from ..ops import attention_pallas as ap
         from ..ops import conv_stem as cs
         from ..ops import encoder_attention as ea
+        from ..ops import fused_layer as fl
         from ..ops import fused_mlp as fm
         from ..ops import fused_qkv as fq
         from ..ops import quant as qt
-        mods = {"ea": ea, "fm": fm, "fq": fq, "cs": cs, "ap": ap, "qt": qt}
+        mods = {"ea": ea, "fm": fm, "fq": fq, "cs": cs, "ap": ap, "qt": qt,
+                "fl": fl}
         self.calls = dict.fromkeys(kernels, 0)
-        for key in kernels:
+        keys = {k.split("-")[0] for k in kernels}
+        for key in keys:
             mod, name = self.NAMES[key]
             real = getattr(mods[mod], name)
+            args = list(real.__code__.co_varnames[:real.__code__.co_argcount])
 
-            def spy(*a, _key=key, _real=real, **k):
-                self.calls[_key] += 1
+            def spy(*a, _key=key, _real=real, _args=args, **k):
+                bound = dict(zip(_args, a), **k)
+                name = _key if _key not in self.VARIANTS else ea.variant(
+                    _key, _key == "K1" and bound.get("wo") is not None,
+                    bool(bound.get("int8_scores")), bool(bound.get("int8_pv")))
+                if name in self.calls:
+                    self.calls[name] += 1
                 return _real(*a, **k)
             patch(mods[mod], name, spy)

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels K1, K2 (bf16 and f32 activations), K3, K9,
-the decode-step kernels K4, K5 and K6, and the encoder knobs' K8, K10,
-K11 (bf16 and f32 activations) and K13 against their plain PyTorch
-versions, on the card.
+the decode-step kernels K4, K5 and K6, the encoder knobs' K8, K10,
+K11 (bf16 and f32 activations) and K13, and the last encoder variants (K1
+with the o projection fused, K12, the int8 scores and PV of K1, K3 and
+K12; tolerances at :data:`VAR_TOL`) against their plain PyTorch versions,
+on the card.
 
 Marked ``gpu``; each test asks a fixture whether there is a card and skips
 without one (the CPU suite runs the plain versions in the other
@@ -38,6 +40,7 @@ import torch
 from nobs_whisper_torch.ops import attention_pallas as ap
 from nobs_whisper_torch.ops import conv_stem as cs
 from nobs_whisper_torch.ops import encoder_attention as ea
+from nobs_whisper_torch.ops import fused_layer as fl
 from nobs_whisper_torch.ops import fused_mlp as fm
 from nobs_whisper_torch.ops import fused_qkv as fq
 from nobs_whisper_torch.ops import quant as qt
@@ -501,3 +504,201 @@ def test_k13_kernel_matches_plain(cuda, b, c_in, n_frames, d, t_pad,
     assert got.dtype == torch.bfloat16 and got.shape == (b, t_pad, d)
     assert not got[:, n_frames // 2:].any()      # padded rows: exact zeros
     assert (got.float() - ref.float()).abs().max().item() < 3e-2
+
+
+# ---------------------------------------------------------------------------
+# K1 with fused o, K12, and the int8 scores and PV of K1, K3 and K12
+# ---------------------------------------------------------------------------
+
+INT8 = {"i8s": (True, False), "i8pv": (False, True), "both": (True, True)}
+ALL = {"none": (False, False), **INT8}
+# The variants' tolerances on the card (kernel against plain, both on the
+# card). K3 and the attention-only K1 variants: the int8 dots are exact in
+# both; the f32 order of the bf16 dots and sums differs, and a flip of
+# LN1's int8 activation (K1) in the row that holds a head's absmax of k or
+# v moves that head's scale, so every row of the head moves a little: max
+# 2e-2 (the JAX tests' K1 ceiling), mean 1e-4 (readings at turbo width:
+# max 5.4e-3, mean 8.0e-6). After an int8 requantization of the f32 result
+# (fused o) an int8 flip moves a row by an int8 step times a weight: 5e-2
+# (K2's bound), mean 2e-4 (with int8 scores at turbo width: mean 1.02e-4,
+# where a moved head scale feeds the requantization). K12 end to end: its
+# bf16 x2 differs from the plain one by a bf16 step in 7% of the elements
+# at turbo width (one int8 flip of the o input moves its whole row by
+# about half a bf16 step), so most rows, and LN2 requantizes each such
+# row: max 1e-1, mean 5e-3 (readings at turbo width: max 5.5e-2, mean
+# 3.5e-3, half the elements differ); K12 is besides held bit for bit
+# to its two halves' kernels and its MLP half, on the kernel's own x2, to
+# K2's bound (:func:`test_k12_kernel_is_fused_o_then_k2`).
+VAR_TOL = {"attn": (2e-2, 1e-4), "o": (5e-2, 2e-4), "K12": (1e-1, 5e-3)}
+
+
+def _var_close(got, ref, n_real, kind):
+    tol, mean = VAR_TOL[kind]
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()         # padded rows included
+    diff = (got.float() - ref.float())[:, :n_real].abs()
+    print(f"{kind}: max {diff.max().item():.3e} mean "
+          f"{diff.mean().item():.3e}")
+    assert diff.max().item() < tol
+    assert diff.mean().item() < mean
+
+
+def _launched(fn, key, name):
+    """Run ``fn`` and check that it launched the named variant once."""
+    counter = (fl.variant_launch_count if key == "K12"
+               else ea.variant_launch_count)
+    before = dict(counter), fl.launch_count, ea.launch_count
+    got = fn()
+    torch.cuda.synchronize()
+    want = dict(before[0])
+    want[name] = want.get(name, 0) + 1
+    if name == "K12":
+        assert fl.launch_count == before[1] + 1 and dict(counter) == before[0]
+    else:
+        assert dict(counter) == want
+    assert ea.launch_count == before[2]        # the default K1: not launched
+    return got
+
+
+@pytest.mark.parametrize("b,t,h,n_real", [
+    (2, 256, 4, 256), (2, 256, 4, 250), (1, 256, 2, 40),
+    (2, 1536, 20, 1500),                    # large-v3-turbo width
+])
+@pytest.mark.parametrize("var", list(INT8))
+def test_k3_int8_variants_kernel_match_plain(cuda, var, b, t, h, n_real):
+    s8, pv = INT8[var]
+    q, k, v = _attn_inputs((b, t, h * 64), cuda, seed=t + n_real + 7)
+    name = ea.variant("K3", False, s8, pv)
+    got = _launched(lambda: ea.encoder_attention_btd(
+        q, k, v, n_real, 0.125, h, int8_scores=s8, int8_pv=pv), "K3", name)
+    ref = ea.encoder_attention_btd_plain(q, k, v, n_real, 0.125, h, s8, pv)
+    _var_close(got, ref, n_real, "attn")
+
+
+K1_SHAPES = [(2, 4, 256, 256, 256), (2, 4, 256, 256, 250),
+             (1, 6, 128, 384, 128),              # many head pairs
+             (2, 20, 1536, 1280, 1500)]          # turbo: 1500 real in 1536
+
+
+@pytest.mark.parametrize("b,h,t,d,n_real", K1_SHAPES)
+@pytest.mark.parametrize("var", list(ALL))
+@pytest.mark.parametrize("fuse_o", [False, True])
+def test_k1_variants_kernel_match_plain(cuda, fuse_o, var, b, h, t, d,
+                                        n_real):
+    """K1's int8 scores, int8 PV, and the fused o projection, alone and
+    together. The plain version quantizes the f32 q projection before the
+    softmax scale, so a kernel that quantized a bf16 or pre-scaled q would
+    move many int8 q values, the turbo case's ragged 1500-in-1536 rows
+    included."""
+    s8, pv = ALL[var]
+    if not (fuse_o or s8 or pv):
+        pytest.skip("the default K1: test_k1_kernel_matches_plain")
+    args = _k1_inputs(b, h, t, d, cuda, seed=11)
+    wo = quantize_int8(torch.randn(d, d, device=cuda) * d ** -0.5)
+    bo = 0.1 * torch.randn(d, device=cuda)
+    kw = dict(wo=wo, bo=bo) if fuse_o else {}
+    name = ea.variant("K1", fuse_o, s8, pv)
+    got = _launched(lambda: ea.encoder_attention_fused_qkv(
+        *args, n_real, 0.125, h, int8_scores=s8, int8_pv=pv, **kw), "K1",
+        name)
+    ref = ea.encoder_attention_fused_qkv_plain(
+        *args, n_real, 0.125, h, int8_scores=s8, int8_pv=pv, **kw)
+    _var_close(got, ref, n_real, "o" if fuse_o else "attn")
+
+
+def _layer_inputs(b, h, t, d, f, dev, seed=20):
+    x, g1, b1n, wq, bq, wk, wv, bv = _k1_inputs(b, h, t, d, dev, seed)
+    _, g2, b2n, fc1, fc1_b, fc2, fc2_b = _k2_inputs(8, d, f, dev, seed + 1)
+    wo = quantize_int8(torch.randn(d, d, device=dev) * d ** -0.5)
+    bo = 0.1 * torch.randn(d, device=dev)
+    return (x, g1, b1n, wq, bq, wk, wv, bv, wo, bo, g2, b2n, fc1, fc1_b, fc2,
+            fc2_b)
+
+
+@pytest.mark.parametrize("b,h,t,d,f,block_f,n_real", [
+    (2, 4, 256, 256, 512, 256, 250),
+    (1, 6, 128, 384, 1536, 768, 128),
+    (2, 20, 1536, 1280, 5120, 1280, 1500),   # large-v3-turbo, K12's chunk
+])
+@pytest.mark.parametrize("var", list(ALL))
+def test_k12_kernel_matches_plain(cuda, var, b, h, t, d, f, block_f,
+                                  n_real):
+    s8, pv = ALL[var]
+    args = _layer_inputs(b, h, t, d, f, cuda)
+    name = ea.variant("K12", False, s8, pv)
+    got = _launched(lambda: fl.encoder_layer_fused(
+        *args, n_real, 0.125, h, block_f=block_f, int8_scores=s8,
+        int8_pv=pv), "K12", name)
+    ref = fl.encoder_layer_fused_plain(*args, n_real, 0.125, h,
+                                       block_f=block_f, int8_scores=s8,
+                                       int8_pv=pv)
+    _var_close(got, ref, n_real, "K12")
+
+
+@pytest.mark.parametrize("knobs,want", [
+    ({"NWT_ATTN_FUSED": "2"}, {"K1-o": 2, "K2": 2}),
+    ({"NWT_ATTN_FUSED": "3"}, {"K12": 2}),
+    ({"NWT_ATTN_FUSED": "3", "NWT_ATTN_I8": "1", "NWT_ATTN_I8PV": "1"},
+     {"K12-i8s-i8pv": 2}),
+    ({"NWT_ATTN_I8": "1"}, {"K1-i8s": 2, "K2": 2}),
+])
+def test_int8_encoder_on_card_takes_the_variants(cuda, monkeypatch, knobs,
+                                                 want):
+    """The d=128 dh=64 int8 encoder on the card with the variant knobs:
+    the variant's kernel once per layer, states within 5e-2 of the same
+    encoder on the CPU."""
+    from nobs_whisper_torch.models import whisper as tw
+    from nobs_whisper_torch.ops.quant import quantize_encoder_params
+    from nobs_whisper_torch.utils.testing import tiny_test_config
+    for k, v in knobs.items():
+        monkeypatch.setenv(k, v)
+    cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=32)
+    params = quantize_encoder_params(
+        tw.init_params(3, cfg, dtype=torch.bfloat16))
+    mel = torch.from_numpy(
+        np.random.RandomState(4).randn(2, 80, 64).astype(np.float32))
+    to_dev = lambda t: ({k: to_dev(v) for k, v in t.items()}
+                        if isinstance(t, dict) else t.to(cuda))
+    counts = lambda: dict(ea.variant_launch_count, K1=ea.launch_count,
+                          K2=fm.launch_count, K12=fl.launch_count,
+                          **fl.variant_launch_count)
+    before = counts()
+    got = tw.encode(to_dev(params), mel.to(cuda), cfg,
+                    compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    after = counts()
+    moved = {k: v - before.get(k, 0) for k, v in after.items()
+             if v != before.get(k, 0)}
+    assert moved == want
+    ref = tw.encode(params, mel, cfg, compute_dtype=torch.bfloat16)
+    assert torch.isfinite(got.float()).all()
+    err = (got.float().cpu() - ref.float()).abs().max().item()
+    assert err < 5e-2, err
+
+
+@pytest.mark.parametrize("b,h,t,d,f,block_f,n_real", [
+    (2, 4, 256, 256, 512, 256, 250),
+    (2, 20, 1536, 1280, 5120, 1280, 1500),
+])
+@pytest.mark.parametrize("var", list(ALL))
+def test_k12_kernel_is_fused_o_then_k2(cuda, var, b, h, t, d, f, block_f,
+                                       n_real):
+    """K12 on the card is K1 with fused o then K2 at K12's chunk, bit for
+    bit (the same kernels on one stream; the atomics are max over float
+    bits, exact); its MLP half on the kernel's own x2 is K2's plain
+    version within K2's bound of 5e-2."""
+    s8, pv = ALL[var]
+    args = _layer_inputs(b, h, t, d, f, cuda)
+    got = fl.encoder_layer_fused(*args, n_real, 0.125, h, block_f=block_f,
+                                 int8_scores=s8, int8_pv=pv)
+    x2 = ea.encoder_attention_fused_qkv(
+        *args[:8], n_real, 0.125, h, int8_scores=s8, int8_pv=pv,
+        wo=args[8], bo=args[9]).reshape(b * t, d)
+    want = fm.encoder_mlp_int8_resident(x2, *args[10:], block_f=block_f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want.reshape(b, t, d), rtol=0, atol=0)
+    half = fm.encoder_mlp_int8_resident_plain(x2, *args[10:],
+                                              block_f=block_f)
+    err = (got.float().reshape(b * t, d) - half.float()).abs()
+    err = err.reshape(b, t, d)[:, :n_real].max().item()
+    assert err < K2_TOL, err

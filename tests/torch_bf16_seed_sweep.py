@@ -29,9 +29,14 @@ how far the knob moves the reference's states from its knobless run
 with ``NWT_INT8_QKV NWT_MLP_CHUNKED NWT_STEM_FUSED`` on (K13, K10, K9,
 K11, K8), which windows give equal greedy tokens.
 
+With ``fused3`` it prints, for each weight seed, which windows of the int8
+window program give equal greedy tokens with ``NWT_ATTN_FUSED=3
+NWT_ATTN_I8=1 NWT_ATTN_I8PV=1`` on (K12 with both int8 variants).
+
 Run from the repo root: ``PYTHONPATH=. python tests/torch_bf16_seed_sweep.py
-[n_seeds] [decode | knobs]`` (10 seeds take ~6 min on one CPU core, ~8 min
-with ``decode``, ~8 min with ``knobs``).
+[n_seeds] [decode | knobs | fused3]`` (10 seeds take ~6 min on one CPU
+core, ~8 min with ``decode``, ~8 min with ``knobs``, ~4 min with
+``fused3``).
 """
 
 import os
@@ -133,6 +138,19 @@ def encoder_knobs(n_seeds):
               f"{windows_equal(win, win_ref)}", flush=True)
 
 
+def fused3(n_seeds):
+    import test_torch_encoder_knobs as te
+    for seed in range(n_seeds):
+        with pytest.MonkeyPatch.context() as mp:
+            for k, v in te.FUSED3_I8.items():
+                mp.setenv(k, v)
+            te.route_reference(mp)
+            with jax.disable_jit():
+                win, win_ref = ts._window_slice("bf16", seed=seed)
+        print(f"fused3 int8 seed={seed} | windows' tokens vs ref "
+              f"{windows_equal(win, win_ref)}", flush=True)
+
+
 def main(n_seeds):
     torch.set_num_threads(1)
     for d, heads, kernel in tm.FLOAT_BF16_CASES:
@@ -168,5 +186,8 @@ if __name__ == "__main__":
     elif "knobs" in sys.argv[2:]:
         torch.set_num_threads(1)
         encoder_knobs(n)
+    elif "fused3" in sys.argv[2:]:
+        torch.set_num_threads(1)
+        fused3(n)
     else:
         main(n)
