@@ -65,7 +65,14 @@ arguments). Phases; any failure exits non-zero before the result line:
    with both), a file transcription with both (K3 with both) and a float
    encoder batch with each alone (that K3 variant). With none of these
    knobs set, no earlier phase launches K12 or a K1/K3 variant;
-9. one ``kernels`` JSON line, then the result line.
+9. the raw-PCM path and the two ops that no serving path takes
+   (``phase_ops``): ``log_mel_spectrogram`` of one 30 s window on the
+   card against the f64 oracle on the host; K14 through
+   ``log_mel_spectrogram_pallas`` on wave 1's requests as 30 s windows
+   (one launch); K7 through ``fused_mlp_q8`` on each int8 decoder MLP of
+   the turbo engine (one launch a layer). Before it, every count read on
+   phases 3-8 must show K7 = K14 = 0;
+10. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 and K5 (B=8 and B=1, H=20, Dh=64, Tp=1536,
 t_real=1500), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
@@ -74,7 +81,9 @@ K8 (block_f=1280) at the knob paths' rows (d=1280; M=3000 with bf16 and
 with f32 x, M=1500 with f32 x) and K13 (B=2, 3000 frames, d=1280: C_in=128 at t_out_pad 1536 and
 1504, C_in=80) and the variants at K1's shapes (K1 with fused o, K1 and
 K3 with int8 scores, int8 PV and both, K12 and K12 with both at
-ffn=5120, block_f=1280); phase 3 also holds a d=128 dh=64 int8 decoder with the
+ffn=5120, block_f=1280), K14 (B=40 and B=2 30 s windows, 128 and 80
+mels; timed at B=40 and B=2 with 128) and K7 (d=1280, ffn=5120; M=8 and
+M=1, bf16 and f32 x); phase 3 also holds a d=128 dh=64 int8 decoder with the
 three decode knobs on against the same model on the CPU (f32: greedy
 tokens equal; bf16: prefill and step logits within a tolerance), and the
 d=128 dh=64 int8 encoder with the three encoder knobs on (bf16 and f32),
@@ -95,6 +104,9 @@ import time
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# f32 on FFMA outside the tensor cores, and TF32 on them (K14)
+PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 # K1 is held to one bf16 step of its plain version, elementwise:
 # |kernel - plain| <= atol + rtol * |plain| (tests/test_torch_kernels.py
@@ -134,6 +146,19 @@ STEM_TOL = 3e-2
 # the encoder's opt-in kernel knobs of this slice, set around their paths
 SLICE_KNOBS = ("NWT_INT8_QKV", "NWT_MLP_CHUNKED", "NWT_STEM_FUSED")
 KNOB_KERNELS = ("K8", "K10", "K11", "K13")
+# K14 sums its f32 DFT on FFMA in another order than its plain version's
+# f32 matmuls (TF32 off): the normalized log-mel is held to 1e-4, the bound
+# tests/test_mel_pallas.py holds the Pallas kernel to, and the
+# un-normalized log10 to the same bound in its units (4e-4) where it lies
+# above each sample's max - 8 (below it the log10 of near-zero bins depends
+# on the summation order; the clamp hides them)
+K14_TOL = 1e-4
+# the two ops that no serving or transcribe path takes (the reference's
+# decoder does not call K7; K14 is a drop-in for log_mel_spectrogram)
+OP_KERNELS = ("K7", "K14")
+# K7 and K14 launches read on the serving, transcribe and reference paths
+# (must stay 0; see read_counts)
+PATH_OP_LAUNCHES = []
 
 
 def log(*a):
@@ -333,6 +358,8 @@ def phase_kernels():
     out.update(knob_kernel_checks())
     torch.cuda.empty_cache()
     out.update(variant_kernel_checks())
+    torch.cuda.empty_cache()
+    out.update(op_kernel_checks())
     torch.cuda.empty_cache()
     return out
 
@@ -877,6 +904,204 @@ def decode_kernel_checks():
     return out
 
 
+# ---------------------------------------------------------------------------
+# K14 and K7: ops that no serving path takes, checked and timed directly
+# ---------------------------------------------------------------------------
+
+def mel_pcm(b, seed=50):
+    """(b, 480000) f32 PCM on the card: window i holds 5-29 s of
+    speech-like bursts (seed + i), every third one over a tone, then zeros
+    to 30 s."""
+    import numpy as np
+    import torch
+    from nobs_whisper_torch.core.config import N_SAMPLES
+    from nobs_whisper_torch.utils.testing import sine_audio, speech_like_audio
+    out = np.zeros((b, N_SAMPLES), np.float32)
+    for i in range(b):
+        dur = 5.0 + (7 * i) % 25
+        a = speech_like_audio(dur, seed=seed + i)
+        if i % 3 == 0:
+            a = a + sine_audio(dur, freq=220.0 + 40.0 * i)
+        out[i, :a.size] = a
+    return torch.from_numpy(out).cuda()
+
+
+def k14_check(b, n_mels, timed=True):
+    """K14 on b 30 s windows against its plain version (the raw log10
+    above each sample's max - 8) and ``log_mel_spectrogram_pallas`` against
+    the port's ``log_mel_spectrogram`` (normalized). Yardsticks the port
+    never calls: openai-whisper's formula in f32 with TF32 off
+    (``torch.stft`` with a periodic hann window, centred, reflect-padded;
+    ``|.|^2`` without the last frame; the filterbank matmul; log10), an
+    FFT that does less arithmetic than the DFT; and the port's
+    ``log_mel_spectrogram`` (cuBLAS SGEMM)."""
+    import torch
+    from nobs_whisper_torch.audio.mel import (log_mel_spectrogram,
+                                              mel_filter_bank)
+    from nobs_whisper_torch.ops import mel_pallas as mp
+    dev = torch.device("cuda")
+    audio = mel_pcm(b)
+    got = mp.log10_mel_pallas(audio, n_mels)
+    torch.cuda.synchronize()
+    ref = mp.log10_mel_pallas_plain(audio, n_mels)
+    n_frames = ref.shape[1]
+    keep = ref > torch.amax(ref, dim=(1, 2), keepdim=True) - 8.0
+    raw_err = (got - ref).abs()[keep].max().item()
+    finite = bool(torch.isfinite(got).all())
+    norm = mp.log_mel_spectrogram_pallas(audio, n_mels)
+    want = log_mel_spectrogram(audio, n_mels)
+    norm_err = (norm - want).abs().max().item()
+    ok = (finite and raw_err <= 4 * K14_TOL and norm_err <= K14_TOL
+          and tuple(norm.shape) == (b, n_mels, n_frames))
+    flops = 2.0 * b * n_frames * (2 * 400 * 201 + 201 * n_mels)
+    # PCM in and mel out, and the bases and filterbank once
+    nbytes = (b * (audio.shape[1] + n_frames * n_mels) * 4
+              + (2 * 400 * 201 + 201 * n_mels) * 4)
+    tb, to = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+    bound, by = max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+    line = (f"[kernel] K14 log10_mel_pallas B={b} 30 s windows n_mels="
+            f"{n_mels}: raw max_abs_err above max - 8 {raw_err:.3e} (tol "
+            f"{4 * K14_TOL}), normalized against log_mel_spectrogram "
+            f"{norm_err:.3e} (tol {K14_TOL}), finite {finite} -> "
+            f"{'PASS' if ok else 'FAIL'}")
+    e = dict(name="log10_mel_pallas", route="cuda",
+             source="nobs_whisper_torch/csrc/mel.cu",
+             replaces="nobs_whisper_tpu/ops/mel_pallas.py:116",
+             max_abs_err=raw_err, ms=None, plain_ms=None, bound_ms=bound,
+             bound_by=by, library_ms=None, ok=ok)
+    if timed:
+        win = torch.hann_window(400, periodic=True, device=dev)
+        melT = torch.from_numpy(mel_filter_bank(n_mels)).to(dev)
+
+        def stft_mel():
+            st = torch.stft(audio, 400, 160, window=win, center=True,
+                            pad_mode="reflect", return_complex=True)
+            p = st[..., :-1].abs() ** 2
+            return torch.log10(torch.clamp(melT @ p, min=1e-10))
+
+        e["ms"] = cuda_ms(lambda: mp.log10_mel_pallas(audio, n_mels),
+                          reps=10)
+        e["plain_ms"] = cuda_ms(lambda: mp.log10_mel_pallas_plain(
+            audio, n_mels), reps=5, warmup=1)
+        e["library_ms"] = cuda_ms(stft_mel, reps=10)
+        port_ms = cuda_ms(lambda: log_mel_spectrogram(audio, n_mels), reps=5,
+                          warmup=1)
+        line += (f"; kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+                 f"bound {bound:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP at the"
+                 f" f32 FFMA peak; 3xTF32 would be "
+                 f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} ms), torch.stft "
+                 f"formula {e['library_ms']:.4f} ms, the port's "
+                 f"log_mel_spectrogram (cuBLAS SGEMM) {port_ms:.4f} ms")
+    log(line)
+    return e
+
+
+def graph_ms(fn, reps=50):
+    """Device time of one call of ``fn``: captured once in a CUDA graph
+    and replayed ``reps`` times between CUDA events, so that the host's
+    per-call work (Python, the ctypes call) does not pace the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps=reps, warmup=2)
+
+
+K7_SETS = 8   # weight sets a timed call cycles through: 105 MB of int8 > L2
+
+
+def k7_check(m, x_dtype, d=1280, ffn=5120, seed=60):
+    """K7 at turbo's decoder MLP against its plain version. K7 rounds the
+    same bf16 operands at the same points in another f32 summation order,
+    which can flip a bf16 element of the gelu output: bf16 x is held to one
+    bf16 step elementwise (K1_STEP), f32 x to K6's 1e-3 absolute plus 1e-3
+    relative. Times are device times (``graph_ms``) per call, each call on
+    the next of ``K7_SETS`` weight sets so that the weights come from
+    device memory, as in a decode step, not from L2. The yardstick:
+    ``F.layer_norm``, ``torch.matmul`` on the weights dequantized to bf16
+    beforehand (twice K7's weight bytes read), tanh ``F.gelu``,
+    ``torch.matmul`` and the adds."""
+    import torch
+    import torch.nn.functional as F
+    from nobs_whisper_torch.ops import fused_mlp as fm
+    from nobs_whisper_torch.ops.quant import quantize_int8
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + m)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    x = rn(m, d).to(x_dtype)
+    ln_g, ln_b = 1.0 + 0.1 * rn(d), 0.1 * rn(d)
+    sets = [(quantize_int8(rn(d, ffn) * d ** -0.5), 0.1 * rn(ffn),
+             quantize_int8(rn(ffn, d) * ffn ** -0.5), 0.1 * rn(d))
+            for _ in range(K7_SETS)]
+    args = (x, ln_g, ln_b, *sets[0])
+    got = fm.fused_mlp_q8(*args)
+    torch.cuda.synchronize()
+    ref = fm.fused_mlp_q8_plain(*args)
+    diff = (got.float() - ref.float()).abs()
+    err = diff.max().item()
+    tol = K1_STEP if x_dtype == torch.bfloat16 else K6_TOL
+    steps = (diff / (tol["atol"] + tol["rtol"] * ref.float().abs())
+             ).max().item()
+    finite = bool(torch.isfinite(got.float()).all())
+    ok = finite and steps <= 1.0 and got.dtype == x_dtype
+    each = lambda f: lambda: [f(x, ln_g, ln_b, *w) for w in sets]
+    ms = graph_ms(each(fm.fused_mlp_q8)) / K7_SETS
+    plain_ms = graph_ms(each(fm.fused_mlp_q8_plain), reps=10) / K7_SETS
+    eager_ms = cuda_ms(each(fm.fused_mlp_q8), reps=10) / K7_SETS
+    deq = [(w1["q"].to(torch.bfloat16) * w1["s"].to(torch.bfloat16), b1,
+            w2["q"].to(torch.bfloat16) * w2["s"].to(torch.bfloat16), b2)
+           for w1, b1, w2, b2 in sets]
+
+    def lib():
+        for w1b, b1, w2b, b2 in deq:
+            h = F.layer_norm(x.float(), (d,), ln_g, ln_b).to(torch.bfloat16)
+            a = F.gelu(torch.matmul(h, w1b).float() + b1,
+                       approximate="tanh").to(torch.bfloat16)
+            (x.float() + torch.matmul(a, w2b).float() + b2).to(x.dtype)
+
+    lib_ms = graph_ms(lib) / K7_SETS
+    es = x.element_size()
+    nbytes = (2 * d * ffn + 2 * (ffn + d) * 4 + 2 * d * 4
+              + 2 * m * d * es)
+    bound, by = _bound(nbytes, 2 * 2.0 * m * d * ffn)
+    log(f"[kernel] K7 fused_mlp_q8 M={m} d={d} ffn={ffn} x {x_dtype}: "
+        f"max_abs_err {err:.3e}, max |kernel - plain| / (atol + rtol "
+        f"|plain|) {steps:.3f} (<= 1, {tol}) finite {finite} -> "
+        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms (device, CUDA "
+        f"graph; one eager call back to back {eager_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.2f} MB), LN + matmuls on bf16-dequantized weights "
+        f"{lib_ms:.4f} ms")
+    return dict(name="fused_mlp_q8", route="cuda",
+                source="nobs_whisper_torch/csrc/fused_mlp_q8.cu",
+                replaces="nobs_whisper_tpu/ops/fused_mlp.py:63",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, ok=ok)
+
+
+def op_kernel_checks():
+    """K14 at B=40 30 s windows and 128 mels (the reference bench's
+    ``--batch 40`` at turbo's mels; the line's numbers), checked also at
+    B=2 with 128 and 80 mels and at B=40 with 80; K7 at turbo's decoder
+    MLP with M=8 and bf16 x (the line's), M=1 bf16 and M=1, 8 f32."""
+    import torch
+    out = {"K14": k14_check(40, 128)}
+    for b, n_mels, timed in ((2, 128, True), (2, 80, False), (40, 80, False)):
+        _join(out, "K14", k14_check(b, n_mels, timed))
+        torch.cuda.empty_cache()
+    out["K7"] = k7_check(8, torch.bfloat16)
+    for m, xd in ((1, torch.bfloat16), (1, torch.float32),
+                  (8, torch.float32)):
+        _join(out, "K7", k7_check(m, xd))
+    return out
+
+
 def attention_kernel_check(key, name, replaces, b, h, t, dh, n_real):
     """K3 (flat (B, T, H dh)) or K9 ((B, H, T, dh)) against its plain
     version on random bf16 q/k/v; the library yardstick is SDPA on the
@@ -1370,6 +1595,7 @@ def reset_counts():
     from nobs_whisper_torch.ops import fused_layer as fl
     from nobs_whisper_torch.ops import fused_mlp as fm
     from nobs_whisper_torch.ops import fused_qkv as fq
+    from nobs_whisper_torch.ops import mel_pallas as mp
     from nobs_whisper_torch.ops import quant as qt
     ea.launch_count = ea.k3_launch_count = ea.k9_launch_count = 0
     fm.launch_count = fm.launch_count_f32 = 0
@@ -1381,6 +1607,7 @@ def reset_counts():
     ea.variant_launch_count.clear()
     fl.launch_count = 0
     fl.variant_launch_count.clear()
+    fm.k7_launch_count = mp.k14_launch_count = 0
     mw.encode_count = 0
     mw.decoder_forward_calls.clear()
 
@@ -1389,7 +1616,8 @@ def read_counts():
     """Launches of each kernel since :func:`reset_counts`; "K2", "K8",
     "K10" and "K11" count both activation types, "*-f32" the f32 ones;
     "K1" and "K3" their default variants, the others by variant name
-    ("K1-o", "K3-i8s-i8pv", "K12", ...)."""
+    ("K1-o", "K3-i8s-i8pv", "K12", ...). Each read's K7 and K14 counts
+    also go to ``PATH_OP_LAUNCHES``."""
     from nobs_whisper_torch.models import whisper as mw
     from nobs_whisper_torch.ops import attention_pallas as ap
     from nobs_whisper_torch.ops import conv_stem as cs
@@ -1397,7 +1625,9 @@ def read_counts():
     from nobs_whisper_torch.ops import fused_layer as fl
     from nobs_whisper_torch.ops import fused_mlp as fm
     from nobs_whisper_torch.ops import fused_qkv as fq
+    from nobs_whisper_torch.ops import mel_pallas as mp
     from nobs_whisper_torch.ops import quant as qt
+    PATH_OP_LAUNCHES.append(fm.k7_launch_count + mp.k14_launch_count)
     return {"K1": ea.launch_count, "K3": ea.k3_launch_count,
             "K9": ea.k9_launch_count, "K2": fm.launch_count,
             "K2-f32": fm.launch_count_f32, "K8": fm.k8_launch_count,
@@ -1409,14 +1639,17 @@ def read_counts():
             **{n: ea.variant_launch_count[n] + fl.variant_launch_count[n]
                for n in variant_names()},
             "K12": fl.launch_count,
+            "K7": fm.k7_launch_count, "K14": mp.k14_launch_count,
             "batches": mw.encode_count,
             "forwards": dict(mw.decoder_forward_calls)}
 
 
 def no_knob_kernels(c):
     """With no encoder knob set, K8, K10, K11, K13, K12 and the variants
-    of K1 and K3 never launch."""
-    return not any(c[k] for k in KNOB_KERNELS + tuple(variant_names()))
+    of K1 and K3 never launch; K7 and K14 launch on no serving or
+    transcribe path."""
+    return not any(c[k] for k in KNOB_KERNELS + tuple(variant_names())
+                   + OP_KERNELS)
 
 
 def _launch_summary(c):
@@ -1715,10 +1948,11 @@ ENCODER_KERNELS = ("K1", "K2", "K2-f32", "K3", "K8", "K9", "K10", "K11",
 
 
 def only(c, want):
-    """Every encoder kernel (and K4-K6) launched as ``want`` says, the
-    others not at all."""
+    """Every encoder kernel (and K4-K7, K14) launched as ``want`` says,
+    the others not at all."""
     return all(c[k] == want.get(k, 0)
-               for k in ENCODER_KERNELS + ("K12",) + tuple(variant_names()))
+               for k in ENCODER_KERNELS + ("K12",) + tuple(variant_names())
+               + OP_KERNELS)
 
 
 def phase_attention_variants(card, qeng, eng):
@@ -1866,6 +2100,97 @@ def reference_variants(dev, cfg, mel, to_dev):
     return ok
 
 
+def phase_ops(card, qeng):
+    """The raw-PCM path and the two ops that no serving path takes, each
+    driven through the entry point a caller uses, with the counts set to 0
+    just before and read just after:
+
+    (a) ``log_mel_spectrogram`` on one 30 s window on the card, against
+        ``log_mel_numpy_f64`` on the host with the reference's bounds
+        (tests/test_mel.py:48-57: mean < 2e-4, max < 0.03); it runs plain
+        torch ops, so no kernel launches (K14 = 0);
+    (b) ``log_mel_spectrogram_pallas`` on the serving wave 1's five
+        requests, each padded to a 30 s window: K14 once, no other kernel,
+        within 1e-4 of ``log_mel_spectrogram``;
+    (c) one decode step's MLPs through ``fused_mlp_q8``: eight rows of
+        hidden states through each decoder layer's int8 MLP of the turbo
+        engine (``qeng``): K7 once a layer, each within its tolerance of
+        the plain version."""
+    import numpy as np
+    import torch
+    from nobs_whisper_torch.audio.mel import (log_mel_numpy_f64,
+                                              log_mel_spectrogram, pad_or_trim)
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops import fused_mlp as fm
+    from nobs_whisper_torch.ops import mel_pallas as mp
+    cfg = qeng.cfg
+    launches = {}
+    wave1, _ = _request_audio()
+
+    # (a) the raw-PCM path against the f64 oracle
+    host = np.asarray(pad_or_trim(torch.from_numpy(wave1[2][1])))
+    reset_counts()
+    mel = log_mel_spectrogram(torch.from_numpy(host).cuda(), cfg.n_mels)
+    torch.cuda.synchronize()
+    c = read_counts()
+    err = np.abs(mel.cpu().numpy() - log_mel_numpy_f64(host, cfg.n_mels))
+    a_ok = (mel.device.type == "cuda" and tuple(mel.shape) == (
+        cfg.n_mels, 3000) and err.mean() < 2e-4 and err.max() < 0.03
+        and only(c, {}))
+    log(f"[ops] {card}: log_mel_spectrogram of one 30 s window "
+        f"({wave1[2][0]}) on the card against log_mel_numpy_f64: mean "
+        f"{err.mean():.3e} (< 2e-4), max {err.max():.3e} (< 0.03); "
+        f"launches {_launch_summary(c)} (want none) -> "
+        f"{'PASS' if a_ok else 'FAIL'}")
+
+    # (b) K14 on the serving requests' windows
+    audio = torch.from_numpy(np.stack([
+        np.asarray(pad_or_trim(torch.from_numpy(a))) for _, a, _ in wave1
+    ])).cuda()
+    reset_counts()
+    got = mp.log_mel_spectrogram_pallas(audio, cfg.n_mels)
+    torch.cuda.synchronize()
+    c = read_counts()
+    err = (got - log_mel_spectrogram(audio, cfg.n_mels)).abs().max().item()
+    b_ok = (only(c, {"K14": 1}) and err <= K14_TOL
+            and tuple(got.shape) == (len(wave1), cfg.n_mels, 3000))
+    log(f"[ops] {card}: log_mel_spectrogram_pallas of wave 1's "
+        f"{len(wave1)} requests as 30 s windows: launches "
+        f"{_launch_summary(c)} (want K14 = 1), max |K14 - "
+        f"log_mel_spectrogram| {err:.3e} (<= {K14_TOL}) -> "
+        f"{'PASS' if b_ok else 'FAIL'}")
+    launches["K14"] = c["K14"]
+
+    # (c) K7 on each decoder layer's int8 MLP, one decode step of 8 rows
+    g = torch.Generator(device="cuda").manual_seed(61)
+    x = torch.randn(8, cfg.n_text_state, generator=g, device="cuda").to(
+        torch.bfloat16)
+    reset_counts()
+    outs = []
+    for layer in range(cfg.n_text_layer):
+        p = mw._layer(qeng.params["decoder"]["blocks"], layer)
+        outs.append((p, fm.fused_mlp_q8(x, p["ln2_g"], p["ln2_b"],
+                                        p["fc1_w"], p["fc1_b"], p["fc2_w"],
+                                        p["fc2_b"])))
+    torch.cuda.synchronize()
+    c = read_counts()
+    steps = 0.0
+    for p, got in outs:
+        ref = fm.fused_mlp_q8_plain(x, p["ln2_g"], p["ln2_b"], p["fc1_w"],
+                                    p["fc1_b"], p["fc2_w"], p["fc2_b"])
+        steps = max(steps, ((got.float() - ref.float()).abs() / (
+            K1_STEP["atol"] + K1_STEP["rtol"] * ref.float().abs())
+        ).max().item())
+    c_ok = only(c, {"K7": cfg.n_text_layer}) and steps <= 1.0
+    log(f"[ops] {card}: fused_mlp_q8 on the {cfg.n_text_layer} int8 "
+        f"decoder MLPs of the turbo engine, 8 rows bf16: launches "
+        f"{_launch_summary(c)} (want K7 = {cfg.n_text_layer}), max |kernel "
+        f"- plain| / (atol + rtol |plain|) {steps:.3f} (<= 1, {K1_STEP}) -> "
+        f"{'PASS' if c_ok else 'FAIL'}")
+    launches["K7"] = c["K7"]
+    return a_ok and b_ok and c_ok, launches
+
+
 def phase_cli(card):
     """``python -m nobs_whisper_torch.cli transcribe`` in a subprocess on
     the card (default device and dtype: cuda, bf16), on a dh=64 tiny GGML
@@ -1946,6 +2271,16 @@ def main():
         for key, n in counts.items():     # K9 runs on two phases' paths
             launches[key] = launches.get(key, 0) + n
         took(name)
+    paths_ok = sum(PATH_OP_LAUNCHES) == 0
+    log(f"[ops] {card}: K7 and K14 over the {len(PATH_OP_LAUNCHES)} launch "
+        f"reads of the reference, serving, transcribe, decode-kernel, "
+        f"encoder-knob and variant paths: {sum(PATH_OP_LAUNCHES)} launches "
+        f"(want 0) -> {'PASS' if paths_ok else 'FAIL'}")
+    ok &= paths_ok
+    phase_ok, counts = phase_ops(card, qeng)
+    ok &= phase_ok
+    launches.update(counts)
+    took("ops")
     entries = []
     for key, e in kern.items():
         e = dict(e)

@@ -30,6 +30,27 @@ class NoModelError(RuntimeError):
     """Raised when transcribe is called before a model is loaded."""
 
 
+def _load_alignment_heads_sidecar(model_path: str):
+    """GGML files carry no DTW head metadata (whisper.cpp selects a
+    built-in preset by model type); read an optional JSON sidecar
+    ``<model>.alignment_heads.json`` — a [[layer, head], ...] list —
+    written by the user or a conversion tool."""
+    import json
+    import os
+
+    sidecar = os.path.splitext(model_path)[0] + ".alignment_heads.json"
+    if not os.path.exists(sidecar):
+        return None
+    try:
+        with open(sidecar) as f:
+            raw = json.load(f)
+        return [(int(l), int(h)) for l, h in raw]
+    except (ValueError, TypeError, OSError) as e:
+        log.warning("ignoring bad alignment-heads sidecar %s: %s",
+                    sidecar, e)
+        return None
+
+
 @dataclasses.dataclass
 class WhisperEngine:
     params: Optional[Any] = None
@@ -38,8 +59,9 @@ class WhisperEngine:
     compute_dtype: Any = torch.float32
     model_path: Optional[str] = None
     # tuned (layer, head) word-timestamp alignment heads from checkpoint
-    # metadata (HF generation_config.json); carried for the word-timing
-    # slice (ROADMAP.md queue 1, item 10)
+    # metadata (HF generation_config.json, or a ``<model>.alignment_heads
+    # .json`` sidecar next to a GGML file); None = heuristic fallback.
+    # Carried for the word-timing slice (ROADMAP.md queue 1, item 10)
     alignment_heads: Optional[List[tuple]] = None
     # the card unless the caller asks for the CPU (resolve_device raises
     # when there is no card)
@@ -64,7 +86,8 @@ class WhisperEngine:
         log.info("loaded GGML model %s in %.2fs", path,
                  time.perf_counter() - t0)
         return cls(params=params, cfg=ckpt.config, tokenizer=tokenizer,
-                   compute_dtype=dtype, model_path=path, device=dev)
+                   compute_dtype=dtype, model_path=path, device=dev,
+                   alignment_heads=_load_alignment_heads_sidecar(path))
 
     @classmethod
     def from_hf_dir(cls, path: str, dtype=torch.bfloat16,

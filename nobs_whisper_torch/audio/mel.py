@@ -1,10 +1,16 @@
 """Log-mel spectrogram front-end (PyTorch port of ``audio/mel.py``).
 
 16 kHz PCM -> STFT (400-pt hann, hop 160) -> 80/128-bin slaney mel ->
-log10 -> dynamic-range clamp -> (x+4)/4, whisper semantics. The DFT is two
-float32 matmuls against window-folded cos/sin bases, as in the reference
-(where XLA runs them at ``HIGHEST`` precision): TF32 must be off, which
-``core/device.py::disable_tf32`` sets.
+log10 -> dynamic-range clamp -> (x+4)/4, whisper semantics:
+:func:`log_mel_spectrogram` on raw PCM, :func:`log_mel_longform` on long
+audio, and the framed serving path (:func:`frame_window_np` +
+:func:`log_mel_from_frames`). The DFT is two float32 matmuls against
+window-folded cos/sin bases, as in the reference (where XLA runs them at
+``HIGHEST`` precision): TF32 must be off, which
+``core/device.py::disable_tf32`` sets. :func:`log_mel_numpy_f64` is the
+float64 oracle. K14, the hand-written CUDA variant of the raw-PCM path on
+30 s windows, lives in ``ops/mel_pallas.py`` and must match this to float
+tolerance.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.config import HOP_LENGTH, N_FFT, N_FRAMES, N_SAMPLES
+from ..core.device import disable_tf32
 
 
 def hz_to_mel_slaney(freq: np.ndarray) -> np.ndarray:
@@ -77,14 +84,85 @@ def _dft_bases_np(n_fft: int = N_FFT):
     return cos_b, sin_b
 
 
+@functools.lru_cache(maxsize=8)
+def _tables(n_mels: int, device: torch.device):
+    """The cos/sin bases (n_fft, n_freqs) and the (n_mels, n_freqs)
+    filterbank as f32 tensors on ``device``, copied there once."""
+    cos_np, sin_np = _dft_bases_np()
+    return tuple(torch.from_numpy(t).to(device)
+                 for t in (cos_np, sin_np, mel_filter_bank(n_mels)))
+
+
+def frame_signal(audio: torch.Tensor) -> torch.Tensor:
+    """Center-padded (reflect) strided framing: (..., T) -> (..., n_frames,
+    n_fft), n_frames = T // hop (the trailing STFT frame is dropped).
+    Frame i is rows i, i+1 and the first half of row i+2 of the (n+2, 160)
+    reshape. T must exceed the 200-sample reflect pad."""
+    pad = N_FFT // 2
+    lead, t = audio.shape[:-1], audio.shape[-1]
+    padded = torch.nn.functional.pad(audio.reshape(-1, 1, t), (pad, pad),
+                                     mode="reflect").reshape(*lead, -1)
+    n_frames = t // HOP_LENGTH
+    need = (n_frames + 2) * HOP_LENGTH
+    padded = torch.nn.functional.pad(
+        padded, (0, max(need - padded.shape[-1], 0)))
+    rows = padded[..., :need].reshape(*lead, n_frames + 2, HOP_LENGTH)
+    return torch.cat([rows[..., :n_frames, :], rows[..., 1: n_frames + 1, :],
+                      rows[..., 2: n_frames + 2, : N_FFT - 2 * HOP_LENGTH]],
+                     dim=-1)
+
+
+def log_mel_spectrogram(audio, n_mels: int = 80) -> torch.Tensor:
+    """16 kHz f32 PCM -> (n_mels, T//160) log-mel, whisper semantics.
+
+    Accepts (T,) or batched (B, T), a tensor (the result lies on its
+    device) or an array (the CPU). The normalization max is per sample
+    over the full spectrogram. Inputs of at most 200 samples (below one
+    centred STFT window) give the all-zero spectrogram."""
+    audio = torch.as_tensor(audio)
+    if audio.shape[-1] <= N_FFT // 2:
+        shape = audio.shape[:-1] + (n_mels, audio.shape[-1] // HOP_LENGTH)
+        return torch.zeros(shape, dtype=torch.float32, device=audio.device)
+    return _log_mel_single(audio, n_mels)
+
+
+def _log_mel_single(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """The reference's per-sample pipeline; a leading batch axis runs as
+    one batched matmul, with the clamp's max taken per sample."""
+    disable_tf32()
+    cos_b, sin_b, mel_f = _tables(n_mels, audio.device)
+    frames = frame_signal(audio.to(torch.float32))
+    re = frames @ cos_b
+    im = frames @ sin_b
+    power = re * re + im * im
+    log_spec = torch.log10(torch.clamp(power @ mel_f.T, min=1e-10))
+    mx = torch.amax(log_spec, dim=(-2, -1), keepdim=True)
+    log_spec = torch.maximum(log_spec, mx - 8.0)
+    return ((log_spec + 4.0) / 4.0).transpose(-1, -2)   # (..., n_mels, n)
+
+
+def log_mel_numpy_f64(audio: np.ndarray, n_mels: int = 80) -> np.ndarray:
+    """float64 NumPy mirror of the pipeline — the algorithmic oracle
+    (transformers' WhisperFeatureExtractor to ~1e-6); the f32 paths
+    deviate from it only by float noise in near-zero spectral bins."""
+    audio = np.asarray(audio, dtype=np.float64)
+    pad = N_FFT // 2
+    padded = np.pad(audio, (pad, pad), mode="reflect")
+    n_frames = audio.shape[0] // HOP_LENGTH
+    idx = (np.arange(n_frames)[:, None] * HOP_LENGTH +
+           np.arange(N_FFT)[None, :])
+    window = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(N_FFT) / N_FFT))
+    power = np.abs(np.fft.rfft(padded[idx] * window, axis=1)) ** 2
+    mel = power @ mel_filter_bank(n_mels).T.astype(np.float64)
+    log_spec = np.log10(np.maximum(mel, 1e-10))
+    log_spec = np.maximum(log_spec, log_spec.max() - 8.0)
+    return (((log_spec + 4.0) / 4.0).T).astype(np.float32)
+
+
 def _log10_mel_windows(frames: torch.Tensor, n_mels: int) -> torch.Tensor:
     """(W, n_frames, n_fft) f32 framed windows -> un-normalized log10 mel
     (W, n_mels, n_frames). The clamp happens outside."""
-    dev = frames.device
-    cos_np, sin_np = _dft_bases_np()
-    cos_b = torch.from_numpy(cos_np).to(dev)
-    sin_b = torch.from_numpy(sin_np).to(dev)
-    mel_f = torch.from_numpy(mel_filter_bank(n_mels)).to(dev)
+    cos_b, sin_b, mel_f = _tables(n_mels, frames.device)
     frames = frames.to(torch.float32)
     re = frames @ cos_b
     im = frames @ sin_b

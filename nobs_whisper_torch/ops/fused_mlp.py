@@ -1,5 +1,4 @@
-"""K2 and K8: fused LN + int8 fc1 + tanh gelu + requant + int8 fc2 +
-residual.
+"""K2, K8 and K7: fused LN + int8 fc1 + tanh gelu + int8 fc2 + residual.
 
 Ports of ``ops/fused_mlp.py``'s two encoder MLP kernels (whisper.py:528-554):
 
@@ -20,6 +19,13 @@ its ``*_plain`` version for a CPU tensor. ``launch_count`` (K2) and
 bf16, and f32 for the int8 encoder at f32 compute (the reference's gates
 test no dtype); ``launch_count_f32`` and ``k8_launch_count_f32`` count the
 f32 launches alone.
+
+K7 :func:`fused_mlp_q8` (``fused_mlp_q8``) is the decoder MLP for a few
+rows with the int8 weights dequantized to bf16 (no requantization of the
+activations). The reference keeps it as an op and its decoder does not
+call it, nor does the port's. Its CUDA entry point is in
+``csrc/fused_mlp_q8.cu``; ``k7_launch_count`` counts its launches, and
+:func:`mlp_reference` is the reference's erf-gelu yardstick for it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ launch_count = 0
 launch_count_f32 = 0
 k8_launch_count = 0
 k8_launch_count_f32 = 0
+k7_launch_count = 0
 
 _ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ENTRY = {("K2", torch.bfloat16): "nwt_encoder_mlp_int8",
@@ -41,6 +48,10 @@ _ENTRY = {("K2", torch.bfloat16): "nwt_encoder_mlp_int8",
           ("K8", torch.bfloat16): "nwt_encoder_mlp_int8_chunked",
           ("K8", torch.float32): "nwt_encoder_mlp_int8_chunked_f32"}
 _SIG = {fn: _ARGS for fn in _ENTRY.values()}
+_K7_ENTRY = {torch.bfloat16: "nwt_fused_mlp_q8",
+             torch.float32: "nwt_fused_mlp_q8_f32"}
+_K7_SIG = {fn: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+           + [ctypes.c_void_p] for fn in _K7_ENTRY.values()}
 
 
 def resolve_block_f(block_f: int, ffn: int) -> int:
@@ -167,3 +178,82 @@ def _launch(key, x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f):
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, _ENTRY[key, x.dtype])
     return out
+
+
+# ---------------------------------------------------------------------------
+# K7: the decoder MLP for small M, bf16-dequantized int8 weights
+# ---------------------------------------------------------------------------
+
+def _bf16_weight(qt) -> torch.Tensor:
+    """w = bf16(bf16(q) * bf16(s)), as f32 (``_fused_mlp_kernel``)."""
+    return (qt["q"].to(torch.bfloat16)
+            * qt["s"].to(torch.bfloat16)).to(torch.float32)
+
+
+def fused_mlp_q8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b
+                       ) -> torch.Tensor:
+    """Plain PyTorch K7 at the Pallas kernel's rounding points: LN in f32;
+    ``bf16(h) @ w1 + b1`` with w1 = bf16(bf16(q1) bf16(s1)), exact
+    products and f32 sums; tanh gelu in f32; ``bf16(a) @ w2 + b2``;
+    ``f32(x) + o`` cast to x's dtype. x: (M, d)."""
+    h = ln_f32(x, ln_g, ln_b)
+    a = (h.to(torch.bfloat16).float() @ _bf16_weight(fc1)
+         + fc1_b.reshape(1, -1).to(torch.float32))
+    a = gelu_tanh(a)
+    o = (a.to(torch.bfloat16).float() @ _bf16_weight(fc2)
+         + fc2_b.reshape(1, -1).to(torch.float32))
+    return (x.to(torch.float32) + o).to(x.dtype)
+
+
+def fused_mlp_q8(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b) -> torch.Tensor:
+    """K7: x + fc2(gelu_tanh(fc1(LN x))) with int8 QTensors ``fc1`` (d,
+    ffn) and ``fc2`` (ffn, d) dequantized to bf16; x (M, d) bf16 or f32,
+    M small (a decode step). Returns x's dtype."""
+    global k7_launch_count
+    m, d = x.shape
+    ffn = fc1["q"].shape[-1]
+    if x.device.type == "cpu":
+        return fused_mlp_q8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in _K7_ENTRY or d % 32 or ffn % 32:
+        raise ValueError(f"K7 takes bf16 or f32 x with d and ffn multiples "
+                         f"of 32; got {x.dtype} d={d} ffn={ffn}")
+    if (fc1["q"].dtype != torch.int8 or fc2["q"].dtype != torch.int8
+            or tuple(fc1["q"].shape) != (d, ffn)
+            or tuple(fc2["q"].shape) != (ffn, d)):
+        raise ValueError("fc1/fc2 must be (d, ffn)/(ffn, d) int8 QTensors")
+    from . import _build
+    lib = _build.load("fused_mlp_q8", _K7_SIG)
+    dev = x.device
+    # every converted tensor stays in a name until the launch has returned
+    f32 = lambda z: z.to(device=dev, dtype=torch.float32).contiguous()
+    x = x.contiguous()
+    w1, w2 = fc1["q"].contiguous(), fc2["q"].contiguous()
+    s1, s2 = f32(fc1["s"]).reshape(ffn), f32(fc2["s"]).reshape(d)
+    g, be, b1, b2 = f32(ln_g), f32(ln_b), f32(fc1_b), f32(fc2_b)
+    act = torch.empty((m, ffn), dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x)
+    ptr = lambda z: ctypes.c_void_p(z.data_ptr())
+    err = getattr(lib, _K7_ENTRY[x.dtype])(
+        ptr(x), ptr(g), ptr(be), ptr(w1), ptr(s1), ptr(b1), ptr(w2),
+        ptr(s2), ptr(b2), ptr(act), ptr(out), m, d, ffn,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, _K7_ENTRY[x.dtype])
+    k7_launch_count += 1
+    return out
+
+
+def mlp_reference(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b) -> torch.Tensor:
+    """The reference's yardstick for K7 (``mlp_reference``): the same
+    MLP with the decoder's LayerNorm and exact erf gelu."""
+    from ..models.whisper import _gelu, _layer_norm
+    from .quant import dequantize_int8
+
+    h = _layer_norm(x, ln_g, ln_b)
+    a = (h.to(torch.bfloat16).float()
+         @ dequantize_int8(fc1, torch.bfloat16).float() + fc1_b.float())
+    a = _gelu(a)
+    o = (a.to(torch.bfloat16).float()
+         @ dequantize_int8(fc2, torch.bfloat16).float() + fc2_b.float())
+    return (x.to(torch.float32) + o).to(x.dtype)

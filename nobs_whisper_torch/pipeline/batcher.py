@@ -10,8 +10,10 @@ are not padded to a power of two and frame rows are padded only to the
 longest row of the batch (there is no compile cache to bound), and a batch
 runs to completion before the next is collected (the decode loop syncs
 with the card for its early exit, so there is no asynchronous dispatch to
-overlap). Greedy and temperature sampling only; no mesh, no speculative
-decoding, no beam strategy in this slice.
+overlap). For the same reason the batch watchdog runs the whole batch,
+not only its finalize step, in the sacrificial thread. Greedy and
+temperature sampling only; no mesh, no speculative decoding, no beam
+strategy in this slice.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ class WindowBatcher:
     def __init__(self, params, cfg: WhisperConfig, tokenizer=None,
                  opts: Optional[DecodeOptions] = None, max_batch: int = 8,
                  max_wait_ms: float = 5.0, compute_dtype=torch.float32,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0,
+                 batch_deadline_s: Optional[float] = None):
         self.opts = opts or DecodeOptions()
         check_supported(self.opts)
         self.params = params
@@ -72,6 +75,13 @@ class WindowBatcher:
         self.compute_dtype = compute_dtype
         # temperature > 0 rows sample from this generator (one per batcher)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # watchdog deadline for one batch: at it the batch's futures fail
+        # and the batcher goes on serving (the reference's default)
+        if batch_deadline_s is None:
+            batch_deadline_s = float(
+                os.environ.get("NWT_BATCH_DEADLINE_S", 900.0))
+        self.batch_deadline_s = batch_deadline_s
+        self.watchdog_trips = 0             # observability
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._running = True
         self.batch_sizes: List[int] = []    # observability
@@ -133,13 +143,7 @@ class WindowBatcher:
             batch = self._collect()
             if not batch:
                 break
-            try:
-                self._run_batch(batch)
-            except Exception as e:  # fail the whole batch, keep serving
-                log.exception("batch decode failed")
-                for r in batch:
-                    if not r.future.done():
-                        r.future.set_exception(e)
+            self._run_watched(batch)
         while True:
             try:
                 r = self._q.get_nowait()
@@ -147,6 +151,41 @@ class WindowBatcher:
                 break
             if r is not None and not r.future.done():
                 r.future.set_exception(RuntimeError("batcher closed"))
+
+    def _run_watched(self, batch: List[_Request]):
+        """Run one batch in a sacrificial daemon thread under the
+        deadline. A batch that never returns fails its futures with
+        ``TimeoutError`` and is abandoned; an exception fails them with
+        itself. Either way the loop goes on to the next batch."""
+        done = threading.Event()
+        err: List[BaseException] = []
+
+        def run():
+            try:
+                self._run_batch(batch)
+            except BaseException as e:
+                err.append(e)
+            finally:
+                done.set()
+
+        threading.Thread(target=run, daemon=True,
+                         name="nwt-batch-run").start()
+        if not done.wait(self.batch_deadline_s):
+            self.watchdog_trips += 1
+            log.error("batch of %d not finished after %.0fs; failing its "
+                      "futures and continuing", len(batch),
+                      self.batch_deadline_s)
+            e: BaseException = TimeoutError(
+                f"window batch result not ready after "
+                f"{self.batch_deadline_s:.0f}s (wedged device dispatch)")
+        elif err:
+            log.error("batch decode failed", exc_info=err[0])
+            e = err[0]
+        else:
+            return
+        for r in batch:
+            if not r.future.done():
+                r.future.set_exception(e)
 
     def _stack_rows(self, batch: List[_Request]):
         """(frames, mel): one of them a stacked device batch."""

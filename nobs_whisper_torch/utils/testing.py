@@ -209,7 +209,9 @@ class KernelSpies:
              "K13": ("cs", "encoder_stem_fused_plain"),
              "K4": ("ap", "cross_attention_decode_bf16_plain"),
              "K5": ("ap", "cross_attention_decode_q8_plain"),
-             "K6": ("qt", "q8_matmul_plain")}
+             "K6": ("qt", "q8_matmul_plain"),
+             "K7": ("fm", "fused_mlp_q8_plain"),
+             "K14": ("mp", "log10_mel_pallas_plain")}
     VARIANTS = {"K1": _attention_variants("K1", (False, True)),
                 "K3": _attention_variants("K3"),
                 "K12": _attention_variants("K12")}
@@ -223,9 +225,10 @@ class KernelSpies:
         from ..ops import fused_layer as fl
         from ..ops import fused_mlp as fm
         from ..ops import fused_qkv as fq
+        from ..ops import mel_pallas as mp
         from ..ops import quant as qt
         mods = {"ea": ea, "fm": fm, "fq": fq, "cs": cs, "ap": ap, "qt": qt,
-                "fl": fl}
+                "fl": fl, "mp": mp}
         self.calls = dict.fromkeys(kernels, 0)
         keys = {k.split("-")[0] for k in kernels}
         for key in keys:

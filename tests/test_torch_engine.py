@@ -125,6 +125,28 @@ def test_from_hf_dir_matches_reference(tmp_path):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("sidecar,want", [
+    (None, None),
+    ("[[1, 0], [1, 2]]", [(1, 0), (1, 2)]),
+    ("{broken", None),
+], ids=["none", "heads", "malformed"])
+def test_from_ggml_alignment_heads_match_reference(tmp_path, sidecar, want):
+    """A GGML checkpoint's ``<model>.alignment_heads.json`` sidecar gives
+    the port's engine the reference engine's heads: none without a
+    sidecar, the listed pairs, and none for a malformed file (ignored,
+    not fatal)."""
+    from nobs_whisper_tpu.api import WhisperEngine as JaxEngine
+    from nobs_whisper_torch.api import WhisperEngine
+    from nobs_whisper_torch.utils.testing import write_tiny_checkpoint
+    path = str(tmp_path / "m.bin")
+    write_tiny_checkpoint(path)
+    if sidecar is not None:
+        (tmp_path / "m.alignment_heads.json").write_text(sidecar)
+    ref = JaxEngine.from_ggml(path, dtype=jnp.float32)
+    eng = WhisperEngine.from_ggml(path, dtype=torch.float32, device="cpu")
+    assert eng.alignment_heads == ref.alignment_heads == want
+
+
 def test_with_audio_ctx_matches_reference(engines):
     """A truncated context (0.64 s windows): 1.5 s of audio runs three
     windows through the first 32 position rows, as in the reference."""

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels K1, K2 (bf16 and f32 activations), K3, K9,
 the decode-step kernels K4, K5 and K6, the encoder knobs' K8, K10,
-K11 (bf16 and f32 activations) and K13, and the last encoder variants (K1
+K11 (bf16 and f32 activations) and K13, the last encoder variants (K1
 with the o projection fused, K12, the int8 scores and PV of K1, K3 and
-K12; tolerances at :data:`VAR_TOL`) against their plain PyTorch versions,
-on the card.
+K12; tolerances at :data:`VAR_TOL`), and the two ops K14 (log-mel) and K7
+(the decoder MLP for a few rows) against their plain PyTorch versions, on
+the card.
 
 Marked ``gpu``; each test asks a fixture whether there is a card and skips
 without one (the CPU suite runs the plain versions in the other
@@ -30,19 +31,29 @@ numerics and its bound of 0.05 (tests/test_fused_qkv.py:37,51). K13 rounds
 the same bf16 operands at the same points in another summation order; a
 flipped bf16 sum before a flat stretch of the gelu is several output
 steps: the JAX tests' 3e-2 (tests/test_conv_stem.py:34-36), padded rows
-exact zeros.
+exact zeros. K14 sums its f32 DFT on FFMA in another order than its
+plain version's f32 matmuls (TF32 off): the normalized output is held to
+1e-4, the bound tests/test_mel_pallas.py holds the Pallas kernel to, and
+the un-normalized log10 to the same bound in its units (4e-4) where it
+lies above each sample's max - 8 (below it the log10 of near-zero bins
+depends on the summation order). K7 rounds the same bf16 operands at the
+same points in another f32 summation order, which can flip a bf16 element
+of the gelu output by one step: bf16 x to one bf16 step elementwise, f32 x
+to 1e-3 absolute plus 1e-3 relative, as K6.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from nobs_whisper_torch.audio.mel import log_mel_spectrogram
 from nobs_whisper_torch.ops import attention_pallas as ap
 from nobs_whisper_torch.ops import conv_stem as cs
 from nobs_whisper_torch.ops import encoder_attention as ea
 from nobs_whisper_torch.ops import fused_layer as fl
 from nobs_whisper_torch.ops import fused_mlp as fm
 from nobs_whisper_torch.ops import fused_qkv as fq
+from nobs_whisper_torch.ops import mel_pallas as mp
 from nobs_whisper_torch.ops import quant as qt
 from nobs_whisper_torch.ops.quant import quantize_int8
 
@@ -702,3 +713,69 @@ def test_k12_kernel_is_fused_o_then_k2(cuda, var, b, h, t, d, f, block_f,
     err = (got.float().reshape(b * t, d) - half.float()).abs()
     err = err.reshape(b, t, d)[:, :n_real].max().item()
     assert err < K2_TOL, err
+
+
+# ---------------------------------------------------------------------------
+# K14 and K7: ops that no serving path takes
+# ---------------------------------------------------------------------------
+
+K14_TOL = 1e-4
+
+
+def _pcm(b, dev, seed):
+    """(B, 480000) 30 s windows: a few seconds of bursts and a tone, then
+    zeros (the clamp matters), made with numpy from a seed."""
+    rng = np.random.RandomState(seed)
+    out = np.zeros((b, 480000), np.float32)
+    for i in range(b):
+        n = 16000 * (3 + 2 * i)
+        out[i, :n] = 0.2 * rng.randn(n) * (rng.rand(n // 8000 + 1)
+                                          .repeat(8000)[:n] > 0.4)
+        out[i, :n] += 0.3 * np.sin(2 * np.pi * (300 + 100 * i)
+                                   * np.arange(n) / 16000)
+    return torch.from_numpy(out).to(dev)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_k14_kernel_matches_plain(cuda, b, n_mels):
+    audio = _pcm(b, cuda, seed=b + n_mels)
+    before = mp.k14_launch_count
+    got = mp.log10_mel_pallas(audio, n_mels)
+    torch.cuda.synchronize()
+    assert mp.k14_launch_count == before + 1
+    ref = mp.log10_mel_pallas_plain(audio, n_mels)
+    assert got.shape == ref.shape == (b, 3000, n_mels)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    keep = ref > torch.amax(ref, dim=(1, 2), keepdim=True) - 8.0
+    assert (got - ref).abs()[keep].max() <= 4 * K14_TOL
+    norm = mp.log_mel_spectrogram_pallas(audio, n_mels)
+    want = log_mel_spectrogram(audio, n_mels)
+    assert norm.shape == want.shape == (b, n_mels, 3000)
+    assert (norm - want).abs().max() <= K14_TOL
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d,ffn", [(1, 128, 512), (2, 128, 512),
+                                     (8, 128, 512), (1, 1280, 5120),
+                                     (2, 1280, 5120), (8, 1280, 5120),
+                                     (11, 256, 1024)])
+def test_k7_kernel_matches_plain(cuda, m, d, ffn, x_dtype):
+    g = torch.Generator(device=cuda).manual_seed(m + d)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    x = rn(m, d).to(x_dtype)
+    ln_g, ln_b = 1.0 + 0.1 * rn(d), 0.1 * rn(d)
+    fc1, fc2 = quantize_int8(rn(d, ffn) * d ** -0.5), quantize_int8(
+        rn(ffn, d) * ffn ** -0.5)
+    b1, b2 = 0.1 * rn(ffn), 0.1 * rn(d)
+    before = fm.k7_launch_count
+    got = fm.fused_mlp_q8(x, ln_g, ln_b, fc1, b1, fc2, b2)
+    torch.cuda.synchronize()
+    assert fm.k7_launch_count == before + 1
+    ref = fm.fused_mlp_q8_plain(x, ln_g, ln_b, fc1, b1, fc2, b2)
+    assert got.shape == (m, d) and got.dtype == x_dtype
+    if x_dtype == torch.bfloat16:
+        _step_close(got, ref)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   **K6_TOL)
