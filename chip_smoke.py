@@ -156,9 +156,6 @@ K14_TOL = 1e-4
 # the two ops that no serving or transcribe path takes (the reference's
 # decoder does not call K7; K14 is a drop-in for log_mel_spectrogram)
 OP_KERNELS = ("K7", "K14")
-# K7 and K14 launches read on the serving, transcribe and reference paths
-# (must stay 0; see read_counts)
-PATH_OP_LAUNCHES = []
 
 
 def log(*a):
@@ -934,7 +931,12 @@ def k14_check(b, n_mels, timed=True):
     (``torch.stft`` with a periodic hann window, centred, reflect-padded;
     ``|.|^2`` without the last frame; the filterbank matmul; log10), an
     FFT that does less arithmetic than the DFT; and the port's
-    ``log_mel_spectrogram`` (cuBLAS SGEMM)."""
+    ``log_mel_spectrogram`` (cuBLAS SGEMM). The bound counts the
+    function's work (an FFT, the filterbank's nonzeros), not the kernel's
+    dense DFT, which the line gives beside it."""
+    import math
+
+    import numpy as np
     import torch
     from nobs_whisper_torch.audio.mel import (log_mel_spectrogram,
                                               mel_filter_bank)
@@ -953,7 +955,13 @@ def k14_check(b, n_mels, timed=True):
     norm_err = (norm - want).abs().max().item()
     ok = (finite and raw_err <= 4 * K14_TOL and norm_err <= K14_TOL
           and tuple(norm.shape) == (b, n_mels, n_frames))
-    flops = 2.0 * b * n_frames * (2 * 400 * 201 + 201 * n_mels)
+    # the function's operations, with a real FFT of the 400 taps (~2.5 N
+    # log2 N) where the kernel runs a dense DFT: the window, the FFT,
+    # |.|^2 and the filterbank's nonzero weights, each frame
+    nnz = int(np.count_nonzero(mel_filter_bank(n_mels)))
+    flops = b * n_frames * (400 + 2.5 * 400 * math.log2(400) + 3 * 201
+                            + 2 * nnz)
+    dense = 2.0 * b * n_frames * (2 * 400 * 201 + 201 * n_mels)
     # PCM in and mel out, and the bases and filterbank once
     nbytes = (b * (audio.shape[1] + n_frames * n_mels) * 4
               + (2 * 400 * 201 + 201 * n_mels) * 4)
@@ -987,9 +995,12 @@ def k14_check(b, n_mels, timed=True):
         port_ms = cuda_ms(lambda: log_mel_spectrogram(audio, n_mels), reps=5,
                           warmup=1)
         line += (f"; kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
-                 f"bound {bound:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP at the"
-                 f" f32 FFMA peak; 3xTF32 would be "
-                 f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} ms), torch.stft "
+                 f"bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+                 f"{flops / 1e9:.3f} GFLOP with an FFT; the kernel's dense "
+                 f"DFT, {dense / 1e9:.2f} GFLOP, would take "
+                 f"{dense / PEAK_F32_FLOPS * 1e3:.4f} ms at the f32 FFMA "
+                 f"peak and {3 * dense / PEAK_TF32_FLOPS * 1e3:.4f} ms as "
+                 f"3xTF32), torch.stft "
                  f"formula {e['library_ms']:.4f} ms, the port's "
                  f"log_mel_spectrogram (cuBLAS SGEMM) {port_ms:.4f} ms")
     log(line)
@@ -1085,6 +1096,33 @@ def k7_check(m, x_dtype, d=1280, ffn=5120, seed=60):
                 bound_by=by, library_ms=lib_ms, ok=ok)
 
 
+def k7_rows_ms(d=1280, ffn=5120, seed=60):
+    """K7's device time (``graph_ms``, over the ``K7_SETS`` weight sets)
+    at M = 1-8 bf16 rows. The kernel picks a tile of 1, 2, 4 or 8 rows by
+    M, and the rows of a tile beyond M are zeros that run the same FFMA as
+    real ones, so M = 3 runs the 4-row tile and M = 5-7 the 8-row tile:
+    equal times within a tile and steps between tiles say what each
+    smaller tile saves."""
+    import torch
+    from nobs_whisper_torch.ops import fused_mlp as fm
+    from nobs_whisper_torch.ops.quant import quantize_int8
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    ln_g, ln_b = 1.0 + 0.1 * rn(d), 0.1 * rn(d)
+    sets = [(quantize_int8(rn(d, ffn) * d ** -0.5), 0.1 * rn(ffn),
+             quantize_int8(rn(ffn, d) * ffn ** -0.5), 0.1 * rn(d))
+            for _ in range(K7_SETS)]
+    times = {}
+    for m in range(1, 9):
+        x = rn(m, d).to(torch.bfloat16)
+        times[m] = graph_ms(lambda: [fm.fused_mlp_q8(x, ln_g, ln_b, *w)
+                                     for w in sets]) / K7_SETS
+    log("[kernel] K7 by rows (bf16 x, d 1280, ffn 5120; tile rows 1, 2, 4, "
+        "4, 8, 8, 8, 8): " + ", ".join(f"M={m} {t:.4f} ms"
+                                       for m, t in times.items()))
+
+
 def op_kernel_checks():
     """K14 at B=40 30 s windows and 128 mels (the reference bench's
     ``--batch 40`` at turbo's mels; the line's numbers), checked also at
@@ -1099,6 +1137,7 @@ def op_kernel_checks():
     for m, xd in ((1, torch.bfloat16), (1, torch.float32),
                   (8, torch.float32)):
         _join(out, "K7", k7_check(m, xd))
+    k7_rows_ms()
     return out
 
 
@@ -1301,7 +1340,7 @@ def reference_knob_slice(dev, cfg, mel, to_dev):
             want = {"K10-f32": n, "K11-f32": n, "K8-f32": n, "K13": 0,
                     "K9": 0}
         through = all(c[k] == v for k, v in want.items()) and \
-            c["K1"] == c["K2"] == c["K3"] == 0
+            c["K1"] == c["K2"] == c["K3"] == 0 and no_op_kernels(c)
         ref = mw.encode(qp, mel, cfg, compute_dtype=dt)
         err = (got.float().cpu() - ref.float()).abs().max().item()
         this = through and bool(torch.isfinite(got.float()).all()) \
@@ -1388,7 +1427,8 @@ def reference_decoder(dev):
         same = [r.tokens for r in got] == [r.tokens for r in ref]
         first = [next((i for i, (a, b) in enumerate(zip(g.tokens, r.tokens))
                        if a != b), None) for g, r in zip(got, ref)]
-        counts_ok = all(c[k] == want[k] for k in want) and c["K6"] > 0
+        counts_ok = all(c[k] == want[k] for k in want) and c["K6"] > 0 \
+            and no_op_kernels(c)
         layout = "q8" if opts.q8_cross_kv else "packed"
         log(f"[reference] int8 decoder d=128 dh=64 f32 {layout} cross-KV, "
             f"knobs on, card vs CPU plain: greedy tokens "
@@ -1616,8 +1656,7 @@ def read_counts():
     """Launches of each kernel since :func:`reset_counts`; "K2", "K8",
     "K10" and "K11" count both activation types, "*-f32" the f32 ones;
     "K1" and "K3" their default variants, the others by variant name
-    ("K1-o", "K3-i8s-i8pv", "K12", ...). Each read's K7 and K14 counts
-    also go to ``PATH_OP_LAUNCHES``."""
+    ("K1-o", "K3-i8s-i8pv", "K12", ...)."""
     from nobs_whisper_torch.models import whisper as mw
     from nobs_whisper_torch.ops import attention_pallas as ap
     from nobs_whisper_torch.ops import conv_stem as cs
@@ -1627,7 +1666,6 @@ def read_counts():
     from nobs_whisper_torch.ops import fused_qkv as fq
     from nobs_whisper_torch.ops import mel_pallas as mp
     from nobs_whisper_torch.ops import quant as qt
-    PATH_OP_LAUNCHES.append(fm.k7_launch_count + mp.k14_launch_count)
     return {"K1": ea.launch_count, "K3": ea.k3_launch_count,
             "K9": ea.k9_launch_count, "K2": fm.launch_count,
             "K2-f32": fm.launch_count_f32, "K8": fm.k8_launch_count,
@@ -1644,12 +1682,16 @@ def read_counts():
             "forwards": dict(mw.decoder_forward_calls)}
 
 
+def no_op_kernels(c):
+    """K7 and K14 launch on no serving, transcribe or reference path."""
+    return not any(c[k] for k in OP_KERNELS)
+
+
 def no_knob_kernels(c):
     """With no encoder knob set, K8, K10, K11, K13, K12 and the variants
-    of K1 and K3 never launch; K7 and K14 launch on no serving or
-    transcribe path."""
-    return not any(c[k] for k in KNOB_KERNELS + tuple(variant_names())
-                   + OP_KERNELS)
+    of K1 and K3 never launch, nor do K7 and K14."""
+    return no_op_kernels(c) and not any(
+        c[k] for k in KNOB_KERNELS + tuple(variant_names()))
 
 
 def _launch_summary(c):
@@ -1868,7 +1910,8 @@ def phase_encoder_knobs(card, qeng, eng):
     nb = c["batches"]
     a_ok = (nb > 0 and c["K13"] == nb and c["K10"] == c["K9"] == c["K11"]
             == c["K8"] == n * nb and c["K1"] == c["K2"] == c["K3"] == 0
-            and c["K10-f32"] == c["K11-f32"] == c["K8-f32"] == 0)
+            and c["K10-f32"] == c["K11-f32"] == c["K8-f32"] == 0
+            and no_op_kernels(c))
     log(f"[knobs] {card}: int8 serving with {' '.join(SLICE_KNOBS)}: wall "
         f"{wall:.2f} s; batch sizes {be.batcher.batch_sizes}; launches "
         f"{_launch_summary(c)} (want K13 = {nb}, K10 = K9 = K11 = K8 = "
@@ -1888,7 +1931,8 @@ def phase_encoder_knobs(card, qeng, eng):
         c = read_counts()
     nb = c["batches"]
     b_ok = (nb > 0 and c["K13"] == nb and c["K3"] == n * nb
-            and c["K1"] == c["K9"] == c["K10"] == c["K8"] == 0)
+            and c["K1"] == c["K9"] == c["K10"] == c["K8"] == 0
+            and no_op_kernels(c))
     log(f"[knobs] {card}: file path with NWT_STEM_FUSED=1: launches "
         f"{_launch_summary(c)} (want K13 = {nb}, K3 = {n} x {nb}) -> "
         f"{'PASS' if b_ok else 'FAIL'}")
@@ -1909,7 +1953,7 @@ def phase_encoder_knobs(card, qeng, eng):
     c_ok = (c["K10-f32"] == c["K11-f32"] == c["K8-f32"] == c["K10"]
             == c["K11"] == c["K8"] == n and c["K13"] == 0
             and c["K1"] == c["K3"] == c["K9"] == c["K2"] == 0
-            and xa.dtype == torch.float32
+            and no_op_kernels(c) and xa.dtype == torch.float32
             and tuple(xa.shape) == (1, cfg.n_audio_ctx, cfg.n_audio_state)
             and bool(torch.isfinite(xa).all()))
     log(f"[knobs] {card}: int8 encoder at f32 with {' '.join(SLICE_KNOBS)}, "
@@ -2271,12 +2315,6 @@ def main():
         for key, n in counts.items():     # K9 runs on two phases' paths
             launches[key] = launches.get(key, 0) + n
         took(name)
-    paths_ok = sum(PATH_OP_LAUNCHES) == 0
-    log(f"[ops] {card}: K7 and K14 over the {len(PATH_OP_LAUNCHES)} launch "
-        f"reads of the reference, serving, transcribe, decode-kernel, "
-        f"encoder-knob and variant paths: {sum(PATH_OP_LAUNCHES)} launches "
-        f"(want 0) -> {'PASS' if paths_ok else 'FAIL'}")
-    ok &= paths_ok
     phase_ok, counts = phase_ops(card, qeng)
     ok &= phase_ok
     launches.update(counts)

@@ -84,13 +84,17 @@ def _dft_bases_np(n_fft: int = N_FFT):
     return cos_b, sin_b
 
 
-@functools.lru_cache(maxsize=8)
-def _tables(n_mels: int, device: torch.device):
+def _bases_and_bank(n_mels: int):
     """The cos/sin bases (n_fft, n_freqs) and the (n_mels, n_freqs)
-    filterbank as f32 tensors on ``device``, copied there once."""
-    cos_np, sin_np = _dft_bases_np()
-    return tuple(torch.from_numpy(t).to(device)
-                 for t in (cos_np, sin_np, mel_filter_bank(n_mels)))
+    filterbank, numpy f32."""
+    return (*_dft_bases_np(), mel_filter_bank(n_mels))
+
+
+@functools.lru_cache(maxsize=16)
+def device_tables(make, n_mels: int, device: torch.device):
+    """The numpy arrays ``make(n_mels)`` returns, as tensors on ``device``,
+    copied there once (the front end's one cache of device tables)."""
+    return tuple(torch.from_numpy(t).to(device) for t in make(n_mels))
 
 
 def frame_signal(audio: torch.Tensor) -> torch.Tensor:
@@ -130,7 +134,8 @@ def _log_mel_single(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
     """The reference's per-sample pipeline; a leading batch axis runs as
     one batched matmul, with the clamp's max taken per sample."""
     disable_tf32()
-    cos_b, sin_b, mel_f = _tables(n_mels, audio.device)
+    cos_b, sin_b, mel_f = device_tables(_bases_and_bank, n_mels,
+                                        audio.device)
     frames = frame_signal(audio.to(torch.float32))
     re = frames @ cos_b
     im = frames @ sin_b
@@ -162,7 +167,8 @@ def log_mel_numpy_f64(audio: np.ndarray, n_mels: int = 80) -> np.ndarray:
 def _log10_mel_windows(frames: torch.Tensor, n_mels: int) -> torch.Tensor:
     """(W, n_frames, n_fft) f32 framed windows -> un-normalized log10 mel
     (W, n_mels, n_frames). The clamp happens outside."""
-    cos_b, sin_b, mel_f = _tables(n_mels, frames.device)
+    cos_b, sin_b, mel_f = device_tables(_bases_and_bank, n_mels,
+                                        frames.device)
     frames = frames.to(torch.float32)
     re = frames @ cos_b
     im = frames @ sin_b

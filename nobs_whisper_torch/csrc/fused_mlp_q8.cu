@@ -47,8 +47,11 @@
 // the wait for device memory is not what limits it; each block reads an 8-
 // or 32-byte column strip of every weight row, scattered sectors that a
 // faster design would replace with whole lines.
-// The row tile is a template (1, 2, 4 or 8 rows): a decode step's batch of
-// 1 does not pay for 8 rows of FFMA. More than 8 rows run several tiles.
+// The row tile is a template (1, 2, 4 or 8 rows): a tile's rows beyond M
+// run the same FFMA as real ones, and chip_smoke.py's by-rows timing shows
+// M = 5-7 (the 8-row tile) as slow as M = 8, so a decode step's batch of 1
+// through the 8-row tile would take 1.5x the 1-row tile's time. More than
+// 8 rows run several tiles.
 
 #include <type_traits>
 

@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from ..audio.mel import _dft_bases_np, mel_filter_bank
+from ..audio.mel import _dft_bases_np, device_tables, mel_filter_bank
 from ..core.config import HOP_LENGTH, N_FFT
 from ..core.device import disable_tf32
 
@@ -57,13 +57,6 @@ def _padded_tables(n_mels: int):
     melf = np.zeros((N_FREQ_PAD, n_mels), np.float32)
     melf[:201] = mel_filter_bank(n_mels).T          # (201, n_mels)
     return split(cos_b), split(sin_b), melf
-
-
-@functools.lru_cache(maxsize=8)
-def _device_tables(n_mels: int, device: torch.device):
-    """:func:`_padded_tables` as tensors on ``device``, copied there once."""
-    return tuple(torch.from_numpy(t).to(device)
-                 for t in _padded_tables(n_mels))
 
 
 def _check_frames(t: int) -> int:
@@ -97,7 +90,7 @@ def log10_mel_pallas_plain(audio: torch.Tensor, n_mels: int = 80
     dev = audio.device
     rows = torch.nn.functional.pad(_rows(audio, n_frames),
                                    (0, LANE_PAD - HOP_LENGTH))
-    cosp, sinp, melf = _device_tables(n_mels, dev)
+    cosp, sinp, melf = device_tables(_padded_tables, n_mels, dev)
 
     def dft(basis):
         acc = rows[:, :n_frames] @ basis[0]
@@ -125,7 +118,7 @@ def log10_mel_pallas(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     dev = audio.device
     b = audio.shape[0]
     rows = _rows(audio, n_frames).contiguous()
-    cosp, sinp, melf = _device_tables(n_mels, dev)
+    cosp, sinp, melf = device_tables(_padded_tables, n_mels, dev)
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=dev)
     ptr = lambda z: ctypes.c_void_p(z.data_ptr())
     err = lib.nwt_log10_mel(
