@@ -12,8 +12,8 @@ arguments). Phases; any failure exits non-zero before the result line:
 2. kernels against their plain PyTorch versions at turbo width (K1 at
    B=2, T=1536, n_real=1500; K2 at M=2*1536, block_f=2560, with bf16 and
    with f32 activations; K3 at B=2, T=1536, d=1280, H=20, n_real=1500; K9
-   at B=2, H=10, T=1536, dh=128, at an odd head count, H=15, dh=64, and
-   at the ``NWT_INT8_QKV`` path's H=20, dh=64):
+   at B=2, H=10, T=1536, dh=128, at an odd head count, H=15, dh=64, at
+   the ``NWT_INT8_QKV`` path's H=20, dh=64, and at dh=32, H=40):
    max error against the stated tolerance, kernel / plain / library ms
    (CUDA events) and the bound computed from the shapes against published
    H100 peaks;
@@ -195,7 +195,8 @@ def phase_card_and_build():
     for name, rec in build.items():
         log(f"[build] {name}.cu: {rec['seconds']:.1f} s")
         for line in rec["ptxas"].splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            if ("Compiling entry" in line or "Used" in line or "spill" in line
+                    or "Performance Loss" in line):
                 log(f"[ptxas]   {line.strip()}")
     return smi
 
@@ -253,9 +254,13 @@ def phase_kernels():
            for _ in range(3)]
     mask = torch.zeros(t, t, device=dev, dtype=torch.bool)
     mask[:, :n_real] = True          # (L, S): keys >= n_real masked
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        *qkv, attn_mask=mask))
     m = b * t
+    # the yardstick does K1's work: SDPA and the three int8 projections
+    # (args[3], args[5], args[6]: wq, wk, wv)
+    a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
+    lib_ms = cuda_ms(lambda: (
+        F.scaled_dot_product_attention(*qkv, attn_mask=mask),
+        [torch._int_mm(a8, w["q"]) for w in (args[3], args[5], args[6])]))
     int8_ops = 2.0 * m * d * 3 * d
     bf16_flops = 2 * (2.0 * b * h * t * n_real * 64)
     nbytes = 2 * m * d * 2 + 3 * d * d + 3 * d * 4 + 4 * d * 4
@@ -268,14 +273,15 @@ def phase_kernels():
         f"(<= 1, {K1_STEP}) finite {finite} -> "
         f"{'PASS' if ok1 else 'FAIL'}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-        f"(operations), SDPA on q/k/v alone {lib_ms:.4f} ms")
+        f"(operations), SDPA + torch._int_mm x3 (q/k/v projections) "
+        f"{lib_ms:.4f} ms")
     out["K1"] = dict(
         name="encoder_attention_fused_qkv", route="cuda",
         source="nobs_whisper_torch/csrc/encoder_attention.cu",
         replaces="nobs_whisper_tpu/ops/encoder_attention.py:565",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by="operations", library_ms=lib_ms, ok=ok1)
-    del args, got, ref, qkv
+    del args, got, ref, qkv, a8
 
     # ---- K2 ----
     m, d, f, bf = 2 * 1536, 1280, 5120, 2560
@@ -345,7 +351,8 @@ def phase_kernels():
         "encoder_attention.py:93", b=2, h=10, t=1536, dh=128, n_real=1500)
     # the odd head count, and the NWT_INT8_QKV path's own grid (20 heads
     # of 64, the stem's 1500 rows padded to 1536 around each attention)
-    for h, dh in ((15, 64), (20, 64)):
+    # and the narrowest head width the kernel is built for
+    for h, dh in ((15, 64), (20, 64), (40, 32)):
         _join(out, "K9", attention_kernel_check(
             "K9", "encoder_attention", "", b=2, h=h, t=1536, dh=dh,
             n_real=1500))
@@ -404,9 +411,11 @@ def variant_kernel_checks():
     1536, n_real = 1500, d = 1280, H = 20, ffn = 5120, K12's block_f 1280)
     against their plain versions on the card. Bounds: the int8 and bf16
     work of each at the published peaks, summed, against the bytes in and
-    out. Yardsticks, timed here and used nowhere in the port: SDPA on the
-    same bf16 q/k/v (K1, K3); for K12 SDPA plus ``torch._int_mm`` of the
-    layer's six int8 GEMM shapes."""
+    out. Yardsticks, timed here and used nowhere in the port, each doing
+    its kernel's work: SDPA on the same bf16 q/k/v (K3); SDPA plus
+    ``torch._int_mm`` of the three (d, d) q/k/v projections at M = B T
+    (K1; K1-o adds the o projection's); for K12 SDPA plus
+    ``torch._int_mm`` of the layer's six int8 GEMM shapes."""
     import torch
     import torch.nn.functional as F
     from nobs_whisper_torch.ops import encoder_attention as ea
@@ -454,6 +463,11 @@ def variant_kernel_checks():
     g = torch.Generator(device=dev).manual_seed(15)
     wo = quantize_int8(torch.randn(d, d, generator=g, device=dev) * d ** -0.5)
     bo = 0.1 * torch.randn(d, generator=g, device=dev)
+    a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
+    proj = (args[3], args[5], args[6], wo)          # wq, wk, wv, wo
+    k1_lib = {n: cuda_ms(lambda n=n: (
+        sdpa(), [torch._int_mm(a8, w["q"]) for w in proj[:n]]))
+        for n in (3, 4)}
     proj_ops = 2.0 * m * d * 3 * d
     for fuse_o, s8, pv in ((True, False, False), (False, True, False),
                            (False, False, True), (False, True, True)):
@@ -468,7 +482,9 @@ def variant_kernel_checks():
                                                      **kw),
               lambda: ea.encoder_attention_fused_qkv_plain(*args, n_real, sm,
                                                            h, **kw),
-              bound, sdpa_ms, "SDPA on q/k/v alone", "encoder_attention.cu",
+              bound, k1_lib[3 + fuse_o],
+              f"SDPA + torch._int_mm x{3 + fuse_o} (the projections)",
+              "encoder_attention.cu",
               "encoder_attention.py:565", "encoder_attention_fused_qkv",
               f"B={b} T={t} d={d} H={h} n_real={n_real}")
     torch.cuda.empty_cache()
@@ -496,7 +512,6 @@ def variant_kernel_checks():
     _, g2, b2n, fc1, fc1_b, fc2, fc2_b = k2_setup(dev, 8, d, f, seed=17)
     largs = (x, g1, b1n, wq, bq, wk, wv, bv, wo, bo, g2, b2n, fc1, fc1_b,
              fc2, fc2_b)
-    a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
     h8 = torch.randint(-127, 128, (m, f), device=dev, dtype=torch.int8)
     lib_ms = cuda_ms(lambda: (sdpa(), [torch._int_mm(a8, w["q"]) for w in
                                        (wq, wk, wv, wo, fc1)],
@@ -1578,6 +1593,15 @@ def phase_serving(card, eng):
     return ok, launches
 
 
+# the hand-written kernels an encoder batch launches (K1, K2 and every
+# variant's pieces; csrc/), for the profile's encoder share
+ENCODER_CSRC_KERNELS = (
+    "attn_wgmma_kernel", "attn_i8_kernel", "ln_quant_kernel",
+    "qkv_gemm_kernel", "fc1_gemm_kernel", "fc2_gemm_kernel", "requant_kernel",
+    "quant_q_kernel", "head_absmax_kernel", "quant_kv_kernel",
+    "conv_k3_kernel", "res_o_gemm_kernel")
+
+
 def profile_wave(be, wave, card):
     """One more concurrent wave under torch.profiler: device time by
     kernel, the device's idle share of the wave's wall time, and the
@@ -1620,6 +1644,13 @@ def profile_wave(be, wave, card):
         f"{busy_s:.3f} s (self device time summed), idle share "
         f"{max(0.0, 1 - busy_s / wall):.3f}; dtype-copy kernels "
         f"{copy_ms:.2f} ms device time, {top_copies} of the 15 largest rows")
+    enc = [e for e in ka if any(k in e.key for k in ENCODER_CSRC_KERNELS)]
+    enc_ms = sum(getattr(e, attr) for e in enc) / 1e3
+    attn_ms = sum(getattr(e, attr) for e in enc
+                  if "attn_wgmma" in e.key or "attn_i8" in e.key) / 1e3
+    log(f"[profile] {card}: the encoder's CUDA kernels {enc_ms:.2f} ms device "
+        f"time, {enc_ms / 1e3 / busy_s:.3f} of busy; of it the attention "
+        f"core {attn_ms:.2f} ms")
     for e in rows[:15]:
         t = getattr(e, attr)
         if t <= 0:

@@ -166,18 +166,31 @@ def _tb(z):
     return torch.from_numpy(z).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("b,h,t,n_real,seed", [
-    (2, 3, 256, 256, 1), (2, 3, 256, 250, 1), (2, 3, 256, 119, 1),
-    (1, 2, 128, 128, 2),                     # single block
-    (1, 2, 256, 40, 3),                      # n_real inside one 64-key tile
+def _k9_case(b, h, t, n_real, seed, dh=64, block_q=128, id=None):
+    return pytest.param(b, h, t, n_real, seed, dh, block_q,
+                        id=id or f"{b}-{h}-{t}-{n_real}-{seed}")
+
+
+@pytest.mark.parametrize("b,h,t,n_real,seed,dh,block_q", [
+    _k9_case(2, 3, 256, 256, 1), _k9_case(2, 3, 256, 250, 1),
+    _k9_case(2, 3, 256, 119, 1),
+    _k9_case(1, 2, 128, 128, 2),             # single block
+    _k9_case(1, 2, 256, 40, 3),              # n_real inside one 64-key tile
+    # the other head widths, and T % 128 == 64 (the card's 128-row query
+    # blocks end on a half block) with the reference's 64-row blocks
+    _k9_case(1, 3, 192, 150, 7, dh=128, block_q=64, id="dh128-T192"),
+    _k9_case(1, 2, 320, 257, 8, dh=32, block_q=64, id="dh32-T320"),
+    _k9_case(2, 3, 192, 70, 9, block_q=64, id="dh64-T192"),
 ])
-def test_k9_plain_matches_pallas_interpret(b, h, t, n_real, seed):
-    """tests/test_encoder_attention.py:21 and :36; bf16 outputs within one
-    bf16 step (the f32 sums differ in order only)."""
-    q, k, v = _bhtd(b, h, t, 64, seed)
-    sm = 64.0 ** -0.5
+def test_k9_plain_matches_pallas_interpret(b, h, t, n_real, seed, dh,
+                                           block_q):
+    """tests/test_encoder_attention.py:21 and :36, and the head widths and
+    query-block edges of the card's kernel; bf16 outputs within one bf16
+    step (the f32 sums differ in order only)."""
+    q, k, v = _bhtd(b, h, t, dh, seed)
+    sm = float(dh) ** -0.5
     ref = np.asarray(jax_k9(*(jnp.asarray(z, jnp.bfloat16) for z in (q, k, v)),
-                            n_real, sm, block_q=128, interpret=True),
+                            n_real, sm, block_q=block_q, interpret=True),
                      np.float32)
     got = ea.encoder_attention(_tb(q), _tb(k), _tb(v), n_real, sm)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape

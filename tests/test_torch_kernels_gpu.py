@@ -109,6 +109,7 @@ def _k2_inputs(m, d, f, dev, seed=2):
     (2, 4, 256, 256, 256), (2, 4, 256, 256, 250), (2, 4, 256, 256, 119),
     (1, 6, 128, 384, 128),                  # many head pairs
     (2, 20, 1536, 1280, 1500),              # large-v3-turbo width
+    (2, 4, 192, 256, 150),                  # T % 128 == 64
 ])
 def test_k1_kernel_matches_plain(cuda, b, h, t, d, n_real):
     args = _k1_inputs(b, h, t, d, cuda)
@@ -180,6 +181,12 @@ def _step_close(got, ref):
     (2, 256, 4, 64, 256), (2, 256, 4, 64, 250), (2, 256, 4, 64, 40),
     (1, 768, 20, 64, 750),                  # audio_ctx 750
     (2, 1536, 20, 64, 1500),                # large-v3-turbo width
+    # the wgmma kernel's edges: T % 128 == 64 (the last block's second
+    # warpgroup has no rows), n_real inside the first key tile and one key
+    # past a tile, the other head widths
+    (2, 192, 4, 64, 192), (1, 832, 20, 64, 800),
+    (2, 192, 4, 64, 40), (1, 320, 4, 64, 65),
+    (2, 192, 2, 128, 129), (1, 320, 6, 32, 257),
 ])
 def test_k3_kernel_matches_plain(cuda, b, t, h, dh, n_real):
     q, k, v = _attn_inputs((b, t, h * dh), cuda, seed=t + n_real)
@@ -199,6 +206,10 @@ def test_k3_kernel_matches_plain(cuda, b, t, h, dh, n_real):
     (2, 4, 256, 32, 256), (2, 4, 512, 128, 300),   # other head widths
     (2, 10, 1536, 128, 1500),                      # turbo width, dh = 128
     (2, 20, 1536, 64, 1500),                       # turbo, NWT_INT8_QKV
+    # T % 128 == 64 with odd head counts at each head width, n_real in the
+    # first key tile and one key past a tile
+    (1, 3, 192, 128, 150), (1, 5, 320, 32, 257), (2, 3, 192, 64, 70),
+    (1, 3, 832, 64, 800), (2, 5, 192, 64, 1), (1, 3, 320, 128, 65),
 ])
 def test_k9_kernel_matches_plain(cuda, b, h, t, dh, n_real):
     q, k, v = _attn_inputs((b, h, t, dh), cuda, seed=dh + n_real)
@@ -615,6 +626,21 @@ def test_k1_variants_kernel_match_plain(cuda, fuse_o, var, b, h, t, d,
     ref = ea.encoder_attention_fused_qkv_plain(
         *args, n_real, 0.125, h, int8_scores=s8, int8_pv=pv, **kw)
     _var_close(got, ref, n_real, "o" if fuse_o else "attn")
+
+
+def test_k1_fused_o_half_block_matches_plain(cuda):
+    """K1 with the o projection fused at T % 128 == 64: the bf16 attention
+    kernel's last block of 128 query rows has one warpgroup's rows, and its
+    f32 output feeds the per-pair requantization."""
+    b, h, t, d, n_real = 2, 4, 192, 256, 150
+    args = _k1_inputs(b, h, t, d, cuda, seed=11)
+    wo = quantize_int8(torch.randn(d, d, device=cuda) * d ** -0.5)
+    bo = 0.1 * torch.randn(d, device=cuda)
+    got = _launched(lambda: ea.encoder_attention_fused_qkv(
+        *args, n_real, 0.125, h, wo=wo, bo=bo), "K1", "K1-o")
+    ref = ea.encoder_attention_fused_qkv_plain(*args, n_real, 0.125, h,
+                                               wo=wo, bo=bo)
+    _var_close(got, ref, n_real, "o")
 
 
 def _layer_inputs(b, h, t, d, f, dev, seed=20):
