@@ -81,9 +81,12 @@ K8 (block_f=1280) at the knob paths' rows (d=1280; M=3000 with bf16 and
 with f32 x, M=1500 with f32 x) and K13 (B=2, 3000 frames, d=1280: C_in=128 at t_out_pad 1536 and
 1504, C_in=80) and the variants at K1's shapes (K1 with fused o, K1 and
 K3 with int8 scores, int8 PV and both, K12 and K12 with both at
-ffn=5120, block_f=1280), K14 (B=40 and B=2 30 s windows, 128 and 80
-mels; timed at B=40 and B=2 with 128) and K7 (d=1280, ffn=5120; M=8 and
-M=1, bf16 and f32 x); phase 3 also holds a d=128 dh=64 int8 decoder with the
+ffn=5120, block_f=1280; the K3 int8 variants' device time split into
+the attention kernel and ``int8_prep``), K14 (B=40, B=2 and B=1 30 s
+windows, 128 and 80 mels, against its plain version and the f64 oracle;
+timed at B=40 and B=2 with 128: back to back, alone in a CUDA graph, and
+the wrapper's host work) and K7 (d=1280, ffn=5120; M=8 and M=1, bf16 and
+f32 x); phase 3 also holds a d=128 dh=64 int8 decoder with the
 three decode knobs on against the same model on the CPU (f32: greedy
 tokens equal; bf16: prefill and step logits within a tolerance), and the
 d=128 dh=64 int8 encoder with the three encoder knobs on (bf16 and f32),
@@ -104,9 +107,8 @@ import time
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# f32 on FFMA outside the tensor cores, and TF32 on them (K14)
+# f32 on FFMA outside the tensor cores (K14)
 PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
 
 # K1 is held to one bf16 step of its plain version, elementwise:
 # |kernel - plain| <= atol + rtol * |plain| (tests/test_torch_kernels.py
@@ -146,12 +148,13 @@ STEM_TOL = 3e-2
 # the encoder's opt-in kernel knobs of this slice, set around their paths
 SLICE_KNOBS = ("NWT_INT8_QKV", "NWT_MLP_CHUNKED", "NWT_STEM_FUSED")
 KNOB_KERNELS = ("K8", "K10", "K11", "K13")
-# K14 sums its f32 DFT on FFMA in another order than its plain version's
-# f32 matmuls (TF32 off): the normalized log-mel is held to 1e-4, the bound
+# K14's f32 FFT on FFMA rounds otherwise than its plain version's dense
+# f32 DFT matmuls (TF32 off): the normalized log-mel is held to 1e-4, the bound
 # tests/test_mel_pallas.py holds the Pallas kernel to, and the
 # un-normalized log10 to the same bound in its units (4e-4) where it lies
 # above each sample's max - 8 (below it the log10 of near-zero bins depends
-# on the summation order; the clamp hides them)
+# on the rounding; the clamp hides them), each against the plain version
+# and against the f64 oracle
 K14_TOL = 1e-4
 # the two ops that no serving or transcribe path takes (the reference's
 # decoder does not call K7; K14 is a drop-in for log_mel_spectrogram)
@@ -495,15 +498,20 @@ def variant_kernel_checks():
         torch.bfloat16) for _ in range(3))
     for s8, pv in ((True, False), (False, True), (True, True)):
         key = ea.variant("K3", False, s8, pv)
-        check(key, "attn",
-              lambda: ea.encoder_attention_btd(q, k, v, n_real, sm, h,
-                                               int8_scores=s8, int8_pv=pv),
+        fn = lambda: ea.encoder_attention_btd(q, k, v, n_real, sm, h,
+                                              int8_scores=s8, int8_pv=pv)
+        check(key, "attn", fn,
               lambda: ea.encoder_attention_btd_plain(q, k, v, n_real, sm, h,
                                                      s8, pv),
               attn_bound(s8, pv, 0, 4 * m * d * 2), sdpa_ms, "SDPA",
               "encoder_attention.cu", "encoder_attention.py:185",
               "encoder_attention_btd", f"B={b} T={t} H={h} dh=64 "
               f"n_real={n_real}")
+        split = attn_prep_ms(fn)
+        log(f"[kernel] {key} device time by part (torch.profiler, one call "
+            f"of 10): " + ("not measured: " + split if isinstance(split, str)
+                           else f"attention kernel {split[0]:.4f} ms, "
+                           f"int8_prep {split[1]:.4f} ms ({split[2]})"))
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -536,6 +544,26 @@ def variant_kernel_checks():
               f"n_real={n_real}")
         out[key]["ok"] &= halves_ok
     return out
+
+
+def attn_prep_ms(fn, reps=10):
+    """Device time per call of an int8 attention variant's wrapper ``fn``,
+    split by kernel from torch.profiler over ``reps`` calls: the attention
+    kernel (``attn_wgmma_kernel``) and the rest, ``int8_prep``'s two
+    launches. Returns (attention ms, prep ms, the prep kernels'
+    names), or the reason it was not measured."""
+    import torch
+    from nobs_whisper_torch.utils.profiling import device_ms_split
+    fn()
+    torch.cuda.synchronize()
+    try:
+        attn, prep = device_ms_split(fn, reps, "attn_wgmma_kernel")
+    except Exception as e:
+        return repr(e)
+    if not attn or not prep:
+        return f"no device time in the trace ({attn}, {prep})"
+    names = ", ".join(f"{n.split('(')[0][:40]} {t:.4f}" for n, t in prep)
+    return attn, sum(t for _, t in prep), names
 
 
 def k12_halves_check(largs, n_real, sm, h, bf, s8, pv, key):
@@ -941,14 +969,19 @@ def mel_pcm(b, seed=50):
 def k14_check(b, n_mels, timed=True):
     """K14 on b 30 s windows against its plain version (the raw log10
     above each sample's max - 8) and ``log_mel_spectrogram_pallas`` against
-    the port's ``log_mel_spectrogram`` (normalized). Yardsticks the port
+    the port's ``log_mel_spectrogram`` and the plain version (normalized);
+    both scales also against the f64 oracle, which decides where the dense
+    versions' own rounding is near the bounds. Yardsticks the port
     never calls: openai-whisper's formula in f32 with TF32 off
     (``torch.stft`` with a periodic hann window, centred, reflect-padded;
-    ``|.|^2`` without the last frame; the filterbank matmul; log10), an
-    FFT that does less arithmetic than the DFT; and the port's
-    ``log_mel_spectrogram`` (cuBLAS SGEMM). The bound counts the
-    function's work (an FFT, the filterbank's nonzeros), not the kernel's
-    dense DFT, which the line gives beside it."""
+    ``|.|^2`` without the last frame; the filterbank matmul; log10); and
+    the port's ``log_mel_spectrogram`` (cuBLAS SGEMM). The bound counts
+    the function's work (a real FFT, the filterbank's nonzeros) against
+    the PCM in, the mel out and the kernel's tables. Timed, the line gives
+    the kernel's time three ways: back-to-back calls of the wrapper (the
+    line's ``ms``), the kernel alone (``graph_ms``: the call captured in a
+    CUDA graph), and the wrapper's host work per call (host clock over
+    calls that enqueue without waiting)."""
     import math
 
     import numpy as np
@@ -968,25 +1001,51 @@ def k14_check(b, n_mels, timed=True):
     norm = mp.log_mel_spectrogram_pallas(audio, n_mels)
     want = log_mel_spectrogram(audio, n_mels)
     norm_err = (norm - want).abs().max().item()
+    # the same held to the plain version's normalized output, and the share
+    # of raw values that differ at all (a vacuous comparison shows 0)
+    plain_norm = ((torch.maximum(ref, torch.amax(ref, dim=(1, 2),
+                                                 keepdim=True) - 8.0)
+                   + 4.0) / 4.0).transpose(1, 2)
+    plain_err = (norm - plain_norm).abs().max().item()
+    differ = (got != ref)[keep].float().mean().item()
+    # each against the f64 oracle on the host (its raw log10 is 4 n - 4
+    # above the clamp): the plain version and the port's
+    # log_mel_spectrogram are dense f32 DFTs with their own rounding
+    from nobs_whisper_torch.audio.mel import log_mel_numpy_f64
+    want64 = np.stack([log_mel_numpy_f64(a, n_mels)
+                       for a in audio.cpu().numpy()])
+    k14_64 = np.abs(norm.cpu().numpy() - want64).max()
+    lms_64 = np.abs(want.cpu().numpy() - want64).max()
+    raw64 = torch.from_numpy(4.0 * want64.transpose(0, 2, 1) - 4.0).to(dev)
+    k14_raw64 = (got - raw64).abs()[keep].max().item()
+    plain_raw64 = (ref - raw64).abs()[keep].max().item()
+    oracle_ok = k14_64 <= K14_TOL and k14_raw64 <= 4 * K14_TOL
+    oracle = (f", against the f64 oracle {k14_64:.3e} (tol {K14_TOL}; "
+              f"log_mel_spectrogram {lms_64:.3e}); raw against the oracle "
+              f"above max - 8: kernel {k14_raw64:.3e} (tol {4 * K14_TOL}), "
+              f"plain {plain_raw64:.3e}")
     ok = (finite and raw_err <= 4 * K14_TOL and norm_err <= K14_TOL
+          and plain_err <= K14_TOL and oracle_ok
           and tuple(norm.shape) == (b, n_mels, n_frames))
     # the function's operations, with a real FFT of the 400 taps (~2.5 N
-    # log2 N) where the kernel runs a dense DFT: the window, the FFT,
-    # |.|^2 and the filterbank's nonzero weights, each frame
+    # log2 N): the window, the FFT, |.|^2 and the filterbank's nonzero
+    # weights, each frame
     nnz = int(np.count_nonzero(mel_filter_bank(n_mels)))
     flops = b * n_frames * (400 + 2.5 * 400 * math.log2(400) + 3 * 201
                             + 2 * nnz)
-    dense = 2.0 * b * n_frames * (2 * 400 * 201 + 201 * n_mels)
-    # PCM in and mel out, and the bases and filterbank once
+    # PCM in and mel out, and the kernel's tables once (the FFT table, each
+    # band's first and last bin and weight offset, the staged nonzero
+    # filterbank weights)
     nbytes = (b * (audio.shape[1] + n_frames * n_mels) * 4
-              + (2 * 400 * 201 + 201 * n_mels) * 4)
+              + (mp.TAB_SIZE + 3 * n_mels + mp.MEL_MAX_NNZ) * 4)
     tb, to = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
     bound, by = max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
     line = (f"[kernel] K14 log10_mel_pallas B={b} 30 s windows n_mels="
             f"{n_mels}: raw max_abs_err above max - 8 {raw_err:.3e} (tol "
-            f"{4 * K14_TOL}), normalized against log_mel_spectrogram "
-            f"{norm_err:.3e} (tol {K14_TOL}), finite {finite} -> "
-            f"{'PASS' if ok else 'FAIL'}")
+            f"{4 * K14_TOL}; {differ:.3f} of those values differ), "
+            f"normalized against log_mel_spectrogram {norm_err:.3e} and "
+            f"against the plain version {plain_err:.3e} (tol {K14_TOL})"
+            f"{oracle}, finite {finite} -> {'PASS' if ok else 'FAIL'}")
     e = dict(name="log10_mel_pallas", route="cuda",
              source="nobs_whisper_torch/csrc/mel.cu",
              replaces="nobs_whisper_tpu/ops/mel_pallas.py:116",
@@ -1002,22 +1061,27 @@ def k14_check(b, n_mels, timed=True):
             p = st[..., :-1].abs() ** 2
             return torch.log10(torch.clamp(melT @ p, min=1e-10))
 
-        e["ms"] = cuda_ms(lambda: mp.log10_mel_pallas(audio, n_mels),
-                          reps=10)
+        call = lambda: mp.log10_mel_pallas(audio, n_mels)
+        e["ms"] = cuda_ms(call, reps=10)
+        device_ms = graph_ms(call, reps=20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            call()
+        host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.synchronize()
         e["plain_ms"] = cuda_ms(lambda: mp.log10_mel_pallas_plain(
             audio, n_mels), reps=5, warmup=1)
         e["library_ms"] = cuda_ms(stft_mel, reps=10)
         port_ms = cuda_ms(lambda: log_mel_spectrogram(audio, n_mels), reps=5,
                           warmup=1)
-        line += (f"; kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+        line += (f"; kernel {e['ms']:.4f} ms back to back (alone in a CUDA "
+                 f"graph {device_ms:.4f} ms; the wrapper's host work "
+                 f"{host_ms:.4f} ms a call), plain {e['plain_ms']:.4f} ms, "
                  f"bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-                 f"{flops / 1e9:.3f} GFLOP with an FFT; the kernel's dense "
-                 f"DFT, {dense / 1e9:.2f} GFLOP, would take "
-                 f"{dense / PEAK_F32_FLOPS * 1e3:.4f} ms at the f32 FFMA "
-                 f"peak and {3 * dense / PEAK_TF32_FLOPS * 1e3:.4f} ms as "
-                 f"3xTF32), torch.stft "
-                 f"formula {e['library_ms']:.4f} ms, the port's "
-                 f"log_mel_spectrogram (cuBLAS SGEMM) {port_ms:.4f} ms")
+                 f"{flops / 1e9:.3f} GFLOP), torch.stft formula "
+                 f"{e['library_ms']:.4f} ms, the port's log_mel_spectrogram "
+                 f"(cuBLAS SGEMM) {port_ms:.4f} ms")
     log(line)
     return e
 
@@ -1141,11 +1205,12 @@ def k7_rows_ms(d=1280, ffn=5120, seed=60):
 def op_kernel_checks():
     """K14 at B=40 30 s windows and 128 mels (the reference bench's
     ``--batch 40`` at turbo's mels; the line's numbers), checked also at
-    B=2 with 128 and 80 mels and at B=40 with 80; K7 at turbo's decoder
+    B=1 and B=2 with 128 and 80 mels and at B=40 with 80; K7 at turbo's decoder
     MLP with M=8 and bf16 x (the line's), M=1 bf16 and M=1, 8 f32."""
     import torch
     out = {"K14": k14_check(40, 128)}
-    for b, n_mels, timed in ((2, 128, True), (2, 80, False), (40, 80, False)):
+    for b, n_mels, timed in ((2, 128, True), (2, 80, False), (40, 80, False),
+                             (1, 128, False), (1, 80, False)):
         _join(out, "K14", k14_check(b, n_mels, timed))
         torch.cuda.empty_cache()
     out["K7"] = k7_check(8, torch.bfloat16)
@@ -1596,10 +1661,10 @@ def phase_serving(card, eng):
 # the hand-written kernels an encoder batch launches (K1, K2 and every
 # variant's pieces; csrc/), for the profile's encoder share
 ENCODER_CSRC_KERNELS = (
-    "attn_wgmma_kernel", "attn_i8_kernel", "ln_quant_kernel",
+    "attn_wgmma_kernel", "ln_quant_kernel",
     "qkv_gemm_kernel", "fc1_gemm_kernel", "fc2_gemm_kernel", "requant_kernel",
-    "quant_q_kernel", "head_absmax_kernel", "quant_kv_kernel",
-    "conv_k3_kernel", "res_o_gemm_kernel")
+    "i8_stats_kernel", "i8_quant_kv_kernel", "conv_k3_kernel",
+    "res_o_gemm_kernel")
 
 
 def profile_wave(be, wave, card):
@@ -1647,7 +1712,7 @@ def profile_wave(be, wave, card):
     enc = [e for e in ka if any(k in e.key for k in ENCODER_CSRC_KERNELS)]
     enc_ms = sum(getattr(e, attr) for e in enc) / 1e3
     attn_ms = sum(getattr(e, attr) for e in enc
-                  if "attn_wgmma" in e.key or "attn_i8" in e.key) / 1e3
+                  if "attn_wgmma" in e.key) / 1e3
     log(f"[profile] {card}: the encoder's CUDA kernels {enc_ms:.2f} ms device "
         f"time, {enc_ms / 1e3 / busy_s:.3f} of busy; of it the attention "
         f"core {attn_ms:.2f} ms")

@@ -1,7 +1,7 @@
 // Encoder self-attention: non-causal softmax attention per head, keys >=
-// n_real masked. Three entry points share one bf16 attention kernel for
-// Hopper (attn_wgmma_kernel, templated on the head width and the output
-// type); the opt-in int8 variants keep their own kernel (attn_i8_kernel):
+// n_real masked. Three entry points share one attention kernel for Hopper
+// (attn_wgmma_kernel), templated on the head width, the output type and the
+// two opt-in int8 variants:
 //
 //   K1 nwt_encoder_attention_fused_qkv: LN1 -> per-row int8 quant -> int8
 //      q/k/v projections -> attention, flat (B, T, d) layout; with the o
@@ -39,7 +39,7 @@
 // turbo, B = 2: 35.4 instead of 23.6 GFLOP, a floor of about 0.036 ms at
 // the bf16 peak).
 //
-// attn_wgmma_kernel (sm_90a), every bf16 launch of K1, K3, K9 and K12:
+// attn_wgmma_kernel (sm_90a), every launch of K1, K3, K9 and K12:
 //   * Grid (ceil(T / 128), H, B), 384 threads: two consumer warpgroups of
 //     64 query rows (warps 0-3 and 4-7) and a producer warpgroup (one
 //     thread issues every load), so each staged K/V tile serves 128 query
@@ -48,14 +48,15 @@
 //     128's O (64 f32) beside an S tile in flight. Where T % 128 == 64 the
 //     last block's second warpgroup has no rows and leaves at once; the
 //     ring's "empty" barriers count the warpgroups that stay.
-//   * Layouts: K and V of every head are rows of one 2-D bf16 matrix whose
-//     row pitch is its width: the flat (B T, d) layout with head h at
-//     column h dh, or the per-head (B H T, dh) one. The C entry point builds
-//     one tensor map each for K and V (cuTensorMapEncodeTiled, fetched with
+//   * Layouts: K and V of every head are rows of one 2-D matrix whose row
+//     pitch is its width: the flat (B T, d) layout with head h at column
+//     h dh, or the per-head (B H T, dh) one. The C entry point builds one
+//     tensor map each for K and V (cuTensorMapEncodeTiled, fetched with
 //     cudaGetDriverEntryPoint, so nothing links libcuda) and passes them as
-//     __grid_constant__ parameters. A box is 64 keys by min(dh, 64)
-//     columns: 128-byte rows under SWIZZLE_128B (dh = 64; dh = 128 loads
-//     two boxes side by side), 64-byte rows under SWIZZLE_64B (dh = 32).
+//     __grid_constant__ parameters. A box is 64 rows by at most 128 bytes
+//     (Tile): 128-byte rows under SWIZZLE_128B (bf16 dh = 64; dh = 128
+//     loads two boxes side by side), 64-byte rows under SWIZZLE_64B (bf16
+//     dh = 32, and every int8 operand).
 //   * The ring: NSTAGE stages of one K and one V tile, each stage with a
 //     "full" mbarrier (the producer's expect_tx, completed by the TMA's
 //     bytes) and an "empty" one (one arrival per consumer warpgroup). One
@@ -86,10 +87,10 @@
 //   * ptxas serializes every wgmma (C7515) if an instruction other than a
 //     wgmma defines an accumulator register while one is in flight: a
 //     register copy where two control paths meet is enough. So the first
-//     16-deep step of each QK^T writes S as an output only, O is zeroed
-//     while nothing is in flight and then only accumulated, every loop
-//     retires its groups before its back edge, and the key mask is selects
-//     on the peeled last tile.
+//     k-step of each QK^T writes S as an output only, O is zeroed while
+//     nothing is in flight and then only accumulated, every loop retires
+//     its groups before its back edge, and the key mask is selects on the
+//     peeled last tile.
 //   * p = exp(s - m) on the SFU: ex2.approx.ftz of (s - m) log2 e, within
 //     ~1e-6 of the accurate expf (the plain version's torch.exp) and far
 //     under the bf16 rounding of p that follows (chip_smoke.py and the
@@ -98,6 +99,27 @@
 //     f32 from the unrounded p; o / l leaves from registers as bf16, or f32
 //     (OutT) for K1 with the o projection fused and for K12. Padded query
 //     rows see real keys only, so their output is finite.
+//   * The int8 variants (NWT_ATTN_I8, NWT_ATTN_I8PV; the flat path, dh =
+//     64) are instantiations of the same kernel (I8S, I8PV):
+//     - int8 scores: QK^T is wgmma.m64n64k32.s32.s8.s8, two k-steps over
+//       dh = 64, A = the block's int8 q rows (staged as the bf16 q is, in
+//       64-byte rows), B = the int8 K tile as the TMA loads it from the
+//       flat (B T, d) int8 matrix. The int32 dot is exact; then s =
+//       f32(dot) * (sq * (sk * scale)) of the row, each product rounded.
+//     - int8 PV: pq = rint(p * 127) as int8, O_int += pq vq on
+//       wgmma.m64n64k32.s32.s8.s8 with A = pq packed from the S
+//       accumulator in registers. 8-bit wgmma reads B K-major only, so vq
+//       lies as (B, H, 64, T), (dh, key) per head, and int8_prep writes the
+//       keys of each 32-key step in the order the S accumulator leaves
+//       them (key_slot): the 8-bit A fragment of a k-step holds k = 4t ..
+//       4t + 3 and 16 + 4t .. 16 + 4t + 3 in thread t of a quad (rows g
+//       and g + 8), the accumulator keys 2t, 2t + 1 of each 8-key group,
+//       so the packed pq is the A fragment as it lies and the kernel
+//       transposes nothing. The normaliser is the integer sum of pq
+//       (exact), max(sum, 1); o = (f32(O_int) / l) * sv. O_int is zeroed
+//       while nothing is in flight, as O is.
+//     - An int8 tile is half a bf16 tile's bytes: the int8 instantiations'
+//       ring has 8 stages in the shared memory the bf16 ring's 4 take.
 
 // The rest of K1 and the int8 variants:
 //   1. ln_quant_kernel (common.cuh, K1 only). The TPU kernel computes LN +
@@ -117,27 +139,13 @@
 //      head), divided by its scale max(absmax, 1e-6) / 127; k and v per
 //      (batch row, head), times the reciprocal of max(absmax over rows <
 //      n_real, 1e-6) / 127 (:225-241, :306-322). The per-head absmax needs
-//      every real row before any score: one pass takes it with atomicMax on
-//      the float bits (non-negative floats order like their bit patterns,
-//      so the result is exact and independent of order), a second
-//      quantizes. The TPU kernel holds a head pair's whole K and V in VMEM
-//      and takes the statistic there.
-//   4. attn_i8_kernel: the int8 scores and PV variants (NWT_ATTN_I8,
-//      NWT_ATTN_I8PV; the flat path, dh = 64) keep the port's first
-//      design: one block of 4 warps per 64 query rows, mma.sync, the same
-//      two passes over 64-key tiles loaded synchronously into padded shared
-//      memory, V transposed into Vt as it is stored. int8 wgmma takes
-//      K-major B operands only, so int8 PV needs a V layout of its own.
-//      int8 scores: m16n8k32 on int8 q and k; the int32 dot over dh = 64
-//      is exact, then s = f32(dot) * (sq * (sk * scale)). int8 PV: pq =
-//      rint(p * 127) as int8, PV on m16n8k32 against int8 v, the
-//      normaliser the integer sum of pq (exact), o = (f32(dot) / max(sum,
-//      1)) * sv. The PV operand's key order inside each 32-key step is
-//      permuted (key_slot) so that the probabilities, which the scores'
-//      accumulator layout leaves two keys per 8-key group in each thread,
-//      are the A fragment as they lie; the int32 sum does not depend on
-//      the order.
-//   5. K1 with the o projection (NWT_ATTN_FUSED=2): the attention writes
+//      every real row before any score, so two launches: the first takes
+//      it (exact: a max), AMAX_PARTS blocks per (batch row, head) each over
+//      a range of rows, and quantizes q in its other blocks; the second quantizes k as it lies and v
+//      transposed per head into (dh, key) rows in key_slot order through
+//      shared memory. The TPU kernel holds a head pair's whole K and V in
+//      VMEM and takes the statistic there.
+//   4. K1 with the o projection (NWT_ATTN_FUSED=2): the attention writes
 //      its normalised output in f32 (the TPU kernel requantizes the f32
 //      pair tile, :466); ln_quant_kernel without LN quantizes each (row,
 //      head pair) of 128 columns; fc2_gemm_kernel (common.cuh) runs the o
@@ -152,19 +160,20 @@
 // TPU's lanes are 128 wide; here a head is a warpgroup's wgmma tile of any
 // width the kernel is built for (dh = 32, 64 or 128; the int8 variants, on
 // the paired path only, dh = 64), so no pairing and no masked dots. Their
-// query blocks of 256 rows are 128 here (64 for the int8 variants): the
-// rows of a block share one K/V tile stream through shared memory.
+// query blocks of 256 rows are 128 here: the rows of a block share one K/V
+// tile stream through shared memory.
 
 #include "common.cuh"
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 
+#include <climits>
+#include <type_traits>
+
 namespace nwt {
 
-constexpr int AQ = 64;      // query rows per warpgroup (wgmma) or int8 block
+constexpr int AQ = 64;      // query rows per consumer warpgroup
 constexpr int AK = 64;      // keys per tile
-constexpr int VLD = AK + 8; // padded Vt row (36 words): no bank conflicts
-constexpr int KLD8 = 64 + 16;  // padded int8 row (20 words): no conflicts
 
 enum : int { I8_SCORES = 1, I8_PV = 2, FUSE_O = 4 };   // entry points' flags
 
@@ -183,7 +192,8 @@ struct AttnArgs {
                    // int8 scores the softmax scale of sq * (sk * scale)
   // int8 variants (flat layout, dh = 64): q quantized per (row, head) with
   // scales qs[(b T + t) H + h]; k and v quantized per (b, h) from the
-  // absmax bits kamax[b H + h], vamax[b H + h]
+  // absmax bits kamax[(b H + h) AMAX_PARTS + i], vamax likewise; qq and
+  // kq in q's layout, vq (B, H, 64, T) as i8_quant_kv_kernel lays it
   const int8_t* qq;
   const float* qs;
   const int8_t* kq;
@@ -196,13 +206,6 @@ struct AttnArgs {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two bf16 of q, scaled in f32 and rounded back to bf16
-__device__ __forceinline__ uint32_t load_q2(const bf16* p, float scale) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  return pack_bf16(__fmul_rn(__low2float(v), scale),
-                   __fmul_rn(__high2float(v), scale));
 }
 
 // ---------------------------------------------------------------------------
@@ -282,6 +285,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 #define NWT_ACC16(C)                                                    \
   C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]), \
@@ -291,12 +299,18 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   NWT_ACC16(C), C(d[16]), C(d[17]), C(d[18]), C(d[19]), C(d[20]),        \
       C(d[21]), C(d[22]), C(d[23]), C(d[24]), C(d[25]), C(d[26]),        \
       C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31])
-#define NWT_WGMMA_SS                                                         \
-  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                               \
-  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                    \
+#define NWT_D32                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+  "%30, %31}"
+#define NWT_WGMMA_SS                                                         \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " NWT_D32            \
+  ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+#define NWT_WGMMA_S8_SS                                                      \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " NWT_D32                \
+  ", %32, %33, p;\n}\n"
 
 // S = Q K^T: D (64 x 64 f32) = A B + (ACC ? D : 0), A (64 x 16) and B
 // (16 x 64) both K-major in shared memory. With ACC = 0 the accumulator
@@ -339,6 +353,31 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
+// int8 S = Q K^T: D (64 x 64 s32) = A B + (ACC ? D : 0), A (64 x 32 s8)
+// and B (32 x 64 s8) both K-major in shared memory (8-bit wgmma takes no
+// other layout); ACC = 0 as in wgmma_ss_n64
+template <int ACC>
+__device__ __forceinline__ void wgmma_s8_ss_n64(uint32_t (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  if constexpr (ACC)
+    asm volatile(NWT_WGMMA_S8_SS : NWT_ACC32("+r") : "l"(da), "l"(db), "n"(1));
+  else
+    asm volatile(NWT_WGMMA_S8_SS : NWT_ACC32("=r") : "l"(da), "l"(db), "n"(0));
+}
+
+// int8 O += P V: D (64 x 64 s32) += A (64 x 32 s8, registers) B (32 x 64
+// s8, shared memory, K-major: vq's (dh, key) rows)
+__device__ __forceinline__ void wgmma_s8_rs_n64(uint32_t (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " NWT_D32
+      ", {%32, %33, %34, %35}, %36, p;\n}\n"
+      : NWT_ACC32("+r")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
 // named barrier ID over one warpgroup (bar 0 is __syncthreads); an
 // immediate id, so ptxas reserves no more barriers than the kernel uses
 template <int ID>
@@ -357,11 +396,10 @@ __device__ __forceinline__ float exp_sfu(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 attention: TMA ring + wgmma, two passes (source note above)
+// The attention kernel: TMA ring + wgmma, two passes (source note above)
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 2 * AQ;         // query rows per block: two warpgroups
-constexpr int NSTAGE = 4;          // ring stages
 constexpr int ATTN_THREADS = 384;  // 2 consumer warpgroups + 1 producer
 // registers a thread: 168 at launch (384 threads, 3 warps per SM
 // sub-partition), then the producer gives its share to the consumers
@@ -372,27 +410,103 @@ struct Flag {
   static constexpr bool value = B;
 };
 
-// one K or V tile of 64 keys at head width DH, as the TMA leaves it
-template <int DH>
-struct KVTile {
-  static constexpr int BOX = DH < 64 ? DH : 64;        // columns per box
-  static constexpr int NBOX = DH / BOX;                 // boxes side by side
-  static constexpr int ROW = BOX * 2;                  // bytes per box row
+// one 64-row operand tile as the TMA leaves it: rows of RB bytes (a bf16
+// q/K/V row of dh: 2 dh bytes; an int8 q/K row of dh = 64 or vq row of 64
+// keys: 64 bytes), in boxes of at most 128 bytes a row side by side
+template <int RB>
+struct Tile {
+  static constexpr int ROW = RB < 128 ? RB : 128;      // bytes per box row
+  static constexpr int NBOX = RB / ROW;                 // boxes side by side
   static constexpr int BOX_BYTES = AK * ROW;
   static constexpr int BYTES = NBOX * BOX_BYTES;
   static constexpr uint32_t SWIZZLE = ROW == 128 ? 1 : 2;   // descriptor
   static constexpr uint32_t SBO = 8 * ROW;             // 8-row group step
-  // ring, one q tile (the same layout) per consumer warpgroup, and 1 KB to
-  // align them (SWIZZLE_128B needs 1024-byte boxes)
-  static constexpr int SMEM = (NSTAGE * 2 + 2) * BYTES + 1024;
+  // 16-byte chunk c of row r after the TMA's swizzle (c ^ (r % 8) under
+  // 128-byte rows, c ^ (r / 2 % 4) under 64-byte rows)
+  static __device__ __forceinline__ int chunk(int r, int c) {
+    return c ^ (ROW == 128 ? (r & 7) : ((r >> 1) & 3));
+  }
 };
 
-template <int DH, typename OutT>
+// one instantiation's operand tiles and ring: q and K tiles (bf16, or int8
+// rows of dh = 64 bytes with I8S), V tiles (bf16 [key][dh], or int8 [dh]
+// [key] with I8PV); the ring, one q tile per consumer warpgroup, and 1 KB
+// to align them (SWIZZLE_128B needs 1024-byte boxes)
+template <int DH, bool I8S, bool I8PV>
+struct AttnCfg {
+  using QK = Tile<I8S ? DH : 2 * DH>;
+  using V = Tile<I8PV ? AK : 2 * DH>;
+  static constexpr int NSTAGE = I8S || I8PV ? 8 : 4;
+  static constexpr int STAGE = QK::BYTES + V::BYTES;
+  static constexpr int SMEM = NSTAGE * STAGE + 2 * QK::BYTES + 1024;
+};
+
+// The int8 variants' per-head absmax (int8_prep) is kept as AMAX_PARTS
+// maxima over row ranges, so that enough blocks read k and v at once; every
+// reader takes their max (exact, in any order).
+constexpr int AMAX_PARTS = 8;
+
+// a head's int8 scale from its AMAX_PARTS absmax bits: max(absmax, 1e-6) / 127
+__device__ __forceinline__ float head_scale(const unsigned* parts) {
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < AMAX_PARTS; ++i) m = fmaxf(m, __uint_as_float(parts[i]));
+  return __fdiv_rn(fmaxf(m, 1e-6f), 127.0f);
+}
+
+// Position of key j (0..63 of a tile) in vq's key order: inside each
+// 32-key step, slot 4 t + i of the 8-bit A fragment (thread t of a quad)
+// holds the probability the scores' accumulator gives that thread: keys
+// 2 t, 2 t + 1 of 8-key groups 0 and 1 (slots 0..15), of groups 2 and 3
+// (slots 16..31).
+__device__ __forceinline__ int key_slot(int j) {
+  const int w = j & 31, half = w >> 4, grp = (w >> 3) & 1, r = w & 7;
+  return (j & ~31) + half * 16 + (r >> 1) * 4 + grp * 2 + (r & 1);
+}
+
+// The S accumulator holds f32 (bf16 scores) or s32 (int8 scores) bits; the
+// softmax reads and writes f32 values through these, in place.
+__device__ __forceinline__ float s_get(float x) { return x; }
+__device__ __forceinline__ float s_get(uint32_t x) { return __uint_as_float(x); }
+__device__ __forceinline__ void s_set(float& x, float v) { x = v; }
+__device__ __forceinline__ void s_set(uint32_t& x, float v) {
+  x = __float_as_uint(v);
+}
+__device__ __forceinline__ uint32_t s_bits(float x) { return __float_as_uint(x); }
+__device__ __forceinline__ uint32_t s_bits(uint32_t x) { return x; }
+
+// Exact integer <-> f32 on the FMA and integer pipes, for |i| < 2^22: the
+// f32 1.5 2^23 + i holds i in its low mantissa bits (the conversion
+// instructions would share the SFU's quarter rate with the exp). int8
+// scores: f32(dot) with |dot| <= 64 127^2; int8 PV: rint(x) for x in
+// [0, 127] is the low byte of x + 1.5 2^23, rounded to nearest even as
+// rintf rounds.
+constexpr uint32_t MAGIC_BITS = 0x4B400000u;
+constexpr float MAGIC = 12582912.0f;
+__device__ __forceinline__ float i2f_exact(uint32_t i) {
+  return __fsub_rn(__uint_as_float(i + MAGIC_BITS), MAGIC);
+}
+// the low bytes of four such floats, the first lowest
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b,
+                                                   uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+template <int DH, typename OutT, bool I8S, bool I8PV>
 __global__ void __launch_bounds__(ATTN_THREADS, 1)
 attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const AttnArgs p) {
-  using L = KVTile<DH>;
+  static_assert(!(I8S || I8PV) || DH == 64, "int8 variants: dh = 64");
+  using C = AttnCfg<DH, I8S, I8PV>;
+  using QK = typename C::QK;
+  using VT = typename C::V;
+  constexpr int NSTAGE = C::NSTAGE;
+  // O: s32 under int8 PV, else f32; per 64-column box of the head
+  using OAcc = std::conditional_t<I8PV, uint32_t, float>;
+  using SAcc = std::conditional_t<I8S, uint32_t, float>;
   constexpr int NO = DH < 64 ? 16 : 32;   // accumulators per 64-column box
+  constexpr int OB = DH / 64 + (DH < 64);  // O boxes
   extern __shared__ uint8_t attn_smem[];
   __shared__ __align__(8) uint64_t bars[2 * NSTAGE];   // full, then empty
   const uint32_t ring = (smem_u32(attn_smem) + 1023) & ~1023u;
@@ -403,6 +517,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
   const int n_wg = min(2, (p.T - q0) / AQ);
   const long long off = blockIdx.z * p.sb + blockIdx.y * p.sh;
   const int row0 = (int)(off / p.st), col0 = (int)(off % p.st);
+  const int bh = blockIdx.z * p.H + blockIdx.y;
   if (threadIdx.x == 0) {
     for (int s = 0; s < NSTAGE; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -421,15 +536,22 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
         const bool pv = it >= n_tiles;
         const int key = (pv ? it - n_tiles : it) * AK;
         if (it >= NSTAGE) mbar_wait(empty + 8 * s, ((it / NSTAGE) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, (pv ? 2 : 1) * L::BYTES);
-        const uint32_t kd = ring + s * 2 * L::BYTES;
+        mbar_expect_tx(full + 8 * s, QK::BYTES + (pv ? VT::BYTES : 0));
+        const uint32_t kd = ring + s * C::STAGE;
 #pragma unroll
-        for (int b = 0; b < L::NBOX; ++b) {
-          tma_load(kd + b * L::BOX_BYTES, &tk, col0 + b * L::BOX, row0 + key,
+        for (int b = 0; b < QK::NBOX; ++b)   // columns: elements of K
+          tma_load(kd + b * QK::BOX_BYTES, &tk,
+                   col0 + b * QK::ROW / (I8S ? 1 : 2), row0 + key,
                    full + 8 * s);
-          if (pv)
-            tma_load(kd + L::BYTES + b * L::BOX_BYTES, &tv, col0 + b * L::BOX,
-                     row0 + key, full + 8 * s);
+        if (pv) {
+          if constexpr (I8PV) {   // vq (B H 64, T): the head's 64 dh rows
+            tma_load(kd + QK::BYTES, &tv, key, bh * 64, full + 8 * s);
+          } else {
+#pragma unroll
+            for (int b = 0; b < VT::NBOX; ++b)
+              tma_load(kd + QK::BYTES + b * VT::BOX_BYTES, &tv,
+                       col0 + b * VT::ROW / 2, row0 + key, full + 8 * s);
+          }
         }
       }
     }
@@ -442,30 +564,36 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
   const int g = lane >> 2, t = lane & 3;
   const int r0 = q0 + wg * AQ + warp * 16 + g, r1 = r0 + 8;
 
-  // q of the warpgroup's 64 rows, scaled on the way in (bf16(f32(q) *
-  // scale)), stored as a K tile lies: the A operand of QK^T, swizzled as
-  // the TMA swizzles K (16-byte chunk c of row r at c ^ (r % 8) under
-  // 128-byte rows, c ^ (r / 2 % 4) under 64-byte rows)
-  const uint32_t qs = ring + (NSTAGE * 2 + wg) * L::BYTES;
+  // q of the warpgroup's 64 rows, stored as a K tile lies: the A operand
+  // of QK^T, swizzled as the TMA swizzles K. bf16 q is scaled on the way
+  // in (bf16(f32(q) * scale)); int8 q is copied as it is, its scale
+  // entering the scores' row factors f0 (row r0), f1 (row r1).
+  const uint32_t qs = ring + NSTAGE * C::STAGE + wg * QK::BYTES;
+  float f0 = 0.f, f1 = 0.f;
   {
-    constexpr int CPR = DH / 8;                 // 16-byte chunks a row
+    constexpr int CPR = QK::BYTES / AQ / 16;    // 16-byte chunks a row
+    constexpr int CPB = QK::ROW / 16;           // 16-byte chunks a box row
     const int tid = threadIdx.x & 127;
 #pragma unroll
     for (int i = 0; i < AQ * CPR / 128; ++i) {
       const int ch = tid + i * 128, r = ch / CPR, c = ch % CPR;
-      const int4 raw = *reinterpret_cast<const int4*>(
-          p.q + off + (long long)(q0 + wg * AQ + r) * p.st + c * 8);
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-      const int cb = c % (L::BOX / 8);
-      const int sw = L::ROW == 128 ? (r & 7) : ((r >> 1) & 3);
-      const uint32_t dst = qs + (c / (L::BOX / 8)) * L::BOX_BYTES + r * L::ROW +
-                           ((cb ^ sw) << 4);
+      const long long row = off + (long long)(q0 + wg * AQ + r) * p.st;
+      const uint32_t dst = qs + (c / CPB) * QK::BOX_BYTES + r * QK::ROW +
+                           (QK::chunk(r, c % CPB) << 4);
       uint32_t v[4];
+      if constexpr (I8S) {
+        const int4 raw = *reinterpret_cast<const int4*>(p.qq + row + c * 16);
+        v[0] = raw.x, v[1] = raw.y, v[2] = raw.z, v[3] = raw.w;
+      } else {
+        const int4 raw = *reinterpret_cast<const int4*>(p.q + row + c * 8);
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
-        v[e] = pack_bf16(__fmul_rn(__low2float(h), p.q_scale),
-                         __fmul_rn(__high2float(h), p.q_scale));
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 h =
+              *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+          v[e] = pack_bf16(__fmul_rn(__low2float(h), p.q_scale),
+                           __fmul_rn(__high2float(h), p.q_scale));
+        }
       }
       asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
                    "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]) : "memory");
@@ -476,23 +604,42 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
       warpgroup_sync<1>();
     else
       warpgroup_sync<2>();
+    if constexpr (I8S) {
+      const float ks = __fmul_rn(head_scale(p.kamax + bh * AMAX_PARTS),
+                                 p.q_scale);
+      const size_t q_row = ((size_t)blockIdx.z * p.T + r0) * p.H + blockIdx.y;
+      f0 = __fmul_rn(p.qs[q_row], ks);
+      f1 = __fmul_rn(p.qs[q_row + (size_t)8 * p.H], ks);
+    }
   }
 
   // S = Q K^T of ring load `it` (its stage's K tile) as one wgmma group;
-  // the first 16-deep step writes S fresh
-  auto issue_s = [&](float (&s)[32], int it) {
+  // the first k-step writes S fresh
+  auto issue_s = [&](SAcc (&s)[32], int it) {
     mbar_wait(full + 8 * (it % NSTAGE), (it / NSTAGE) & 1);
-    const uint32_t kd = ring + (it % NSTAGE) * 2 * L::BYTES;
+    const uint32_t kd = ring + (it % NSTAGE) * C::STAGE;
     wgmma_fence();
+    if constexpr (I8S) {
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const uint32_t at = (kk / 4) * L::BOX_BYTES + (kk % 4) * 32;
-      const uint64_t da = smem_desc(qs + at, L::SBO, L::SWIZZLE);
-      const uint64_t db = smem_desc(kd + at, L::SBO, L::SWIZZLE);
-      if (kk == 0)
-        wgmma_ss_n64<0>(s, da, db);
-      else
-        wgmma_ss_n64<1>(s, da, db);
+      for (int kk = 0; kk < 2; ++kk) {       // 32 bytes of dh a step
+        const uint64_t da = smem_desc(qs + kk * 32, QK::SBO, QK::SWIZZLE);
+        const uint64_t db = smem_desc(kd + kk * 32, QK::SBO, QK::SWIZZLE);
+        if (kk == 0)
+          wgmma_s8_ss_n64<0>(s, da, db);
+        else
+          wgmma_s8_ss_n64<1>(s, da, db);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t at = (kk / 4) * QK::BOX_BYTES + (kk % 4) * 32;
+        const uint64_t da = smem_desc(qs + at, QK::SBO, QK::SWIZZLE);
+        const uint64_t db = smem_desc(kd + at, QK::SBO, QK::SWIZZLE);
+        if (kk == 0)
+          wgmma_ss_n64<0>(s, da, db);
+        else
+          wgmma_ss_n64<1>(s, da, db);
+      }
     }
     wgmma_commit();
   };
@@ -500,27 +647,57 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
   auto release = [&](int it) {
     if ((threadIdx.x & 127) == 0) mbar_arrive(empty + 8 * (it % NSTAGE));
   };
+  // int8 scores: s = f32(dot) * f of the row, in place (no-op for bf16)
+  auto scale = [&](SAcc (&s)[32]) {
+    if constexpr (I8S) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s_set(s[i], __fmul_rn(i2f_exact(s[i]), (i & 2) ? f1 : f0));
+    }
+  };
   // keys >= n_real at -1e30; selects, no branches: a branch that defines
   // accumulator registers while a wgmma is in flight serializes them
-  auto mask = [&](float (&s)[32], int kt) {
+  auto mask = [&](SAcc (&s)[32], int kt) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[4 * j + e] = kt * AK + j * 8 + t * 2 + (e & 1) >= n_real
-                           ? -1e30f : s[4 * j + e];
+        s_set(s[4 * j + e], kt * AK + j * 8 + t * 2 + (e & 1) >= n_real
+                                ? -1e30f : s_get(s[4 * j + e]));
   };
 
   // pass 1: row max, two tiles at a time (the second's scores are computed
   // while the first's max is taken); the last tile alone, masked. Every
-  // group is retired before a loop's back edge.
-  float sa[32], sb[32];
+  // group is retired before a loop's back edge. With int8 scores the max
+  // is taken over the integer dots and scaled once: f32 conversion and a
+  // product by f > 0 keep the order, so the result is the max of the
+  // scaled scores.
+  SAcc sa[32], sb[32];
   float m0 = -3.0e38f, m1 = -3.0e38f;
-  auto tile_max = [&](float (&s)[32]) {
+  int im0 = INT_MIN, im1 = INT_MIN;
+  auto tile_max = [&](SAcc (&s)[32]) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      m0 = fmaxf(m0, fmaxf(s[4 * j], s[4 * j + 1]));
-      m1 = fmaxf(m1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      if constexpr (I8S) {
+        im0 = max(im0, max((int)s[4 * j], (int)s[4 * j + 1]));
+        im1 = max(im1, max((int)s[4 * j + 2], (int)s[4 * j + 3]));
+      } else {
+        m0 = fmaxf(m0, fmaxf(s_get(s[4 * j]), s_get(s[4 * j + 1])));
+        m1 = fmaxf(m1, fmaxf(s_get(s[4 * j + 2]), s_get(s[4 * j + 3])));
+      }
+    }
+  };
+  // the last tile's keys >= n_real out of the max
+  auto mask_max = [&](SAcc (&s)[32], int kt) {
+    if constexpr (I8S) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = kt * AK + j * 8 + t * 2 + (e & 1) >= n_real
+                             ? 0x80000000u : s[4 * j + e];
+    } else {
+      mask(s, kt);
     }
   };
   int kt = 0;
@@ -541,8 +718,12 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
     wgmma_wait<0>();
     fence_regs(sa);
     release(kt);
-    if (kt == n_tiles - 1) mask(sa, kt);
+    if (kt == n_tiles - 1) mask_max(sa, kt);
     tile_max(sa);
+  }
+  if constexpr (I8S) {   // a thread may see masked keys only: INT_MIN
+    m0 = __fmul_rn(__int2float_rn(im0), f0);
+    m1 = __fmul_rn(__int2float_rn(im1), f1);
   }
 #pragma unroll
   for (int off2 = 1; off2 <= 2; off2 <<= 1) {
@@ -550,55 +731,91 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
     m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off2));
   }
 
-  // pass 2: p = exp(s - m), l += p, O += bf16(p) V, in FA3's order: the
-  // scores of tile kt and the PV product of tile kt - 1 are issued
-  // together, and tile kt's exp runs while the tensor cores finish that
-  // product. O starts at zero while no wgmma is in flight; every PV
-  // product then accumulates into it in place.
-  float o[DH / 64 + (DH < 64)][NO];
+  // pass 2: p = exp(s - m), l += p, O += bf16(p) V (int8 PV: pq = rint(p
+  // 127), l += pq, O_int += pq vq), in FA3's order: the scores of tile kt
+  // and the PV product of tile kt - 1 are issued together, and tile kt's
+  // exp runs while the tensor cores finish that product. O starts at zero
+  // while no wgmma is in flight; every PV product then accumulates into it
+  // in place.
+  OAcc o[OB][NO];
 #pragma unroll
-  for (int b = 0; b < DH / 64 + (DH < 64); ++b) {
+  for (int b = 0; b < OB; ++b) {
 #pragma unroll
-    for (int i = 0; i < NO; ++i) o[b][i] = 0.f;
+    for (int i = 0; i < NO; ++i) o[b][i] = 0;
     fence_regs(o[b]);
   }
-  uint32_t pa[4][4];                 // A fragments of bf16(p), 16 keys each
+  // A fragments of p: bf16, 16 keys each (4 steps a tile), or int8, 32
+  // keys each (2 steps)
+  constexpr int KSTEPS = I8PV ? 2 : 4;
+  uint32_t pa[KSTEPS][4];
   float l0 = 0.f, l1 = 0.f;
+  uint32_t lq0 = 0, lq1 = 0;   // int8 PV: sums of the pq floats' bits
   const int it0 = n_tiles;           // pass 2's first ring load
   auto issue_pv = [&](int it) {
-    const uint32_t vd = ring + (it % NSTAGE) * 2 * L::BYTES + L::BYTES;
+    const uint32_t vd = ring + (it % NSTAGE) * C::STAGE + QK::BYTES;
     wgmma_fence();
+    if constexpr (I8PV) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < 2; ++kk)   // 32 keys (bytes) a step
+        wgmma_s8_rs_n64(o[0], pa[kk],
+                        smem_desc(vd + kk * 32, VT::SBO, VT::SWIZZLE));
+    } else {
 #pragma unroll
-      for (int b = 0; b < L::NBOX; ++b) {
-        const uint64_t desc = smem_desc(
-            vd + b * L::BOX_BYTES + kk * 16 * L::ROW, L::SBO, L::SWIZZLE);
-        if constexpr (DH < 64)
-          wgmma_rs_n32(o[b], pa[kk], desc);
-        else
-          wgmma_rs_n64(o[b], pa[kk], desc);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int b = 0; b < VT::NBOX; ++b) {
+          const uint64_t desc = smem_desc(
+              vd + b * VT::BOX_BYTES + kk * 16 * VT::ROW, VT::SBO,
+              VT::SWIZZLE);
+          if constexpr (DH < 64)
+            wgmma_rs_n32(o[b], pa[kk], desc);
+          else
+            wgmma_rs_n64(o[b], pa[kk], desc);
+        }
+    }
     wgmma_commit();
   };
   auto softmax = [&]() {             // in place on sa
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      sa[4 * j] = exp_sfu(__fsub_rn(sa[4 * j], m0));
-      sa[4 * j + 1] = exp_sfu(__fsub_rn(sa[4 * j + 1], m0));
-      sa[4 * j + 2] = exp_sfu(__fsub_rn(sa[4 * j + 2], m1));
-      sa[4 * j + 3] = exp_sfu(__fsub_rn(sa[4 * j + 3], m1));
-      l0 += sa[4 * j] + sa[4 * j + 1];
-      l1 += sa[4 * j + 2] + sa[4 * j + 3];
+      float pe[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pe[e] = exp_sfu(__fsub_rn(s_get(sa[4 * j + e]), e < 2 ? m0 : m1));
+      if constexpr (I8PV) {   // pq = rint(p * 127) in 1.5 2^23 + pq
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float y = __fadd_rn(__fmul_rn(pe[e], 127.0f), MAGIC);
+          (e < 2 ? lq0 : lq1) += __float_as_uint(y);
+          s_set(sa[4 * j + e], y);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s_set(sa[4 * j + e], pe[e]);
+        l0 += pe[0] + pe[1];
+        l1 += pe[2] + pe[3];
+      }
     }
   };
   auto pack = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = pack_bf16(sa[8 * kk], sa[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(sa[8 * kk + 2], sa[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(sa[8 * kk + 4], sa[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(sa[8 * kk + 6], sa[8 * kk + 7]);
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      if constexpr (I8PV) {   // sa[4 j + e]: keys 8 j + 2 t + e % 2
+        const SAcc* s = sa + 16 * kk;
+        pa[kk][0] = pack_low_bytes(s_bits(s[0]), s_bits(s[1]), s_bits(s[4]),
+                                   s_bits(s[5]));
+        pa[kk][1] = pack_low_bytes(s_bits(s[2]), s_bits(s[3]), s_bits(s[6]),
+                                   s_bits(s[7]));
+        pa[kk][2] = pack_low_bytes(s_bits(s[8]), s_bits(s[9]), s_bits(s[12]),
+                                   s_bits(s[13]));
+        pa[kk][3] = pack_low_bytes(s_bits(s[10]), s_bits(s[11]),
+                                   s_bits(s[14]), s_bits(s[15]));
+      } else {
+        pa[kk][0] = pack_bf16(s_get(sa[8 * kk]), s_get(sa[8 * kk + 1]));
+        pa[kk][1] = pack_bf16(s_get(sa[8 * kk + 2]), s_get(sa[8 * kk + 3]));
+        pa[kk][2] = pack_bf16(s_get(sa[8 * kk + 4]), s_get(sa[8 * kk + 5]));
+        pa[kk][3] = pack_bf16(s_get(sa[8 * kk + 6]), s_get(sa[8 * kk + 7]));
+      }
     }
   };
   // S of tile kt with the PV product of tile kt - 1; the last tile masked
@@ -607,6 +824,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
     issue_pv(it0 + kt - 1);
     wgmma_wait<1>();
     fence_regs(sa);
+    scale(sa);
     if constexpr (decltype(last)::value) mask(sa, kt);
     softmax();
     wgmma_wait<0>();
@@ -617,6 +835,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
   issue_s(sa, it0);
   wgmma_wait<0>();
   fence_regs(sa);
+  scale(sa);
   if (n_tiles == 1) mask(sa, 0);
   softmax();
   pack();
@@ -625,23 +844,47 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
   issue_pv(it0 + n_tiles - 1);
   wgmma_wait<0>();
 #pragma unroll
-  for (int b = 0; b < DH / 64 + (DH < 64); ++b) fence_regs(o[b]);
+  for (int b = 0; b < OB; ++b) fence_regs(o[b]);
+
+  float sv = 1.f;
+  if constexpr (I8PV) {
 #pragma unroll
-  for (int off2 = 1; off2 <= 2; off2 <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off2);
+    for (int off2 = 1; off2 <= 2; off2 <<= 1) {
+      lq0 += __shfl_xor_sync(0xffffffffu, lq0, off2);
+      lq1 += __shfl_xor_sync(0xffffffffu, lq1, off2);
+    }
+    // less the 64 magic floats of each tile's row, mod 2^32; sum pq <=
+    // 127 T < 2^24: exact in f32, as the reference's f32 sum
+    const uint32_t magic = 64u * (uint32_t)n_tiles * MAGIC_BITS;
+    l0 = fmaxf((float)(int)(lq0 - magic), 1.0f);
+    l1 = fmaxf((float)(int)(lq1 - magic), 1.0f);
+    sv = head_scale(p.vamax + bh * AMAX_PARTS);
+  } else {
+#pragma unroll
+    for (int off2 = 1; off2 <= 2; off2 <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off2);
+    }
   }
+  auto out = [&](OAcc x, float l) {
+    float v;
+    if constexpr (I8PV)
+      v = __fmul_rn(__fdiv_rn(__int2float_rn((int)x), l), sv);
+    else
+      v = __fdiv_rn(x, l);
+    return v;
+  };
 
   OutT* O = static_cast<OutT*>(p.o) + off;
 #pragma unroll
-  for (int b = 0; b < DH / 64 + (DH < 64); ++b)
+  for (int b = 0; b < OB; ++b)
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
       const int c = b * 64 + j * 8 + t * 2;
-      const float v00 = __fdiv_rn(o[b][4 * j], l0);
-      const float v01 = __fdiv_rn(o[b][4 * j + 1], l0);
-      const float v10 = __fdiv_rn(o[b][4 * j + 2], l1);
-      const float v11 = __fdiv_rn(o[b][4 * j + 3], l1);
+      const float v00 = out(o[b][4 * j], l0);
+      const float v01 = out(o[b][4 * j + 1], l0);
+      const float v10 = out(o[b][4 * j + 2], l1);
+      const float v11 = out(o[b][4 * j + 3], l1);
       if constexpr (sizeof(OutT) == 4) {
         *reinterpret_cast<float2*>(O + r0 * p.st + c) = make_float2(v00, v01);
         *reinterpret_cast<float2*>(O + r1 * p.st + c) = make_float2(v10, v11);
@@ -678,20 +921,23 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// K or V as a (rows, cols) bf16 matrix of row pitch cols, in boxes of 64
-// rows by min(dh, 64) columns
-template <int DH>
-inline bool kv_tensor_map(CUtensorMap* map, const bf16* z, long long rows,
-                          long long cols) {
-  using L = KVTile<DH>;
+// z as a (rows, cols) matrix of row pitch cols, bf16 or int8 (I8), in boxes
+// of 64 rows by one Tile<RB> box row
+template <int RB, bool I8>
+inline bool tile_tensor_map(CUtensorMap* map, const void* z, long long rows,
+                            long long cols) {
+  using L = Tile<RB>;
+  constexpr int ES = I8 ? 1 : 2;             // bytes an element
   EncodeTiledFn enc = encode_tiled();
   if (!enc) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t pitch[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)L::BOX, (cuuint32_t)AK};
+  const cuuint64_t pitch[1] = {(cuuint64_t)cols * ES};
+  const cuuint32_t box[2] = {(cuuint32_t)(L::ROW / ES), (cuuint32_t)AK};
   const cuuint32_t unit[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<bf16*>(z), dims, pitch, box, unit,
+  return enc(map,
+             I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             2, const_cast<void*>(z), dims, pitch, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE,
              L::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                            : CU_TENSOR_MAP_SWIZZLE_64B,
@@ -699,26 +945,31 @@ inline bool kv_tensor_map(CUtensorMap* map, const bf16* z, long long rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// grid (ceil(T / 128), H, B); a.sb, a.sh, a.st as AttnArgs says
-template <int DH, typename OutT>
+// grid (ceil(T / 128), H, B); a.sb, a.sh, a.st as AttnArgs says. K: a.k
+// (bf16) or a.kq (int8, I8S) in the layout of q; V: a.v (bf16, the same
+// layout) or a.vq ((B H 64, T) int8, I8PV).
+template <int DH, typename OutT, bool I8S = false, bool I8PV = false>
 inline cudaError_t launch_attn_wgmma(AttnArgs a, int B, int H, int T,
                                      cudaStream_t st) {
-  using L = KVTile<DH>;
+  using C = AttnCfg<DH, I8S, I8PV>;
   a.T = T;
   a.H = H;
   CUtensorMap tk, tv;
   const long long rows = (long long)B * a.sb / a.st;
-  if (!kv_tensor_map<DH>(&tk, a.k, rows, a.st) ||
-      !kv_tensor_map<DH>(&tv, a.v, rows, a.st))
-    return cudaErrorInvalidValue;
+  const bool ok =
+      (I8S ? tile_tensor_map<DH, true>(&tk, a.kq, rows, a.st)
+           : tile_tensor_map<2 * DH, false>(&tk, a.k, rows, a.st)) &&
+      (I8PV ? tile_tensor_map<AK, true>(&tv, a.vq, (long long)B * H * 64, T)
+            : tile_tensor_map<2 * DH, false>(&tv, a.v, rows, a.st));
+  if (!ok) return cudaErrorInvalidValue;
   // at every launch: a static flag here would be one symbol for every
   // library that includes this file (K12's too), each with its own kernel
   cudaError_t e = cudaFuncSetAttribute(
-      attn_wgmma_kernel<DH, OutT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+      attn_wgmma_kernel<DH, OutT, I8S, I8PV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return e;
-  attn_wgmma_kernel<DH, OutT>
-      <<<dim3((T + BQ - 1) / BQ, H, B), ATTN_THREADS, L::SMEM, st>>>(tk, tv,
+  attn_wgmma_kernel<DH, OutT, I8S, I8PV>
+      <<<dim3((T + BQ - 1) / BQ, H, B), ATTN_THREADS, C::SMEM, st>>>(tk, tv,
                                                                      a);
   return cudaGetLastError();
 }
@@ -734,421 +985,176 @@ inline cudaError_t launch_attn(const AttnArgs& a, int dh, int T, int H, int B,
   }
 }
 
-// ---------------------------------------------------------------------------
-// int8 variants (mma.sync): one (batch row, head) per blockIdx.(z, y), 64
-// query rows per block of 4 warps, heads of 64
-// ---------------------------------------------------------------------------
-
-// four non-negative int8 values (0..127), the lowest first
-__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
-  return (uint32_t)a | ((uint32_t)b << 8) | ((uint32_t)c << 16) |
-         ((uint32_t)d << 24);
-}
-
-// a head's int8 scale from its absmax bits: max(absmax, 1e-6) / 127
-__device__ __forceinline__ float head_scale(unsigned bits) {
-  return __fdiv_rn(fmaxf(__uint_as_float(bits), 1e-6f), 127.0f);
-}
-
-// Position of key j (0..63 of a tile) in the int8 PV operand's k order:
-// inside each 32-key step, slot 4 t + i of the A fragment (thread t of a
-// quad) holds the probability the scores' accumulator gives that thread:
-// keys 2 t, 2 t + 1 of 8-key groups 0 and 1 (slots 0..15), of groups 2
-// and 3 (slots 16..31).
-__device__ __forceinline__ int key_slot(int j) {
-  const int w = j & 31, half = w >> 4, grp = (w >> 3) & 1, r = w & 7;
-  return (j & ~31) + half * 16 + (r >> 1) * 4 + grp * 2 + (r & 1);
-}
-
-// S (16 x 64 keys) of this warp's query rows against the bf16 key tile Ks
-// ([key][DH + 8] row-major), keys >= n_real set to -1e30 (int8 PV alone).
-template <int DH>
-__device__ __forceinline__ void scores_tile(const bf16* Ks,
-                                            const uint32_t (&qa)[DH / 16][4],
-                                            int key0, int n_real,
-                                            float (&s)[8][4]) {
-  constexpr int LD = DH + 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const uint32_t b0 =
-          *reinterpret_cast<const uint32_t*>(Ks + (j * 8 + g) * LD + kk * 16 + t * 2);
-      const uint32_t b1 =
-          *reinterpret_cast<const uint32_t*>(Ks + (j * 8 + g) * LD + kk * 16 + 8 + t * 2);
-      mma_bf16(s[j], qa[kk], b0, b1);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (key0 + j * 8 + t * 2 + (e & 1) >= n_real) s[j][e] = -1e30f;
-  }
-}
-
-// The same with int8 q (dh = 64) against the int8 key tile Ks8 ([key][KLD8]):
-// s = f32(int32 dot) * f, f = sq * (sk * scale) of the row (f0: row g,
-// f1: row g + 8).
-__device__ __forceinline__ void scores_tile_s8(const int8_t* Ks8,
-                                               const uint32_t (&qa)[2][4],
-                                               int key0, int n_real, float f0,
-                                               float f1, float (&s)[8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    int c[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const int8_t* kr = Ks8 + (j * 8 + g) * KLD8 + kk * 32 + t * 4;
-      mma_s8(c, qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-             *reinterpret_cast<const uint32_t*>(kr + 16));
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[j][e] = __fmul_rn(__int2float_rn(c[e]), e < 2 ? f0 : f1);
-      if (key0 + j * 8 + t * 2 + (e & 1) >= n_real) s[j][e] = -1e30f;
-    }
-  }
-}
-
-template <bool I8S, bool I8PV, typename OutT>
-__global__ void __launch_bounds__(128) attn_i8_kernel(AttnArgs p) {
-  static_assert(I8S || I8PV, "bf16 scores and PV: attn_wgmma_kernel");
-  constexpr int DH = 64;
-  constexpr int LD = DH + 8;          // padded Ks row: no bank conflicts
-  constexpr int CHUNKS = AK * DH / 8; // 16-byte chunks of one bf16 K or V tile
-  constexpr int KS_BYTES = I8S ? AK * KLD8 : AK * LD * 2;
-  constexpr int VS_BYTES = I8PV ? DH * KLD8 : DH * VLD * 2;
-  __shared__ __align__(16) unsigned char ks_raw[KS_BYTES];
-  __shared__ __align__(16) unsigned char vs_raw[VS_BYTES];
-  bf16 (*Ks)[LD] = reinterpret_cast<bf16 (*)[LD]>(ks_raw);
-  bf16 (*Vt)[VLD] = reinterpret_cast<bf16 (*)[VLD]>(vs_raw);    // [dh][key]
-  int8_t (*Ks8)[KLD8] = reinterpret_cast<int8_t (*)[KLD8]>(ks_raw);
-  int8_t (*Vt8)[KLD8] = reinterpret_cast<int8_t (*)[KLD8]>(vs_raw);  // [dh][slot]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long base = blockIdx.z * p.sb + blockIdx.y * p.sh;
-  const int r0 = blockIdx.x * AQ + warp * 16 + g, r1 = r0 + 8;
-  const int bh = blockIdx.z * p.H + blockIdx.y;
-
-  uint32_t qa[DH / 16][4];           // bf16 q fragments
-  uint32_t qa8[2][4];                // int8 q fragments (I8S)
-  float f0 = 0.f, f1 = 0.f;          // per-row score factors (I8S)
-  if constexpr (I8S) {
-    const int8_t* Q = p.qq + base;
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const int8_t* q0 = Q + r0 * p.st + kk * 32 + t * 4;
-      const int8_t* q1 = Q + r1 * p.st + kk * 32 + t * 4;
-      qa8[kk][0] = *reinterpret_cast<const uint32_t*>(q0);
-      qa8[kk][1] = *reinterpret_cast<const uint32_t*>(q1);
-      qa8[kk][2] = *reinterpret_cast<const uint32_t*>(q0 + 16);
-      qa8[kk][3] = *reinterpret_cast<const uint32_t*>(q1 + 16);
-    }
-    const float ks = __fmul_rn(head_scale(p.kamax[bh]), p.q_scale);
-    const size_t row0 = ((size_t)blockIdx.z * p.T + r0) * p.H + blockIdx.y;
-    f0 = __fmul_rn(p.qs[row0], ks);
-    f1 = __fmul_rn(p.qs[row0 + (size_t)8 * p.H], ks);
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const bf16* q0 = p.q + base + r0 * p.st + kk * 16 + t * 2;
-      const bf16* q1 = p.q + base + r1 * p.st + kk * 16 + t * 2;
-      qa[kk][0] = load_q2(q0, p.q_scale);
-      qa[kk][1] = load_q2(q1, p.q_scale);
-      qa[kk][2] = load_q2(q0 + 8, p.q_scale);
-      qa[kk][3] = load_q2(q1 + 8, p.q_scale);
-    }
-  }
-
-  const int n_real = p.n_real;
-  const int n_tiles = (n_real + AK - 1) / AK;
-
-  auto load_k = [&](int kt) {
-    if constexpr (I8S) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {              // 256 chunks of 16 B
-        const int c = threadIdx.x + i * 128;
-        const int kr = c >> 2, dc = (c & 3) * 16;
-        *reinterpret_cast<int4*>(&Ks8[kr][dc]) =
-            *reinterpret_cast<const int4*>(p.kq + base + (kt * AK + kr) * p.st + dc);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < CHUNKS / 128; ++i) {
-        const int c = threadIdx.x + i * 128;
-        const int kr = c / (DH / 8), dc = (c % (DH / 8)) * 8;
-        *reinterpret_cast<int4*>(&Ks[kr][dc]) = *reinterpret_cast<const int4*>(
-            p.k + base + (kt * AK + kr) * p.st + dc);
-      }
-    }
-  };
-  auto scores = [&](int kt, float (&s)[8][4]) {
-    if constexpr (I8S)
-      scores_tile_s8(&Ks8[0][0], qa8, kt * AK, n_real, f0, f1, s);
-    else
-      scores_tile<DH>(&Ks[0][0], qa, kt * AK, n_real, s);
-  };
-
-  // pass 1: row max
-  float m0 = -3.0e38f, m1 = -3.0e38f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    load_k(kt);
-    __syncthreads();
-    float s[8][4];
-    scores(kt, s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-  }
-
-  // pass 2: p = exp(s - max); bf16: sum p, o += bf16(p) @ v;
-  // int8: pq = rint(p * 127), sum pq, o += pq @ vq
-  float l0 = 0.f, l1 = 0.f;
-  int lq0 = 0, lq1 = 0;
-  float o[DH / 8][4];
-  int oi[DH / 8][4];
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      o[j][e] = 0.f;
-      oi[j][e] = 0;
-    }
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    load_k(kt);
-    if constexpr (I8PV) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {              // 256 chunks of 16 B
-        const int c = threadIdx.x + i * 128;
-        const int kr = c >> 2, dc = (c & 3) * 16;
-        int4 vv = *reinterpret_cast<const int4*>(
-            p.vq + base + (kt * AK + kr) * p.st + dc);
-        const int8_t* pv = reinterpret_cast<const int8_t*>(&vv);
-        const int slot = key_slot(kr);
-#pragma unroll
-        for (int e = 0; e < 16; ++e) Vt8[dc + e][slot] = pv[e];
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < CHUNKS / 128; ++i) {
-        const int c = threadIdx.x + i * 128;
-        const int kr = c / (DH / 8), dc = (c % (DH / 8)) * 8;
-        int4 vv = *reinterpret_cast<const int4*>(
-            p.v + base + (kt * AK + kr) * p.st + dc);
-        const bf16* pv = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) Vt[dc + e][kr] = pv[e];
-      }
-    }
-    __syncthreads();
-    float s[8][4];
-    scores(kt, s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = expf(__fsub_rn(s[j][0], m0));
-      s[j][1] = expf(__fsub_rn(s[j][1], m0));
-      s[j][2] = expf(__fsub_rn(s[j][2], m1));
-      s[j][3] = expf(__fsub_rn(s[j][3], m1));
-    }
-    if constexpr (I8PV) {
-      int pq[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pq[j][e] = (int)rintf(__fmul_rn(s[j][e], 127.0f));
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        lq0 += pq[j][0] + pq[j][1];
-        lq1 += pq[j][2] + pq[j][3];
-      }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {         // 32 keys per step
-        const int j = kk * 4;
-        uint32_t pa[4];
-        pa[0] = pack_s8(pq[j][0], pq[j][1], pq[j + 1][0], pq[j + 1][1]);
-        pa[1] = pack_s8(pq[j][2], pq[j][3], pq[j + 1][2], pq[j + 1][3]);
-        pa[2] = pack_s8(pq[j + 2][0], pq[j + 2][1], pq[j + 3][0], pq[j + 3][1]);
-        pa[3] = pack_s8(pq[j + 2][2], pq[j + 2][3], pq[j + 3][2], pq[j + 3][3]);
-#pragma unroll
-        for (int jd = 0; jd < DH / 8; ++jd) {
-          const int8_t* vr = &Vt8[jd * 8 + g][kk * 32 + t * 4];
-          mma_s8(oi[jd], pa, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 16));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        l0 += s[j][0] + s[j][1];
-        l1 += s[j][2] + s[j][3];
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {         // 16 keys per step
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int jd = 0; jd < DH / 8; ++jd) {
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(
-              &Vt[jd * 8 + g][kk * 16 + t * 2]);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(
-              &Vt[jd * 8 + g][kk * 16 + 8 + t * 2]);
-          mma_bf16(o[jd], pa, b0, b1);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  float sv = 1.f;
-  if constexpr (I8PV) {
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      lq0 += __shfl_xor_sync(0xffffffffu, lq0, off);
-      lq1 += __shfl_xor_sync(0xffffffffu, lq1, off);
-    }
-    // sum pq <= 127 T < 2^24: exact in f32, as the reference's f32 sum
-    l0 = fmaxf((float)lq0, 1.0f);
-    l1 = fmaxf((float)lq1, 1.0f);
-    sv = head_scale(p.vamax[bh]);
-#pragma unroll
-    for (int jd = 0; jd < DH / 8; ++jd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[jd][e] = __int2float_rn(oi[jd][e]);
-  } else {
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-  }
-
-  OutT* O = static_cast<OutT*>(p.o) + base;
-#pragma unroll
-  for (int jd = 0; jd < DH / 8; ++jd) {
-    const int c = jd * 8 + t * 2;
-    float v00 = __fdiv_rn(o[jd][0], l0), v01 = __fdiv_rn(o[jd][1], l0);
-    float v10 = __fdiv_rn(o[jd][2], l1), v11 = __fdiv_rn(o[jd][3], l1);
-    if constexpr (I8PV) {
-      v00 = __fmul_rn(v00, sv);
-      v01 = __fmul_rn(v01, sv);
-      v10 = __fmul_rn(v10, sv);
-      v11 = __fmul_rn(v11, sv);
-    }
-    if constexpr (sizeof(OutT) == 4) {
-      *reinterpret_cast<float2*>(O + r0 * p.st + c) = make_float2(v00, v01);
-      *reinterpret_cast<float2*>(O + r1 * p.st + c) = make_float2(v10, v11);
-    } else {
-      *reinterpret_cast<uint32_t*>(O + r0 * p.st + c) = pack_bf16(v00, v01);
-      *reinterpret_cast<uint32_t*>(O + r1 * p.st + c) = pack_bf16(v10, v11);
-    }
-  }
-}
-
-// the flat path at dh = 64 (K1, K1-o, K3's int8 entry): int8 scores and PV
-// (flags) on attn_i8_kernel, bf16 on attn_wgmma_kernel; output in f32 for
-// the fused o projection
+// the flat path at dh = 64 (K1, K1-o, K3's int8 entry): the instantiation
+// of the flags' int8 scores and PV; output in f32 for the fused o
+// projection
 template <typename OutT>
 inline cudaError_t launch_attn_flat(const AttnArgs& a, int flags, int T,
                                     int H, int B, cudaStream_t st) {
-  const dim3 grid(T / AQ, H, B);
   switch (flags & (I8_SCORES | I8_PV)) {
     case 0: return launch_attn_wgmma<64, OutT>(a, B, H, T, st);
-    case I8_SCORES: attn_i8_kernel<true, false, OutT><<<grid, 128, 0, st>>>(a); break;
-    case I8_PV: attn_i8_kernel<false, true, OutT><<<grid, 128, 0, st>>>(a); break;
-    default: attn_i8_kernel<true, true, OutT><<<grid, 128, 0, st>>>(a); break;
+    case I8_SCORES:
+      return launch_attn_wgmma<64, OutT, true, false>(a, B, H, T, st);
+    case I8_PV: return launch_attn_wgmma<64, OutT, false, true>(a, B, H, T, st);
+    default: return launch_attn_wgmma<64, OutT, true, true>(a, B, H, T, st);
   }
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // int8 variants' preparation
 // ---------------------------------------------------------------------------
 
-// q (M = B T rows, H heads of 64) -> qq = clip(rint(q / sq)), sq = max(absmax
-// of the row's head, 1e-6) / 127 at qs[row H + h]. One warp per (row, head).
+// Two launches, no memset and no atomics. The per-head absmax needs every
+// real row of a head before any of its values is quantized, so the first
+// launch takes the statistics (and quantizes q, which needs only its own
+// row) and the second quantizes k and v (AMAX_PARTS: above).
+
+// Launch 1. Blocks [0, n_amax): one part of the absmax of k or v (z = z0 +
+// block / (B H P): 0 k, 1 v) of one (batch row, head) over its share of the
+// rows < n_real, written as float bits to amax[((z B + b) H + h) P + part]
+// (non-negative floats order like their bit patterns). The rest: q (B T
+// rows, H heads of 64, in TQ: K1 f32, K3 bf16) -> qq = clip(rint(q / sq)),
+// sq = max(absmax of the row's head, 1e-6) / 127 at qs[row H + h]; a group
+// of 16-byte lanes per (row, head).
 template <typename TQ>
 __global__ void __launch_bounds__(256)
-quant_q_kernel(const TQ* __restrict__ q, int8_t* __restrict__ qq,
-               float* __restrict__ qs, long long n_heads, int H) {
-  const long long w = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (w >= n_heads) return;
-  const int lane = threadIdx.x & 31;
-  const long long off = w * 64 + lane * 2;   // (row, head) w is 64 contiguous
-  const float a = to_f32(q[off]), b = to_f32(q[off + 1]);
-  const float s = __fdiv_rn(fmaxf(warp_max(fmaxf(fabsf(a), fabsf(b))), 1e-6f),
-                            127.0f);
-  qq[off] = quant_s8(a, s);
-  qq[off + 1] = quant_s8(b, s);
+i8_stats_kernel(const TQ* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, int8_t* __restrict__ qq,
+                float* __restrict__ qs, unsigned* __restrict__ amax, int B,
+                int T, int H, int n_real, int n_amax, int z0) {
+  const int d = 64 * H;
+  if ((int)blockIdx.x < n_amax) {
+    __shared__ float red[8];
+    const int part = blockIdx.x % AMAX_PARTS, head = blockIdx.x / AMAX_PARTS;
+    const int bh = head % (B * H), z = z0 + head / (B * H);
+    const int b = bh / H, h = bh % H;
+    const int per = (n_real + AMAX_PARTS - 1) / AMAX_PARTS;
+    const int r_hi = min(n_real, (part + 1) * per);
+    const bf16* src = (z ? v : k) + (size_t)b * T * d + h * 64 +
+                      (threadIdx.x & 7) * 8;   // 8 lanes a 128-byte row
+    float m = 0.f;
+#pragma unroll 4
+    for (int r = part * per + (threadIdx.x >> 3); r < r_hi; r += 32) {
+      const int4 raw = *reinterpret_cast<const int4*>(src + (size_t)r * d);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        m = fmaxf(m, fmaxf(fabsf(__low2float(h2[e])),
+                           fabsf(__high2float(h2[e]))));
+    }
+    m = warp_max(m);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < 8; ++w) m = fmaxf(m, red[w]);
+      amax[((size_t)z * B * H + bh) * AMAX_PARTS + part] = __float_as_uint(m);
+    }
+    return;
+  }
+  constexpr int EPL = 16 / sizeof(TQ);     // values a lane: 8 bf16, 4 f32
+  constexpr int L = 64 / EPL;              // lanes a (row, head)
+  // B T H is a multiple of 64: a warp's groups are all in range or all out
+  const long long w = (long long)(blockIdx.x - n_amax) * (256 / L) +
+                      threadIdx.x / L;
+  if (w >= (long long)B * T * H) return;
+  const int lane = threadIdx.x % L;
+  const long long off = w * 64 + lane * EPL;
+  const int4 raw = *reinterpret_cast<const int4*>(q + off);
+  const TQ* x = reinterpret_cast<const TQ*>(&raw);
+  float a = 0.f;
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) a = fmaxf(a, fabsf(to_f32(x[e])));
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1)
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+  const float s = __fdiv_rn(fmaxf(a, 1e-6f), 127.0f);
+  uint32_t packed[EPL / 4];
+#pragma unroll
+  for (int e = 0; e < EPL / 4; ++e)
+    packed[e] = (uint32_t)(uint8_t)quant_s8(to_f32(x[4 * e]), s) |
+                ((uint32_t)(uint8_t)quant_s8(to_f32(x[4 * e + 1]), s) << 8) |
+                ((uint32_t)(uint8_t)quant_s8(to_f32(x[4 * e + 2]), s) << 16) |
+                ((uint32_t)(uint8_t)quant_s8(to_f32(x[4 * e + 3]), s) << 24);
+  if constexpr (EPL == 8)
+    *reinterpret_cast<uint2*>(qq + off) = make_uint2(packed[0], packed[1]);
+  else
+    *reinterpret_cast<uint32_t*>(qq + off) = packed[0];
   if (lane == 0) qs[w] = s;
 }
 
-// per (batch row, head) absmax of z (k: blockIdx.z 0, v: 1; a null tensor
-// is skipped) over rows < n_real, as float bits by atomicMax; grid
-// (ceil(n_real / 32), B, 2), 256 threads over the d columns
-__global__ void __launch_bounds__(256)
-head_absmax_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                   unsigned* __restrict__ amax, int T, int d, int n_real) {
-  const bf16* z = blockIdx.z ? v : k;
-  if (!z) return;
-  const int H = d / 64, b = blockIdx.y;
-  const int r_lo = blockIdx.x * 32, r_hi = min(r_lo + 32, n_real);
-  unsigned* out = amax + ((size_t)blockIdx.z * gridDim.y + b) * H;
-  for (int c = threadIdx.x; c < d; c += 256) {   // a warp: 32 columns, 1 head
-    float m = 0.f;
-    for (int r = r_lo; r < r_hi; ++r)
-      m = fmaxf(m, fabsf(__bfloat162float(z[((size_t)b * T + r) * d + c])));
-    m = warp_max(m);
-    if ((threadIdx.x & 31) == 0) atomicMax(out + c / 64, __float_as_uint(m));
-  }
+// clip(rint(z * inv)) of a bf16 value as int8
+__device__ __forceinline__ int quant_by(bf16 z, float inv) {
+  const float x = rintf(__fmul_rn(__bfloat162float(z), inv));
+  return (int)fminf(fmaxf(x, -127.0f), 127.0f);
 }
 
-// kq / vq = clip(rint(z * (1 / s))), s the head's scale; 8 values a thread;
-// grid (ceil(B T d / 2048), 2): y 0 = k, 1 = v (null skipped)
-__global__ void __launch_bounds__(256)
-quant_kv_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                int8_t* __restrict__ kq, int8_t* __restrict__ vq,
-                const unsigned* __restrict__ amax, int B, int T, int d) {
-  const bf16* z = blockIdx.y ? v : k;
-  int8_t* zq = blockIdx.y ? vq : kq;
-  if (!z) return;
-  const size_t i = ((size_t)blockIdx.x * 256 + threadIdx.x) * 8;
-  if (i >= (size_t)B * T * d) return;
-  const int H = d / 64;
-  const int b = (int)(i / ((size_t)T * d)), h = (int)(i % d) / 64;
-  const float inv = __fdiv_rn(
-      1.0f, head_scale(amax[((size_t)blockIdx.y * B + b) * H + h]));
-  int4 raw = *reinterpret_cast<const int4*>(z + i);
+// eight int8 values, the first lowest
+__device__ __forceinline__ uint2 quant8(const int4& raw, float inv) {
   const bf16* zv = reinterpret_cast<const bf16*>(&raw);
   uint32_t w[2];
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    int r[4];
+  for (int e = 0; e < 2; ++e)
+    w[e] = (uint32_t)(uint8_t)quant_by(zv[4 * e], inv) |
+           ((uint32_t)(uint8_t)quant_by(zv[4 * e + 1], inv) << 8) |
+           ((uint32_t)(uint8_t)quant_by(zv[4 * e + 2], inv) << 16) |
+           ((uint32_t)(uint8_t)quant_by(zv[4 * e + 3], inv) << 24);
+  return make_uint2(w[0], w[1]);
+}
+
+// Launch 2: k and v times the reciprocal of their head's scale, clipped and
+// rounded, one block per 64 keys of one (batch row, head): blocks [0, n_k)
+// k into kq in k's (B, T, d) layout; the rest v into vq (B, H, 64, T),
+// transposed per head, row (b H + h) 64 + c holding column c of the head's
+// keys, key t at (t & ~63) + key_slot(t % 64), the tile turned in shared
+// memory so that reads and writes are 16-byte chunks.
+__global__ void __launch_bounds__(256)
+i8_quant_kv_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
+                   int8_t* __restrict__ kq, int8_t* __restrict__ vq,
+                   const unsigned* __restrict__ amax, int B, int T, int H,
+                   int n_k) {
+  __shared__ __align__(16) int8_t tile[64][64 + 16];   // [dh][slot]
+  const int d = 64 * H, is_v = (int)blockIdx.x >= n_k;
+  const int blk = blockIdx.x - (is_v ? n_k : 0), nt = T / 64;
+  const int t0 = (blk % nt) * 64, h = (blk / nt) % H, b = blk / nt / H;
+  const float inv = __fdiv_rn(
+      1.0f, head_scale(amax + ((size_t)is_v * B * H + (size_t)b * H + h) *
+                                  AMAX_PARTS));
+  const bf16* src = (is_v ? v : k) + ((size_t)b * T + t0) * d + h * 64;
+  int4 raw[2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float x = rintf(__fmul_rn(__bfloat162float(zv[4 * e + j]), inv));
-      r[j] = (int)fminf(fmaxf(x, -127.0f), 127.0f);
-    }
-    w[e] = (uint32_t)(uint8_t)r[0] | ((uint32_t)(uint8_t)r[1] << 8) |
-           ((uint32_t)(uint8_t)r[2] << 16) | ((uint32_t)(uint8_t)r[3] << 24);
+  for (int i = 0; i < 2; ++i) {            // 64 keys x 8 chunks of 8 values
+    const int c = threadIdx.x + i * 256;
+    raw[i] = *reinterpret_cast<const int4*>(src + (size_t)(c >> 3) * d +
+                                            (c & 7) * 8);
   }
-  *reinterpret_cast<uint2*>(zq + i) = make_uint2(w[0], w[1]);
+  if (!is_v) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = threadIdx.x + i * 256;
+      *reinterpret_cast<uint2*>(kq + ((size_t)b * T + t0 + (c >> 3)) * d +
+                                h * 64 + (c & 7) * 8) = quant8(raw[i], inv);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = threadIdx.x + i * 256, c0 = (c & 7) * 8;
+    const int slot = key_slot(c >> 3);
+    const uint2 q8 = quant8(raw[i], inv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      tile[c0 + e][slot] = (int8_t)(((e < 4 ? q8.x : q8.y) >> (8 * (e & 3))) & 0xff);
+  }
+  __syncthreads();
+  const int r = threadIdx.x >> 2, c16 = (threadIdx.x & 3) * 16;
+  *reinterpret_cast<int4*>(vq + ((size_t)(b * H + h) * 64 + r) * T + t0 +
+                           c16) = *reinterpret_cast<const int4*>(&tile[r][c16]);
 }
 
 // q (B, T, d) in TQ (K1: f32 unscaled; K3: bf16), k, v (B, T, d) bf16;
-// d = 64 H. Writes what the flags ask for: qq, qs (int8 scores), kq (int8
-// scores), vq (int8 PV); amax: (2, B, H) u32 scratch.
+// d = 64 H, T % 64 == 0. Writes what the flags ask for: qq, qs (int8
+// scores), kq (int8 scores; (B, T, d)), vq (int8 PV; (B, H, 64, T) as
+// i8_quant_kv_kernel lays it); amax: (2, B, H, AMAX_PARTS) u32 scratch.
 template <typename TQ>
 inline cudaError_t int8_prep(const TQ* q, const bf16* k, const bf16* v,
                              int flags, int8_t* qq, float* qs, int8_t* kq,
@@ -1156,21 +1162,16 @@ inline cudaError_t int8_prep(const TQ* q, const bf16* k, const bf16* v,
                              int n_real, cudaStream_t st) {
   const int H = d / 64;
   const bool s8 = flags & I8_SCORES, pv = flags & I8_PV;
-  cudaError_t e = cudaMemsetAsync(amax, 0, (size_t)2 * B * H * sizeof(unsigned), st);
+  const int n_amax = (s8 + pv) * B * H * AMAX_PARTS;
+  constexpr int GROUPS = 256 * 16 / (64 * (int)sizeof(TQ));   // a block
+  const long long n_q = s8 ? ((long long)B * T * H + GROUPS - 1) / GROUPS : 0;
+  i8_stats_kernel<TQ><<<(unsigned)(n_amax + n_q), 256, 0, st>>>(
+      q, k, v, qq, qs, amax, B, T, H, n_real, n_amax, s8 ? 0 : 1);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (s8) {
-    const long long n = (long long)B * T * H;
-    quant_q_kernel<TQ><<<(unsigned)((n + 7) / 8), 256, 0, st>>>(q, qq, qs, n, H);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  const bf16* kk = s8 ? k : nullptr;
-  const bf16* vv = pv ? v : nullptr;
-  head_absmax_kernel<<<dim3((n_real + 31) / 32, B, 2), 256, 0, st>>>(
-      kk, vv, amax, T, d, n_real);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t n8 = (size_t)B * T * d / 8;
-  quant_kv_kernel<<<dim3((unsigned)((n8 + 255) / 256), 2), 256, 0, st>>>(
-      kk, vv, kq, vq, amax, B, T, d);
+  const int tiles = T / 64 * H * B;
+  i8_quant_kv_kernel<<<(unsigned)((s8 + pv) * tiles), 256, 0, st>>>(
+      k, v, kq, vq, amax, B, T, H, s8 ? tiles : 0);
   return cudaGetLastError();
 }
 
@@ -1221,7 +1222,7 @@ inline cudaError_t encoder_attention_fused_qkv(
               s8 ? sm_scale : 1.0f,       // q is scaled already otherwise
               static_cast<const int8_t*>(qq), static_cast<const float*>(qs),
               static_cast<const int8_t*>(kq), static_cast<const int8_t*>(vq),
-              am, am + (size_t)B * H, T, H};
+              am, am + (size_t)B * H * AMAX_PARTS, T, H};
   if (!fuse_o) return launch_attn_flat<bf16>(at, flags, T, H, B, st);
   e = launch_attn_flat<float>(at, flags, T, H, B, st);
   if (e != cudaSuccess) return e;
@@ -1311,7 +1312,8 @@ extern "C" int nwt_encoder_attention_btd_int8(
              static_cast<const bf16*>(v), out, (long long)T * d, 64, d,
              n_real, sm_scale, static_cast<const int8_t*>(qq),
              static_cast<const float*>(qs), static_cast<const int8_t*>(kq),
-             static_cast<const int8_t*>(vq), am, am + (size_t)B * H, T, H};
+             static_cast<const int8_t*>(vq), am,
+             am + (size_t)B * H * AMAX_PARTS, T, H};
   return (int)launch_attn_flat<bf16>(a, flags, T, H, B, st);
 }
 

@@ -43,6 +43,8 @@ variant_launch_count: collections.Counter = collections.Counter()
 # head widths the attention kernel is built for (csrc/encoder_attention.cu)
 KERNEL_HEAD_DIMS = (32, 64, 128)
 PAIR = 128          # the TPU kernels' head-pair lane block (2 heads of 64)
+# int8_prep's partial absmax per (batch row, head), csrc/encoder_attention.cu
+AMAX_PARTS = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {"nwt_encoder_attention_fused_qkv":
@@ -235,16 +237,21 @@ def variant_flags(int8_scores: bool, int8_pv: bool,
 
 
 def _i8_workspace(b, t, d, n_head, int8_scores, int8_pv, dev):
-    """Scratch of the int8 variants: qq (B, T, d) int8 and its (B T, H)
-    row-head scales, kq and vq (B, T, d) int8, and the (2, B, H) per-head
-    absmax of k and v as float bits (csrc/encoder_attention.cu)."""
-    i8 = lambda: torch.empty((b, t, d), dtype=torch.int8, device=dev)
+    """Scratch of the int8 variants (csrc/encoder_attention.cu): qq and kq
+    (B, T, d) int8, qq's (B T, H) row-head scales, vq (B, H, 64, T) int8
+    (v transposed per head, each 32-key step's keys in the order the
+    kernel's score accumulator leaves them), and the per-head absmax of k
+    and v as float bits, (2, B, H, AMAX_PARTS): maxima over AMAX_PARTS
+    ranges of rows."""
+    i8 = lambda *s: torch.empty(s, dtype=torch.int8, device=dev)
     none = torch.empty(0, device=dev)
-    return (i8() if int8_scores else none,
+    return (i8(b, t, d) if int8_scores else none,
             torch.empty((b * t, n_head), dtype=torch.float32, device=dev)
             if int8_scores else none,
-            i8() if int8_scores else none, i8() if int8_pv else none,
-            torch.empty((2, b, n_head), dtype=torch.int32, device=dev))
+            i8(b, t, d) if int8_scores else none,
+            i8(b, n_head, d // n_head, t) if int8_pv else none,
+            torch.empty((2, b, n_head, AMAX_PARTS), dtype=torch.int32,
+                        device=dev))
 
 
 def fused_qkv_operands(x, ln_g, ln_b, wq, bq, wk, wv, bv, n_real: int,

@@ -73,6 +73,27 @@ def stage_timer(name: str):
     return GLOBAL_PROFILER.stage(name)
 
 
+def device_ms_split(fn, reps: int, match: str):
+    """Device ms per call of ``fn`` from ``torch.profiler`` over ``reps``
+    calls (the caller has warmed it up), split by kernel name: (the ms of
+    the kernels whose name holds ``match``, [(name, ms) of each other
+    kernel])."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(ka[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    rows = [(e.key, getattr(e, attr) / 1e3 / reps) for e in ka
+            if getattr(e, attr) > 0]
+    return (sum(t for n, t in rows if match in n),
+            [(n, t) for n, t in rows if match not in n])
+
+
 def rtf(audio_seconds: float, wall_seconds: float) -> float:
     """Real-time factor: audio seconds transcribed per wall second."""
     return audio_seconds / max(wall_seconds, 1e-9)

@@ -181,6 +181,24 @@ def speech_like_audio(duration_s: float, seed: int = 0,
     return out
 
 
+def tone_burst_windows(b: int, seed: int) -> np.ndarray:
+    """(b, 480000) f32 30 s windows: window i holds 3-27 s of noise bursts
+    gated in half seconds over a tone of 300 + 100 i Hz, then zeros. For
+    odd i the tone is a multiple of 40 Hz, on a bin of the 400-tap DFT:
+    under the periodic Hann window it leaks into no far bin, so those bins
+    hold only the quiet edges of the bursts, where an f32 DFT's rounding
+    of the tone shows."""
+    rng = np.random.RandomState(seed)
+    out = np.zeros((b, 480000), np.float32)
+    for i in range(b):
+        n = 16000 * (3 + 2 * (i % 13))
+        out[i, :n] = 0.2 * rng.randn(n) * (rng.rand(n // 8000 + 1)
+                                          .repeat(8000)[:n] > 0.4)
+        out[i, :n] += 0.3 * np.sin(2 * np.pi * (300 + 100 * i)
+                                   * np.arange(n) / 16000)
+    return out
+
+
 def _attention_variants(key, fuse_o=(False,)):
     from itertools import product
     return tuple("-".join([key] + ["o"] * o + ["i8s"] * s8 + ["i8pv"] * pv)

@@ -385,3 +385,17 @@ def test_variant_kernel_wrappers_do_not_fall_back_off_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         fl.encoder_layer_fused(x, v, v, w, v, w, w, v, w, v, v, v, w1, v4,
                                w2, v, 64, 0.125, 2)
+
+
+def test_amax_parts_matches_the_kernel():
+    """The int8 variants' workspace holds ``AMAX_PARTS`` partial absmax
+    per (batch row, head), the count ``csrc/encoder_attention.cu``'s
+    ``int8_prep`` writes and ``head_scale`` reads."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(ea.__file__), os.pardir, "csrc",
+                            "encoder_attention.cu")).read()
+    assert re.findall(r"constexpr int AMAX_PARTS = (\d+);", src) == [
+        str(ea.AMAX_PARTS)]
+    ws = ea._i8_workspace(2, 64, 128, 2, True, True, torch.device("cpu"))
+    assert tuple(ws[-1].shape) == (2, 2, 2, ea.AMAX_PARTS)
