@@ -45,7 +45,9 @@ arguments). Phases; any failure exits non-zero before the result line:
    ``NWT_Q8_KERNEL_MIN_BYTES=1``, one concurrent wave of three requests
    (one auto-language) whose K5 and K6 launches must equal what the gates
    predict for the decoder forwards it ran (K1 = K2 = 32 x encoder
-   batches, K4 = 0), then one of them under ``torch.profiler``; and K4 on
+   batches, K4 = 0; K6 split into its decode-kernel launches, M <= 16,
+   and its prefill-kernel ones), then one of them under
+   ``torch.profiler``; and K4 on
    the file path (``NWT_XATTN_KERNEL=1``, one ``transcribe`` of a 12 s clip
    on the unquantized engine: K4 once a layer in each single-token
    forward, K6 = 0). With no knob set, no earlier phase launches K4, K5
@@ -76,7 +78,11 @@ arguments). Phases; any failure exits non-zero before the result line:
 
 Phase 2 also checks K4 and K5 (B=8 and B=1, H=20, Dh=64, Tp=1536,
 t_real=1500), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
-and with f32 x, fc1 1280 x 5120, fc2 5120 x 1280, M=256), K10, K11 and
+and with f32 x, two calls bit for bit with f32 x, fc1 1280 x 5120, fc2
+5120 x 1280, M=256; the serving wave's prefill rows, M=24, at the logit
+shape with f32 x and at fc2, each two calls bit for bit; each timed back
+to back, alone in a CUDA graph and by the wrapper's host work), K10,
+K11 and
 K8 (block_f=1280) at the knob paths' rows (d=1280; M=3000 with bf16 and
 with f32 x, M=1500 with f32 x) and K13 (B=2, 3000 frames, d=1280: C_in=128 at t_out_pad 1536 and
 1504, C_in=80) and the variants at K1's shapes (K1 with fused o, K1 and
@@ -102,6 +108,8 @@ import subprocess
 import sys
 import threading
 import time
+
+from nobs_whisper_torch.utils.profiling import cuda_ms, graph_ms
 
 # published H100 SXM peaks (dense): int8 tensor core, bf16 tensor core, HBM3
 PEAK_INT8_OPS = 1979e12
@@ -163,21 +171,6 @@ OP_KERNELS = ("K7", "K14")
 
 def log(*a):
     print(*a, flush=True)
-
-
-def cuda_ms(fn, reps=20, warmup=3):
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def phase_card_and_build():
@@ -883,35 +876,63 @@ def xattn_check(key, b, h=20, t=1500, dh=64, seed=30):
                 bound_by=by, library_ms=lib_ms, ok=ok)
 
 
-def q8_check(m, k, n, x_dtype, what, seed=40):
-    """K6 on one decoder weight shape against its plain version; the
-    yardstick is torch.matmul of bf16 x with the weight dequantized to
-    bf16 before timing."""
+L2_BYTES = 50 * 2 ** 20
+
+
+def q8_check(m, k, n, x_dtype, what, seed=40, repeat=False):
+    """K6 on one decoder weight shape against its plain version. Timed
+    three ways: back-to-back calls of the wrapper (the line's ``ms``), the
+    kernel alone on the device (the call captured in a CUDA graph, over
+    enough weight sets to pass the 50 MB L2, as a decode step finds each
+    weight in HBM), and the wrapper's host work a call (host clock over
+    calls that enqueue without waiting). The yardstick is torch.matmul of
+    bf16 x with the weight dequantized to bf16 before timing, back to back
+    and alone. With ``repeat``, a second call must give the same bits."""
     import torch
     from nobs_whisper_torch.ops import quant as qt
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + m + n)
     x = torch.randn(m, k, generator=g, device=dev).to(x_dtype)
-    w = qt.quantize_int8(torch.randn(k, n, generator=g, device=dev)
-                         * k ** -0.5)
+    sets = max(1, -(-2 * L2_BYTES // (k * n)))
+    ws = [qt.quantize_int8(torch.randn(k, n, generator=g, device=dev)
+                           * k ** -0.5) for _ in range(sets)]
+    w = ws[0]
     got = qt.q8_matmul(x, w)
     torch.cuda.synchronize()
     ref = qt.q8_matmul_plain(x, w)
     err = (got - ref).abs().max().item()
     close = bool(torch.allclose(got, ref, **K6_TOL))
+    same = bool(torch.equal(got, qt.q8_matmul(x, w))) if repeat else True
     ms = cuda_ms(lambda: qt.q8_matmul(x, w), reps=50)
+    device_ms = graph_ms(lambda: [qt.q8_matmul(x, wi) for wi in ws],
+                         reps=20) / sets
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        qt.q8_matmul(x, w)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: qt.q8_matmul_plain(x, w), reps=10, warmup=2)
     xb = x.to(torch.bfloat16)
-    wb = (w["q"].to(torch.bfloat16) * w["s"].to(torch.bfloat16))
-    lib_ms = cuda_ms(lambda: torch.matmul(xb, wb), reps=50)
+    wb = [wi["q"].to(torch.bfloat16) * wi["s"].to(torch.bfloat16)
+          for wi in ws]
+    lib_ms = cuda_ms(lambda: torch.matmul(xb, wb[0]), reps=50)
+    lib_alone = graph_ms(lambda: [torch.matmul(xb, wi) for wi in wb],
+                         reps=20) / sets
+    del wb
     nbytes = k * n + n * 4 + m * k * x.element_size() + m * n * 4
     bound, by = _bound(nbytes, 2.0 * m * k * n)
-    ok = close and bool(torch.isfinite(got).all())
-    log(f"[kernel] K6 q8_matmul {what} M={m} K={k} N={n} x {x_dtype}: "
-        f"max_abs_err {err:.3e} ({K6_TOL}) -> {'PASS' if ok else 'FAIL'}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms"
-        f" ({by}, {nbytes / 1e6:.2f} MB), torch.matmul on bf16-dequantized "
-        f"weight {lib_ms:.4f} ms")
+    ok = close and same and bool(torch.isfinite(got).all())
+    kernel = "decode" if m <= qt.K6_DECODE_ROWS else "prefill"
+    log(f"[kernel] K6 q8_matmul {what} M={m} K={k} N={n} x {x_dtype} "
+        f"({kernel} kernel): max_abs_err {err:.3e} ({K6_TOL})"
+        + (f", two calls bit for bit {same}" if repeat else "")
+        + f" -> {'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms back to "
+        f"back, {device_ms:.4f} alone in a CUDA graph ({sets} weight sets), "
+        f"the wrapper's host work {host_ms:.4f} ms a call; plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} "
+        f"MB), torch.matmul on bf16-dequantized weight {lib_ms:.4f} ms back "
+        f"to back, {lib_alone:.4f} alone")
     return dict(name="q8_matmul", route="cuda",
                 source="nobs_whisper_torch/csrc/q8_matmul.cu",
                 replaces="nobs_whisper_tpu/ops/quant.py:73", max_abs_err=err,
@@ -922,7 +943,12 @@ def q8_check(m, k, n, x_dtype, what, seed=40):
 def decode_kernel_checks():
     """K4 and K5 at B=8 and B=1 (the line keeps B=8), K6 on the decoder's
     shapes (the line keeps the logit projection with f32 x, which the
-    serving path runs; every check must pass)."""
+    serving path runs, and two calls must give the same bits there; every
+    check must pass). K6 also at the serving wave's prefill rows (3
+    requests of an 8-token prompt, M = 24): the prefill kernel's 32-row
+    instantiation with f32 x at the logit shape, and at fc2 (5120 x 1280),
+    whose K split sums through the cluster, each giving the same bits
+    twice."""
     import torch
     out = {}
     for key in ("K4", "K5"):
@@ -930,12 +956,14 @@ def decode_kernel_checks():
         e1 = xattn_check(key, b=1)
         e8["ok"] &= e1["ok"]
         out[key] = e8
-    logits = q8_check(8, 1280, 51866, torch.float32, "logits")
+    logits = q8_check(8, 1280, 51866, torch.float32, "logits", repeat=True)
     ok = logits["ok"]
     for args in ((8, 1280, 51866, torch.bfloat16, "logits"),
                  (8, 1280, 5120, torch.bfloat16, "fc1"),
                  (8, 5120, 1280, torch.bfloat16, "fc2"),
-                 (256, 1280, 51866, torch.bfloat16, "logits, M=256")):
+                 (24, 1280, 51866, torch.float32, "logits", 40, True),
+                 (24, 5120, 1280, torch.bfloat16, "fc2", 40, True),
+                 (256, 1280, 51866, torch.bfloat16, "logits")):
         e = q8_check(*args)
         ok &= e["ok"]
         logits["max_abs_err"] = max(logits["max_abs_err"], e["max_abs_err"])
@@ -1084,23 +1112,6 @@ def k14_check(b, n_mels, timed=True):
                  f"(cuBLAS SGEMM) {port_ms:.4f} ms")
     log(line)
     return e
-
-
-def graph_ms(fn, reps=50):
-    """Device time of one call of ``fn``: captured once in a CUDA graph
-    and replayed ``reps`` times between CUDA events, so that the host's
-    per-call work (Python, the ctypes call) does not pace the card."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(graph.replay, reps=reps, warmup=2)
 
 
 K7_SETS = 8   # weight sets a timed call cycles through: 105 MB of int8 > L2
@@ -1557,13 +1568,17 @@ def predicted_decode_launches(forwards, n_layer):
     batch and tokens), with every knob on and K6's threshold at 1 byte: K4
     or K5 once a layer in a single-token forward on the packed or int8
     cross-KV; K6 on the 8 int8 weights of each layer and the logit
-    projection in a forward of at most 256 rows. (The cross-KV projection
-    has B x 1500 rows at full size, B x 160 in the reference phase: no K6
-    there.)"""
+    projection in a forward of at most 256 rows, "K6-decode" those of at
+    most ``K6_DECODE_ROWS`` (16) rows (its decode kernel). (The cross-KV
+    projection has B x 1500 rows at full size, B x 160 in the reference
+    phase: no K6 there.)"""
+    from nobs_whisper_torch.ops import quant as qt
     n = lambda pred: sum(c for key, c in forwards.items() if pred(*key))
     return {"K4": n_layer * n(lambda lay, b, s: lay == "packed" and s == 1),
             "K5": n_layer * n(lambda lay, b, s: lay == "q8" and s == 1),
-            "K6": (8 * n_layer + 1) * n(lambda lay, b, s: b * s <= 256)}
+            "K6": (8 * n_layer + 1) * n(lambda lay, b, s: b * s <= 256),
+            "K6-decode": (8 * n_layer + 1) * n(
+                lambda lay, b, s: b * s <= qt.K6_DECODE_ROWS)}
 
 
 def _request_audio():
@@ -1740,6 +1755,7 @@ def reset_counts():
     fq.k11_launch_count = fq.k11_launch_count_f32 = 0
     cs.launch_count = 0
     ap.k4_launch_count = ap.k5_launch_count = qt.k6_launch_count = 0
+    qt.k6_decode_launch_count = 0
     ea.variant_launch_count.clear()
     fl.launch_count = 0
     fl.variant_launch_count.clear()
@@ -1770,6 +1786,7 @@ def read_counts():
             "K11": fq.k11_launch_count, "K11-f32": fq.k11_launch_count_f32,
             "K13": cs.launch_count, "K4": ap.k4_launch_count,
             "K5": ap.k5_launch_count, "K6": qt.k6_launch_count,
+            "K6-decode": qt.k6_decode_launch_count,
             **{n: ea.variant_launch_count[n] + fl.variant_launch_count[n]
                for n in variant_names()},
             "K12": fl.launch_count,
@@ -1937,6 +1954,9 @@ def phase_decode_kernels(card, qeng, eng):
                 f"batch sizes {be.batcher.batch_sizes}; decoder forwards "
                 f"{c['forwards']}; launches {_launch_summary(c)} (want "
                 f"{want}) -> {'PASS' if counts_ok else 'FAIL'}")
+            log(f"[decode] {card}: K6 launches by rows: {c['K6-decode']} "
+                f"at M <= 16 (decode kernel), {c['K6'] - c['K6-decode']} at "
+                f"16 < M <= 256 (prefill kernel)")
             ok &= counts_ok
             launches.update(K5=c["K5"], K6=c["K6"])
             profile_wave(be, wave[:1], card)        # en-12s, as in serving

@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -112,6 +112,39 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _libs[name] = lib
         return _libs[name]
+
+
+def build_variants(sources: Dict[str, str], out_dir: str,
+                   signatures: Dict[str, list]
+                   ) -> Tuple[Dict[str, ctypes.CDLL], Dict[str, str]]:
+    """Compile each CUDA source text of ``sources`` ({name: text}) into
+    ``out_dir/lib<name>.so`` with the port's flags and ``csrc/`` on the
+    include path, one ``nvcc`` each, all started together, and load it,
+    declaring each function of ``signatures`` that it has. For scripts
+    that time versions of a kernel side by side. Returns ({name: library},
+    {name: nvcc's output}); raises with the compiler's output if a build
+    fails."""
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        src = os.path.join(out_dir, f"{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o",
+             os.path.join(out_dir, f"lib{name}.so"), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, logs = {}, {}
+    for name, p in procs.items():
+        logs[name], _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
+        lib = libs[name] = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
+        for fn, argtypes in signatures.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+    return libs, logs
 
 
 def check(err: int, what: str) -> None:

@@ -9,10 +9,15 @@ exact.
 
 K6, the reference's Pallas dequantizing matmul (:func:`q8_matmul`, opt-in
 behind ``NWT_Q8_KERNEL_MIN_BYTES``; gate in ``models/whisper.py::_dense``),
-is a CUDA kernel in ``csrc/q8_matmul.cu``, whose source note says what
-bounds it on an H100. The wrapper launches it for a CUDA tensor (or
-raises) and runs :func:`q8_matmul_plain` for a CPU tensor;
-``k6_launch_count`` counts kernel launches only.
+is CUDA in ``csrc/q8_matmul.cu``, whose source note says what bounds it on
+an H100: one kernel for the decode rows (M <= 16, bound by the weight's
+bytes) and one for the prefill rows (16 < M <= 256). Both split K over a
+thread-block cluster and sum the partials in a fixed order, so every
+output element is written once and two calls give the same bits; the
+output is allocated uninitialised. The wrapper launches the kernel for a
+CUDA tensor (or raises) and runs :func:`q8_matmul_plain` for a CPU
+tensor; ``k6_launch_count`` counts kernel launches only, and
+``k6_decode_launch_count`` those with M <= 16.
 """
 
 from __future__ import annotations
@@ -22,9 +27,13 @@ from typing import Any, Dict, Union
 
 import torch
 
+from . import _build
+
 QTensor = Dict[str, torch.Tensor]
 
 k6_launch_count = 0
+k6_decode_launch_count = 0      # launches with M <= K6_DECODE_ROWS
+K6_DECODE_ROWS = 16             # csrc/q8_matmul.cu's DECODE_ROWS
 
 _Q8_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _Q8_SIG = {"nwt_q8_matmul_bf16": _Q8_ARGS, "nwt_q8_matmul_f32": _Q8_ARGS}
@@ -69,7 +78,7 @@ def q8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     scales -> (M, N) f32, each weight tile dequantized to bf16 on chip.
     The reference's VMEM tiles ``block_m``/``block_n`` do not change the
     result and have no counterpart here."""
-    global k6_launch_count
+    global k6_launch_count, k6_decode_launch_count
     m, k = x.shape
     k2, n = qt["q"].shape
     assert k == k2, (k, k2)
@@ -82,19 +91,20 @@ def q8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         raise ValueError(f"K6 takes bf16 or f32 x and an int8 (K, N) weight "
                          f"with N scales; got {x.dtype}, "
                          f"{qt['q'].dtype}, {qt['s'].numel()} scales")
-    from . import _build
-    lib = _build.load("q8_matmul", _Q8_SIG)
+    fn = getattr(_build.load("q8_matmul", _Q8_SIG), _Q8_ENTRY[x.dtype])
     x = x.contiguous()
     w = qt["q"].contiguous()
-    s = qt["s"].to(torch.float32).contiguous()
-    # split-K blocks add their partial sums into a zeroed output
-    out = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    ptr = lambda z: ctypes.c_void_p(z.data_ptr())
-    err = getattr(lib, _Q8_ENTRY[x.dtype])(
-        ptr(x), ptr(w), ptr(s), ptr(out), m, k, n,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    s = qt["s"]
+    if s.dtype != torch.float32 or not s.is_contiguous():
+        s = s.to(torch.float32).contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    # the raw stream query: torch.cuda.current_stream() costs ~5 us a call,
+    # and the decode loop's host time is its cost
+    err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), m, k,
+             n, torch._C._cuda_getCurrentRawStream(x.device.index))
     _build.check(err, "q8_matmul")
     k6_launch_count += 1
+    k6_decode_launch_count += m <= K6_DECODE_ROWS
     return out
 
 

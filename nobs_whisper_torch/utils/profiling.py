@@ -73,6 +73,51 @@ def stage_timer(name: str):
     return GLOBAL_PROFILER.stage(name)
 
 
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Ms per call of ``fn`` between two CUDA events over ``reps`` calls
+    back to back (after ``warmup`` calls): the host's per-call work paces
+    it where that is longer than the device's."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device time of one call of ``fn``: captured once in a CUDA graph
+    and replayed ``reps`` times between CUDA events, so that the host's
+    per-call work (Python, the ctypes call) does not pace the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps=reps, warmup=2)
+
+
+def in_turns(calls: Dict[str, object], reps: int) -> Dict[str, list]:
+    """{name: [ms in order, ms in reverse order]} of each call of
+    ``calls`` (``cuda_ms``), timed every one in order and then in reverse
+    order, so that a drift of the card's clock over the run shows."""
+    times = {name: [] for name in calls}
+    for name in list(calls) + list(calls)[::-1]:
+        times[name].append(cuda_ms(calls[name], reps))
+    return times
+
+
 def device_ms_split(fn, reps: int, match: str):
     """Device ms per call of ``fn`` from ``torch.profiler`` over ``reps``
     calls (the caller has warmed it up), split by kernel name: (the ms of

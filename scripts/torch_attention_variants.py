@@ -75,66 +75,12 @@ extern "C" int nwt_pq_flips(const void* x, long long n, void* flips,
 """
 
 
-def build(versions):
-    from nobs_whisper_torch.ops import _build
-    out_dir = os.path.join(ROOT, "build", "attn_variants")
-    os.makedirs(out_dir, exist_ok=True)
-    csrc = os.path.join(ROOT, "nobs_whisper_torch", "csrc")
-    procs = {}
-    for name, text in versions.items():
-        src = os.path.join(out_dir, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(text)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", csrc, "-o",
-             os.path.join(out_dir, f"lib{name}.so"), src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, p in procs.items():
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
-        for fn, argtypes in SIGS.items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-        if hasattr(lib, "nwt_pq_flips"):
-            lib.nwt_pq_flips.argtypes = [_P, ctypes.c_longlong, _P, _P]
-            lib.nwt_pq_flips.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
-def cuda_ms(fn, reps, warmup=3):
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def split_ms(fn, reps):
     """Device ms per call of ``fn``: its attention kernel (the checkout's
     ``attn_wgmma_kernel`` or a baseline's ``attn_*``), and the rest."""
     from nobs_whisper_torch.utils.profiling import device_ms_split
     attn, rest = device_ms_split(fn, reps, "attn_")
     return attn, sum(t for _, t in rest)
-
-
-def in_turns(calls, reps):
-    """Each call's ms, timed in order and then in reverse order."""
-    times = {name: [] for name in calls}
-    for name in list(calls) + list(calls)[::-1]:
-        times[name].append(cuda_ms(calls[name], reps))
-    return times
 
 
 def scores_minus_max(q, k, h, int8_scores, sm):
@@ -163,6 +109,8 @@ def main():
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
+    from nobs_whisper_torch.ops import _build
+    from nobs_whisper_torch.utils.profiling import cuda_ms, in_turns
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 scores stay f32
@@ -180,7 +128,10 @@ def main():
     if args.baseline:
         with open(args.baseline) as f:
             versions["baseline"] = f.read()
-    libs = build(dict(versions, probe=PROBE))
+    libs, _ = _build.build_variants(
+        dict(versions, probe=PROBE),
+        os.path.join(ROOT, "build", "attn_variants"),
+        dict(SIGS, nwt_pq_flips=[_P, ctypes.c_longlong, _P, _P]))
     probe = libs.pop("probe")
 
     from nobs_whisper_torch.ops import encoder_attention as ea

@@ -128,7 +128,9 @@ def _k6_case(m, k, n, seed):
 
 @pytest.mark.parametrize("x_dtype", ["bf16", "f32"])
 @pytest.mark.parametrize("n", [256, 1000])          # 1000: a ragged tile
-@pytest.mark.parametrize("m", [1, 8, 64, 256])
+# 17 and 65: one row past the CUDA kernel's tiles (16 decode rows, 64-row
+# prefill tiles)
+@pytest.mark.parametrize("m", [1, 8, 17, 64, 65, 256])
 def test_k6_plain_matches_pallas_interpret(m, n, x_dtype):
     """K = 320 (not a multiple of 64). At M = 1 XLA:CPU fuses the kernel's
     bf16 weight product into its matrix-vector product and skips that
@@ -152,6 +154,18 @@ def test_k6_plain_matches_pallas_interpret(m, n, x_dtype):
         w32 = np.asarray(jq.dequantize_int8(w), np.float64)
         bound = 2.0 ** -8 * (np.abs(np.asarray(xt.float())) @ np.abs(w32))
         assert (np.abs(direct - got.numpy()) <= bound + 1e-6).all()
+
+
+def test_k6_decode_rows_match_the_kernel():
+    """``K6_DECODE_ROWS``, by which the wrapper counts the decode kernel's
+    launches, is the M above which ``csrc/q8_matmul.cu`` launches its
+    prefill kernel (``DECODE_ROWS``)."""
+    import re
+    src = open(os.path.join(os.path.dirname(tq.__file__), os.pardir, "csrc",
+                            "q8_matmul.cu")).read()
+    assert re.findall(r"constexpr int DECODE_ROWS = (\d+);", src) == [
+        str(tq.K6_DECODE_ROWS)]
+    assert "if (M > DECODE_ROWS)" in src
 
 
 def test_dense_and_dequantize_match_reference():

@@ -384,17 +384,24 @@ def _q8_weight(k, n, dev, seed, offset=0):
     return w
 
 
-@pytest.mark.parametrize("m,k,n,x_dtype,offset", [
+# the decode kernel takes M <= 16 (8-row x tiles: M = 1, 2, 8 one, M = 16
+# two), the prefill kernel 16 < M <= 256 (64-row tiles: 17, 64, 65, 256);
+# the logit projection (N = 51,866: rows at every byte offset mod 16) and
+# fc2 (K = 5120, N = 1280: the deepest K split), both x types
+K6_ROWS = (1, 2, 8, 16, 17, 64, 65, 256)
+K6_CASES = [
     (1, 320, 1000, torch.bfloat16, 0),
     (3, 64, 100, torch.float32, 0),                  # one slab, N % 4 != 0
-    (8, 1280, 51866, torch.float32, 0),              # the logit projection
-    (8, 1280, 51866, torch.bfloat16, 0),
     (8, 1280, 5120, torch.bfloat16, 0),              # fc1
-    (8, 5120, 1280, torch.bfloat16, 0),              # fc2
     (8, 1280, 1280, torch.bfloat16, 3),              # misaligned rows
-    (256, 1280, 51866, torch.bfloat16, 0),           # the largest M the gate takes
+    (12, 1280, 1000, torch.float32, 5),              # both, two x tiles
     (256, 1280, 1280, torch.float32, 0),
-])
+] + [(m, k, n, x_dtype, 0) for m in K6_ROWS
+     for k, n in ((1280, 51866), (5120, 1280))
+     for x_dtype in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("m,k,n,x_dtype,offset", K6_CASES)
 def test_k6_kernel_matches_plain(cuda, m, k, n, x_dtype, offset):
     g = torch.Generator(device=cuda).manual_seed(m + n)
     x = torch.randn(m, k, generator=g, device=cuda).to(x_dtype)
@@ -407,6 +414,29 @@ def test_k6_kernel_matches_plain(cuda, m, k, n, x_dtype, offset):
     assert got.shape == (m, n) and got.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                **K6_TOL)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(8, 1280, 51866), (8, 5120, 1280),
+                                   (256, 1280, 51866), (64, 5120, 1280)])
+def test_k6_kernel_is_deterministic(cuda, m, k, n, x_dtype):
+    """Two calls on the same inputs give the same bits (the TPU kernel's
+    result does not change from run to run): the split-K partials are
+    summed in a fixed order, at the logit shape and at fc2, for the decode
+    (M = 8) and the prefill (M = 64, 256) kernels. The output comes from
+    an allocation that held NaNs just before, so an element the kernel
+    did not write would show."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(x_dtype)
+    w = _q8_weight(k, n, cuda, seed=k + n)
+    outs = []
+    for _ in range(2):
+        junk = torch.full((m, n), float("nan"), device=cuda)
+        del junk          # the caching allocator hands this block out next
+        outs.append(qt.q8_matmul(x, w))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs[0]).all())
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_int8_decoder_on_card_takes_decode_kernels(cuda, monkeypatch):
