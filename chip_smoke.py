@@ -77,15 +77,17 @@ arguments). Phases; any failure exits non-zero before the result line:
 10. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 and K5 (B=8 and B=1, H=20, Dh=64, Tp=1536,
-t_real=1500), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
+t_real=1500; timed back to back and alone in a CUDA graph), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
 and with f32 x, two calls bit for bit with f32 x, fc1 1280 x 5120, fc2
 5120 x 1280, M=256; the serving wave's prefill rows, M=24, at the logit
 shape with f32 x and at fc2, each two calls bit for bit; each timed back
 to back, alone in a CUDA graph and by the wrapper's host work), K10,
 K11 and
 K8 (block_f=1280) at the knob paths' rows (d=1280; M=3000 with bf16 and
-with f32 x, M=1500 with f32 x) and K13 (B=2, 3000 frames, d=1280: C_in=128 at t_out_pad 1536 and
-1504, C_in=80) and the variants at K1's shapes (K1 with fused o, K1 and
+with f32 x, M=1500 with f32 x) and K13 (3000 frames, d=1280: B=2 with
+C_in=128 at t_out_pad 1536 and 1504 and with C_in=80, and B=8; two calls
+bit for bit; timed back to back, alone in a CUDA graph, and the wrapper's
+host work) and the variants at K1's shapes (K1 with fused o, K1 and
 K3 with int8 scores, int8 PV and both, K12 and K12 with both at
 ffn=5120, block_f=1280; the K3 int8 variants' device time split into
 the attention kernel and ``int8_prep``), K14 (B=40, B=2 and B=1 30 s
@@ -630,7 +632,8 @@ KNOB_ROWS = (("bfloat16", 3000), ("float32", 3000), ("float32", 1500))
 def knob_kernel_checks():
     """K10, K11 and K8 (block_f = 1280) at ``KNOB_ROWS``, d = 1280. K13 at
     B = 2, 3000 frames, d = 1280: C_in = 128 at t_out_pad 1536 (the flat
-    path) and 1504 (the K9 path), and C_in = 80. Yardsticks, timed here
+    path) and 1504 (the K9 path), and C_in = 80; and at B = 8, C_in = 128,
+    t_out_pad 1536. Yardsticks, timed here
     and used nowhere in the port: ``torch._int_mm`` of the same int8
     shapes (K10: three, K11: one, K8: K2's two), and two bf16
     ``F.conv1d`` with the same weights (K13)."""
@@ -644,9 +647,12 @@ def knob_kernel_checks():
         torch.cuda.empty_cache()
         _join(out, "K8" + tag, k8_check(m, xd))
         torch.cuda.empty_cache()
-    # K13: the line keeps C_in = 128 at the flat path's 1536 rows
-    for c_in, t_pad in ((128, 1536), (128, 1504), (80, 1536)):
-        _join(out, "K13", stem_check(c_in, t_pad))
+    # K13: the line keeps C_in = 128 at the flat path's 1536 rows; B = 8
+    # is the serving batcher's max_batch
+    for c_in, t_pad, b in ((128, 1536, 2), (128, 1504, 2), (80, 1536, 2),
+                           (128, 1536, 8)):
+        _join(out, "K13", stem_check(c_in, t_pad, b))
+        torch.cuda.empty_cache()
     return out
 
 
@@ -750,14 +756,20 @@ def k8_check(m, xd, d=1280, f=5120, bf=1280):
 
 
 def stem_check(c_in, t_pad, b=2, n_frames=3000, d=1280, seed=13):
-    """K13 at one geometry against its plain version (both on the card);
-    the yardstick is the two bf16 ``F.conv1d`` of the unfused stem on the
-    same bf16 mel and weights."""
+    """K13 at one geometry against its plain version (both on the card):
+    the max error, the padded rows exact zeros, and the same bits from two
+    calls. Timed three ways: back-to-back calls of the wrapper (the line's
+    ``ms``), the kernels alone on the device (``graph_ms``: the call
+    captured in a CUDA graph), and the wrapper's host work a call (host
+    clock over calls that enqueue without waiting). The yardstick is the
+    two bf16 ``F.conv1d`` of the unfused stem on the same bf16 mel and
+    weights (their weight permutes made before timing), back to back and
+    alone in a CUDA graph."""
     import torch
     import torch.nn.functional as F
     from nobs_whisper_torch.ops import conv_stem as cs
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed + c_in + t_pad)
+    g = torch.Generator(device=dev).manual_seed(seed + c_in + t_pad + b)
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
     mel = rn(b, c_in, n_frames) * 0.5
     w1 = (rn(3, c_in, d) * (3 * c_in) ** -0.5).to(torch.bfloat16)
@@ -768,22 +780,34 @@ def stem_check(c_in, t_pad, b=2, n_frames=3000, d=1280, seed=13):
     t_half = n_frames // 2
     got = cs.encoder_stem_fused(*args)
     torch.cuda.synchronize()
+    same = bool(torch.equal(got, cs.encoder_stem_fused(*args)))
     ref = cs.encoder_stem_fused_plain(*args)
     diff = (got.float() - ref.float()).abs()
     err = diff.max().item()
     frac = (diff > 0).float().mean().item()
     zeros = not bool(got[:, t_half:].any())
-    ok = err < STEM_TOL and zeros and got.shape == (b, t_pad, d) and \
-        bool(torch.isfinite(got.float()).all())
-    ms = cuda_ms(lambda: cs.encoder_stem_fused(*args))
+    ok = err < STEM_TOL and zeros and same and got.shape == (b, t_pad, d) \
+        and bool(torch.isfinite(got.float()).all())
+    del got, ref, diff
+    call = lambda: cs.encoder_stem_fused(*args)
+    ms = cuda_ms(call)
+    device_ms = graph_ms(call, reps=20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        call()
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: cs.encoder_stem_fused_plain(*args), reps=3,
                        warmup=1)
     xb = mel.to(torch.bfloat16)
     k1 = w1.permute(2, 1, 0).contiguous()
     k2 = w2.permute(2, 1, 0).contiguous()
     a = torch.randn(b, d, n_frames, device=dev, dtype=torch.bfloat16)
-    lib_ms = cuda_ms(lambda: (F.conv1d(xb, k1, b1, padding=1),
-                              F.conv1d(a, k2, b2, stride=2, padding=1)))
+    convs = lambda: (F.conv1d(xb, k1, b1, padding=1),
+                     F.conv1d(a, k2, b2, stride=2, padding=1))
+    lib_ms = cuda_ms(convs)
+    lib_alone = graph_ms(convs, reps=20)
     flops = 2.0 * b * n_frames * 3 * c_in * d + 2.0 * b * t_half * 3 * d * d
     nbytes = (mel.numel() * 4 + (w1.numel() + w2.numel() + pos.numel()) * 2
               + 2 * d * 2 + b * t_pad * d * 2)
@@ -791,9 +815,12 @@ def stem_check(c_in, t_pad, b=2, n_frames=3000, d=1280, seed=13):
     log(f"[kernel] K13 encoder_stem_fused B={b} C_in={c_in} frames="
         f"{n_frames} d={d} t_out_pad={t_pad}: max_abs_err {err:.3e} (tol "
         f"{STEM_TOL}), {frac:.2e} of elements differ, rows >= {t_half} zero "
-        f"{zeros} -> {'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
-        f"{nbytes / 1e6:.1f} MB), F.conv1d x2 (bf16) {lib_ms:.4f} ms")
+        f"{zeros}, two calls bit for bit {same} -> "
+        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms back to back, "
+        f"{device_ms:.4f} alone in a CUDA graph, the wrapper's host work "
+        f"{host_ms:.4f} ms a call; plain {plain_ms:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}, {nbytes / 1e6:.1f} MB), F.conv1d "
+        f"x2 (bf16) {lib_ms:.4f} ms back to back, {lib_alone:.4f} alone")
     return _entry("encoder_stem_fused", "conv_stem.cu", "conv_stem.py:160",
                   err, ms, plain_ms, bound, lib_ms, ok)
 
@@ -855,18 +882,25 @@ def xattn_check(key, b, h=20, t=1500, dh=64, seed=30):
     steps = (diff / (XATTN_STEP["atol"] + XATTN_STEP["rtol"]
                      * ref.abs())).max().item()
     finite = bool(torch.isfinite(got).all())
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q, kh, vh, attn_mask=mask, scale=float(dh) ** -0.5)
     ms = cuda_ms(fn, reps=50)
+    # alone on the device: the call captured in a CUDA graph, so that the
+    # host does not pace it (one K/V set: at B=8 K4's bytes pass the 50 MB
+    # L2 and K5's fit in it)
+    device_ms = graph_ms(fn, reps=20)
     plain_ms = cuda_ms(plain, reps=10, warmup=2)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, kh, vh, attn_mask=mask, scale=float(dh) ** -0.5), reps=50)
+    lib_ms = cuda_ms(sdpa, reps=50)
+    lib_alone = graph_ms(sdpa, reps=20)
     bound, by = _bound(nbytes, 4.0 * b * h * t * dh)
     ok = finite and steps <= 1.0 and err < XATTN_TOL
     log(f"[kernel] {key} {name} B={b} H={h} Dh={dh} Tp={tp} t_real={t}: "
         f"max_abs_err {err:.3e} (ceiling {XATTN_TOL}), max |kernel - plain|"
         f" / (atol + rtol |plain|) {steps:.3f} (<= 1, {XATTN_STEP}) finite "
-        f"{finite} -> {'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{finite} -> {'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms back "
+        f"to back, {device_ms:.4f} alone in a CUDA graph; plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} "
-        f"MB), {lib} {lib_ms:.4f} ms")
+        f"MB), {lib} {lib_ms:.4f} ms back to back, {lib_alone:.4f} alone")
     return dict(name=name, route="cuda",
                 source="nobs_whisper_torch/csrc/cross_attention_decode.cu",
                 replaces=("nobs_whisper_tpu/ops/attention_pallas.py:189"

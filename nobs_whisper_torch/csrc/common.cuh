@@ -159,8 +159,7 @@ struct GemmSmem {
   uint8_t b[GBN][GLDS];   // [n][k]  (transposed from the (K, N) weight)
 };
 
-// bf16 x bf16 -> f32 tensor-core tile (the int8 attention variants' bf16
-// half, K6, K13)
+// bf16 x bf16 -> f32 tensor-core tile (K6)
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(

@@ -11,8 +11,10 @@ kernels' plain versions on CPU tensors.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -145,6 +147,26 @@ def build_variants(sources: Dict[str, str], out_dir: str,
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
     return libs, logs
+
+
+def sass_counts(lib_path: str) -> Dict[str, collections.Counter]:
+    """{kernel name: Counter of opcodes} of a built library, from the
+    toolkit's ``cuobjdump -sass`` (for the variants scripts)."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+                     r"(\.[A-Z0-9_.]+)?", line)
+        if name and m:
+            out[name][m.group(1)] += 1
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -10,11 +10,13 @@ bf16; rows >= t_real exact zeros. The unfused bf16 stem
 instead, one bf16 step apart on ~40% of elements: both are valid bf16
 roundings, and the plain version here follows the kernel.
 
-The CUDA kernel lives in ``csrc/conv_stem.cu``; its source note says what
-bounds it on an H100 and how the design answers that.
-:func:`encoder_stem_fused` launches it for a CUDA tensor (or raises) and
-runs :func:`encoder_stem_fused_plain` for a CPU tensor; ``launch_count``
-counts kernel launches only. :func:`stem_reference` is the unfused stem.
+The CUDA kernels live in ``csrc/conv_stem.cu`` (a mel pass, then conv1
+and conv2 on ``wgmma`` fed by TMA); its source note says what bounds them
+on an H100 and how the design answers that. :func:`encoder_stem_fused`
+launches them for a CUDA tensor (or raises) and runs
+:func:`encoder_stem_fused_plain` for a CPU tensor; ``launch_count``
+counts calls of the C entry only. :func:`stem_reference` is the unfused
+stem.
 """
 
 from __future__ import annotations
@@ -28,8 +30,11 @@ from .fused_mlp import gelu_tanh
 
 launch_count = 0
 
-_SIG = {"nwt_encoder_stem": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-        + [ctypes.c_void_p]}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIG = {"nwt_encoder_stem": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 5 + [_P]}
+# the mel rows' channel quantum (csrc/conv_stem.cu MEL_CQ): the kernel's
+# (B, n_frames, C) bf16 copy of the mel has C rounded up to it
+MEL_CQ = 8
 
 
 def _round_gelu(s: torch.Tensor) -> torch.Tensor:
@@ -76,7 +81,10 @@ def encoder_stem_fused(mel, w1, b1, w2, b2, pos,
     (3, C_in, d); ``w2``: (3, d, d); ``b1``/``b2``: (d,); ``pos``: at
     least (n_frames // 2, d). Returns (B, t_out_pad, d) bf16, rows past
     n_frames // 2 zero; ``t_out_pad`` >= n_frames // 2, a multiple of 8,
-    d a multiple of 128 (the reference's asserts)."""
+    d a multiple of 128 (the reference's asserts). On the card the kernel
+    reads bf16 weights and pos and f32 or bf16 biases as they lie (the
+    serving engine's bf16 parameters: no copy, no launch besides the
+    kernels'); other types are converted first."""
     global launch_count
     b, c_in, n_frames = mel.shape
     d = w1.shape[-1]
@@ -88,32 +96,47 @@ def encoder_stem_fused(mel, w1, b1, w2, b2, pos,
     if mel.device.type != "cuda":
         raise ValueError(f"unsupported device {mel.device}")
     if tuple(w1.shape) != (3, c_in, d) or tuple(w2.shape) != (3, d, d) \
-            or pos.shape[0] < t_half:
-        raise ValueError(f"K13: w1 (3, C_in, d), w2 (3, d, d) and at least "
-                         f"n_frames // 2 pos rows; got {tuple(w1.shape)}, "
-                         f"{tuple(w2.shape)}, {tuple(pos.shape)}")
+            or b1.numel() != d or b2.numel() != d or pos.dim() != 2 \
+            or pos.shape[0] < t_half or pos.shape[1] != d:
+        raise ValueError(f"K13: w1 (3, C_in, d), w2 (3, d, d), (d,) biases "
+                         f"and at least n_frames // 2 pos rows of d; got "
+                         f"{tuple(w1.shape)}, {tuple(w2.shape)}, "
+                         f"{tuple(b1.shape)}, {tuple(b2.shape)}, "
+                         f"{tuple(pos.shape)}")
     from . import _build
-    lib = _build.load("conv_stem", _SIG)
-    dev = mel.device
-    bf = torch.bfloat16
-    c = -(-c_in // 32) * 32              # zero channels up to the K slab
-    x = F.pad(mel.transpose(1, 2).to(bf), (0, c - c_in)).contiguous()
-    # weights n-major: wt[n, j C + c] = w[j, c, n]
-    w1t = F.pad(w1.to(bf), (0, 0, 0, c - c_in)).permute(2, 0, 1).reshape(
-        d, 3 * c).contiguous()
-    w2t = w2.to(bf).permute(2, 0, 1).reshape(d, 3 * d).contiguous()
-    # held in names until the launch: a temporary's memory could be handed
-    # to the next temporary before the kernel reads it
-    b1f, b2f = (z.to(device=dev, dtype=torch.float32).contiguous()
-                for z in (b1, b2))
-    posb = pos[:t_half].to(device=dev, dtype=bf).contiguous()
-    a = torch.empty((b, n_frames, d), dtype=bf, device=dev)
+    fn = _build.load("conv_stem", _SIG).nwt_encoder_stem
+    dev, bf = mel.device, torch.bfloat16
+    if any(z.device != dev for z in (w1, b1, w2, b2, pos)):
+        raise ValueError("K13: every operand on the mel's device")
+    # The kernel reads the f32 mel, the weights as stored in bf16 and the
+    # biases in f32 or bf16; anything else is converted here. Each converted
+    # tensor is held in a name until the launch: a temporary's memory could
+    # be handed to the next temporary before the kernel reads it.
+    melf = _operand(mel, torch.float32)
+    w1b, w2b = _operand(w1, bf), _operand(w2, bf)
+    bias_dt = b1.dtype if b1.dtype == b2.dtype and b1.dtype in (
+        torch.float32, bf) else torch.float32
+    b1c, b2c = _operand(b1, bias_dt), _operand(b2, bias_dt)
+    posb = _operand(pos, bf)             # rows < n_frames // 2 are read
+    # one workspace: the kernel's bf16 copy of the mel, (B, n_frames, C_in
+    # rounded up to MEL_CQ), then conv1's output (B, n_frames, d)
+    x_len = b * n_frames * (-(-c_in // MEL_CQ) * MEL_CQ)
+    ws = torch.empty(x_len + b * n_frames * d, dtype=bf, device=dev)
     out = torch.empty((b, t_out_pad, d), dtype=bf, device=dev)
-    ptr = lambda z: ctypes.c_void_p(z.data_ptr())
-    err = lib.nwt_encoder_stem(
-        ptr(x), ptr(w1t), ptr(b1f), ptr(w2t), ptr(b2f), ptr(posb),
-        ptr(a), ptr(out), b, n_frames, c, d, t_out_pad,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    # the raw stream query: torch.cuda.current_stream() costs ~5 us a call
+    err = fn(melf.data_ptr(), w1b.data_ptr(), b1c.data_ptr(),
+             w2b.data_ptr(), b2c.data_ptr(), int(bias_dt == torch.float32),
+             posb.data_ptr(), ws.data_ptr(), ws.data_ptr() + 2 * x_len,
+             out.data_ptr(), b, n_frames, c_in, d, t_out_pad,
+             torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, "encoder_stem_fused")
     launch_count += 1
     return out
+
+
+def _operand(z: torch.Tensor, dtype) -> torch.Tensor:
+    """``z`` as the kernel reads it: ``dtype``, contiguous, 16-byte
+    aligned (the tensor maps' base address); ``z`` itself when it is."""
+    if z.dtype != dtype or not z.is_contiguous():
+        z = z.to(dtype).contiguous()
+    return z if z.data_ptr() % 16 == 0 else z.clone()

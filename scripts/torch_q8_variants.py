@@ -52,7 +52,6 @@ Imports nothing of JAX.
 """
 
 import argparse
-import collections
 import ctypes
 import os
 import re
@@ -166,26 +165,6 @@ extern "C" int nwt_stream_probe(const void* w, int K, int N, void* out,
 }
 """
 PROBES = ((128, 4), (256, 4))
-
-
-def sass_counts(lib_path):
-    """{kernel name: Counter of opcodes} from ``cuobjdump -sass``."""
-    from nobs_whisper_torch.ops import _build
-    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True).stdout
-    out, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            out[name] = collections.Counter()
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
-                     r"(\.[A-Z0-9_.]+)?", line)
-        if name and m:
-            out[name][m.group(1)] += 1
-    return out
 
 
 def main():
@@ -394,7 +373,7 @@ def main():
             subprocess.run([tool, "-sass", os.path.join(out_dir,
                                                         "libkernel.so")],
                            stdout=f, check=True)
-    for fn, ops in sass_counts(os.path.join(out_dir,
+    for fn, ops in _build.sass_counts(os.path.join(out_dir,
                                             "libkernel.so")).items():
         print(f"[sass] {fn}: " + ", ".join(f"{op} {ops[op]}"
                                            for op in SASS_OPS if ops[op])

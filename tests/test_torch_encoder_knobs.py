@@ -243,6 +243,46 @@ def test_k13_stem_reference_is_the_unfused_stem():
                                atol=3e-2)
 
 
+def _conv_stem_cu():
+    return open(os.path.join(os.path.dirname(cs.__file__), os.pardir, "csrc",
+                             "conv_stem.cu")).read()
+
+
+def test_k13_mel_channel_quantum_matches_the_kernel():
+    """The wrapper allocates the kernel's bf16 copy of the mel with C_in
+    rounded up to ``MEL_CQ`` channels; ``csrc/conv_stem.cu`` lays the rows
+    out with its own ``MEL_CQ``."""
+    import re
+    assert re.findall(r"constexpr int MEL_CQ = (\d+);", _conv_stem_cu()) == [
+        str(cs.MEL_CQ)]
+
+
+def test_k13_operand_copies_only_what_the_kernel_cannot_read():
+    """The wrapper hands the kernel bf16 weights as they lie: a contiguous,
+    16-byte aligned tensor of the wanted type is passed on, not copied; a
+    tensor of another type, a strided view or a view off the 16-byte grid
+    is copied into one the kernel reads."""
+    w = torch.zeros(3, 80, 128, dtype=torch.bfloat16)
+    assert cs._operand(w, torch.bfloat16) is w
+    for z in (w.float(), w.transpose(1, 2), w.flatten()[1:1 + 3 * 80 * 127]):
+        got = cs._operand(z, torch.bfloat16)
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, z.to(
+            torch.bfloat16))
+
+
+def test_k13_signature_matches_the_c_entry():
+    """``_SIG`` declares each argument of ``nwt_encoder_stem`` in order:
+    a pointer for each pointer (and the stream), an int for each int."""
+    import ctypes
+    import re
+    src = _conv_stem_cu()
+    params = re.search(r'extern "C" int nwt_encoder_stem\(([^)]*)\)',
+                       src).group(1).split(",")
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert cs._SIG["nwt_encoder_stem"] == want
+
+
 # ---------------------------------------------------------------------------
 # the reference's encoder on one TPU, its kernels counted
 # ---------------------------------------------------------------------------

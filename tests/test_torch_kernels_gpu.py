@@ -532,24 +532,33 @@ def test_k8_kernel_matches_plain(cuda, m, d, f, block_f, x_dtype):
     assert (got.float() - ref.float()).abs().max().item() < K2_TOL
 
 
+def _k13_inputs(b, c_in, n_frames, d, dev, p_dtype=torch.bfloat16, seed=0):
+    rng = np.random.RandomState(seed)
+    mk = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.randn(*s) * sc).astype(np.float32)).to(dev)
+    mel = mk(b, c_in, n_frames, sc=0.5)
+    return (mel, *[z.to(p_dtype) for z in (
+        mk(3, c_in, d, sc=(3 * c_in) ** -0.5), mk(d, sc=0.1),
+        mk(3, d, d, sc=(3 * d) ** -0.5), mk(d, sc=0.1),
+        mk(n_frames // 2, d, sc=0.1))])
+
+
 @pytest.mark.parametrize("b,c_in,n_frames,d,t_pad", [
     (1, 80, 64, 128, 32), (2, 80, 64, 128, 48), (1, 128, 100, 256, 56),
     (2, 128, 3000, 1280, 1536), (2, 128, 3000, 1280, 1504),
-    (1, 80, 3000, 1280, 1536)])
+    (1, 80, 3000, 1280, 1536),
+    (1, 80, 64, 384, 32),            # d = 384: 128-column tiles only
+    (2, 128, 200, 768, 104),         # t_real = 100, under one 128-row tile
+    (8, 128, 3000, 1280, 1536),      # the serving batcher's max_batch
+    (2, 80, 200, 256, 400)])         # 300 zero rows: whole tiles of zeros
 @pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
 def test_k13_kernel_matches_plain(cuda, b, c_in, n_frames, d, t_pad,
                                   p_dtype):
-    """Weights, biases and pos as f32 or bf16: the wrapper converts the
-    biases to f32 copies, which must live until the launch."""
-    rng = np.random.RandomState(c_in + t_pad)
-    mk = lambda *s, sc=1.0: torch.from_numpy(
-        (rng.randn(*s) * sc).astype(np.float32)).to(cuda)
-    mel = mk(b, c_in, n_frames, sc=0.5)
-    params = [z.to(p_dtype) for z in (
-        mk(3, c_in, d, sc=(3 * c_in) ** -0.5), mk(d, sc=0.1),
-        mk(3, d, d, sc=(3 * d) ** -0.5), mk(d, sc=0.1),
-        mk(n_frames // 2, d, sc=0.1))]
-    args = (mel, *params, t_pad)
+    """Weights, biases and pos as f32 or bf16: the wrapper converts what
+    the kernel does not read as it lies, and each copy must live until the
+    launch."""
+    args = (*_k13_inputs(b, c_in, n_frames, d, cuda, p_dtype,
+                         seed=c_in + t_pad), t_pad)
     before = cs.launch_count
     got = cs.encoder_stem_fused(*args)
     torch.cuda.synchronize()
@@ -558,6 +567,48 @@ def test_k13_kernel_matches_plain(cuda, b, c_in, n_frames, d, t_pad,
     assert got.dtype == torch.bfloat16 and got.shape == (b, t_pad, d)
     assert not got[:, n_frames // 2:].any()      # padded rows: exact zeros
     assert (got.float() - ref.float()).abs().max().item() < 3e-2
+
+
+@pytest.mark.parametrize("b,c_in,n_frames,d,t_pad", [
+    (2, 128, 3000, 1280, 1536), (1, 80, 200, 384, 104)])
+def test_k13_kernel_is_deterministic(cuda, b, c_in, n_frames, d, t_pad):
+    """No split sum and no atomics: two calls give the same bits."""
+    args = (*_k13_inputs(b, c_in, n_frames, d, cuda, seed=1), t_pad)
+    first = cs.encoder_stem_fused(*args)
+    assert torch.equal(first, cs.encoder_stem_fused(*args))
+
+
+def test_k13_launches_only_its_kernels(cuda):
+    """With bf16 weights, biases and pos (as the serving engine holds
+    them), a call copies nothing: it launches the stem's own kernels, one
+    mel pass and the two convs, and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+    args = (*_k13_inputs(2, 128, 3000, 1280, cuda, seed=2), 1536)
+    cs.encoder_stem_fused(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cs.encoder_stem_fused(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(names)
+    assert all("stem_" in n for n in names), names
+    assert sum("stem_mel_rows" in n for n in names) == 1, names
+    assert sum("stem_conv" in n for n in names) == 2, names
+
+
+def test_k13_refuses_what_it_cannot_take(cuda):
+    """On a CUDA tensor the wrapper launches the kernel or raises: no
+    fallback to the plain version."""
+    mel, w1, b1, w2, b2, pos = _k13_inputs(1, 80, 64, 128, cuda)
+    with pytest.raises(ValueError):
+        cs.encoder_stem_fused(mel, w1, b1, w2[:, :64], b2, pos, 32)
+    with pytest.raises(ValueError):
+        cs.encoder_stem_fused(mel, w1.cpu(), b1, w2, b2, pos, 32)
+    with pytest.raises(ValueError):
+        cs.encoder_stem_fused(mel, w1, b1, w2, b2, pos[:16], 32)
+    with pytest.raises(AssertionError):
+        cs.encoder_stem_fused(mel[..., :63], w1, b1, w2, b2, pos, 32)
 
 
 # ---------------------------------------------------------------------------
