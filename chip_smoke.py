@@ -16,7 +16,10 @@ arguments). Phases; any failure exits non-zero before the result line:
    the ``NWT_INT8_QKV`` path's H=20, dh=64, and at dh=32, H=40):
    max error against the stated tolerance, kernel / plain / library ms
    (CUDA events) and the bound computed from the shapes against published
-   H100 peaks;
+   H100 peaks; K2 and K8 also alone in a CUDA graph, split by kernel
+   (``torch.profiler``: ln_quant, fc1, fc2); the int8 GEMM kernels'
+   yardstick is ``torch._int_mm`` on the weights as stored and on their
+   K-major copies, both printed, the faster one kept;
 3. small inputs against references: the f32 path against the oracle
    goldens (``tests/goldens/oracle_tiny.npz``: encoder states and greedy
    tokens); dh=64 encoders on the card against the same encoders' plain
@@ -224,6 +227,41 @@ def k2_setup(dev, m=2 * 1536, d=1280, f=5120, seed=2):
     return x, ln_g, ln_b, fc1, 0.1 * rn(f), fc2, 0.1 * rn(d)
 
 
+def int_mm_ms(pairs, extra=None):
+    """The yardstick of an int8 GEMM kernel, timed here and used nowhere in
+    the port: ``torch._int_mm`` of each (activation, weight) of ``pairs``
+    (after ``extra()``, the attention kernels' SDPA, where given), the
+    weight as stored ((K, N) row-major), and the same on its K-major copy
+    (``w.t().contiguous().t()``, a column-major (K, N)), which cuBLAS
+    serves with another kernel. (ms, ms) back to back."""
+    import torch
+    kmaj = [(a, w.t().contiguous().t()) for a, w in pairs]
+    run = lambda ps: (extra and extra(), [torch._int_mm(a, w) for a, w in ps])
+    return cuda_ms(lambda: run(pairs)), cuda_ms(lambda: run(kmaj))
+
+
+def mlp_int_mm(m, d, f, args):
+    """``int_mm_ms`` of K2's two GEMM shapes on ``args``' weights, on
+    random int8 activations."""
+    import torch
+    dev = args[0].device
+    a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
+    h8 = torch.randint(-127, 128, (m, f), device=dev, dtype=torch.int8)
+    return int_mm_ms([(a8, args[3]["q"]), (h8, args[5]["q"])])
+
+
+def mlp_device_times(call):
+    """K2's (or K8's) device time alone (the call in a CUDA graph) and its
+    split by kernel (``torch.profiler``): ln_quant, fc1 and fc2, and the
+    memset and requant pass on the two-pass variant."""
+    from nobs_whisper_torch.utils.profiling import device_ms_split
+    alone = graph_ms(call)
+    _, rest = device_ms_split(call, 10, "\0")
+    short = lambda n: (n.split("(")[0].replace("void nwt::", "")
+                       .split("<")[0])
+    return alone, ", ".join(f"{short(n)} {t:.4f}" for n, t in rest)
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -256,9 +294,10 @@ def phase_kernels():
     # the yardstick does K1's work: SDPA and the three int8 projections
     # (args[3], args[5], args[6]: wq, wk, wv)
     a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
-    lib_ms = cuda_ms(lambda: (
-        F.scaled_dot_product_attention(*qkv, attn_mask=mask),
-        [torch._int_mm(a8, w["q"]) for w in (args[3], args[5], args[6])]))
+    lib_kn, lib_km = int_mm_ms(
+        [(a8, w["q"]) for w in (args[3], args[5], args[6])],
+        lambda: F.scaled_dot_product_attention(*qkv, attn_mask=mask))
+    lib_ms = min(lib_kn, lib_km)
     int8_ops = 2.0 * m * d * 3 * d
     bf16_flops = 2 * (2.0 * b * h * t * n_real * 64)
     nbytes = 2 * m * d * 2 + 3 * d * d + 3 * d * 4 + 4 * d * 4
@@ -272,7 +311,8 @@ def phase_kernels():
         f"{'PASS' if ok1 else 'FAIL'}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
         f"(operations), SDPA + torch._int_mm x3 (q/k/v projections) "
-        f"{lib_ms:.4f} ms")
+        f"{lib_kn:.4f} ms on the (K, N) weights, {lib_km:.4f} on their "
+        f"K-major copies")
     out["K1"] = dict(
         name="encoder_attention_fused_qkv", route="cuda",
         source="nobs_whisper_torch/csrc/encoder_attention.cu",
@@ -288,23 +328,24 @@ def phase_kernels():
     torch.cuda.synchronize()
     ref = fm.encoder_mlp_int8_resident_plain(*args, block_f=bf)
     err = (got.float() - ref.float()).abs().max().item()
-    ms = cuda_ms(lambda: fm.encoder_mlp_int8_resident(
-        *args, block_f=bf))
+    call = lambda: fm.encoder_mlp_int8_resident(*args, block_f=bf)
+    ms = cuda_ms(call)
+    alone, split = mlp_device_times(call)
     plain_ms = cuda_ms(lambda: fm.encoder_mlp_int8_resident_plain(
         *args, block_f=bf), reps=3, warmup=1)
-    a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
-    h8 = torch.randint(-127, 128, (m, f), device=dev, dtype=torch.int8)
-    w1, w2 = args[3]["q"], args[5]["q"]
-    lib_ms = cuda_ms(lambda: (torch._int_mm(a8, w1), torch._int_mm(h8, w2)))
+    lib_kn, lib_km = mlp_int_mm(m, d, f, args)
+    lib_ms = min(lib_kn, lib_km)
     ops = 2.0 * m * d * f * 2
     nbytes = 2 * m * d * 2 + 2 * d * f + (f + d) * 4 * 2 + 2 * d * 4
     bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
     ok2 = err < K2_TOL
     log(f"[kernel] K2 encoder_mlp_int8_resident M={m} d={d} ffn={f} "
         f"block_f={bf}: max_abs_err {err:.3e} (tol {K2_TOL}) -> "
-        f"{'PASS' if ok2 else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{'PASS' if ok2 else 'FAIL'}; kernel {ms:.4f} ms back to back, "
+        f"{alone:.4f} alone ({split}), plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms (operations), "
-        f"torch._int_mm fc1+fc2 alone {lib_ms:.4f} ms")
+        f"torch._int_mm fc1+fc2 {lib_kn:.4f} ms on the (K, N) weights, "
+        f"{lib_km:.4f} on their K-major copies")
     out["K2"] = dict(
         name="encoder_mlp_int8_resident", route="cuda",
         source="nobs_whisper_torch/csrc/fused_mlp.cu",
@@ -319,8 +360,9 @@ def phase_kernels():
     torch.cuda.synchronize()
     ref = fm.encoder_mlp_int8_resident_plain(x32, *args[1:], block_f=bf)
     err = (got - ref).abs().max().item()
-    ms = cuda_ms(lambda: fm.encoder_mlp_int8_resident(
-        x32, *args[1:], block_f=bf))
+    call = lambda: fm.encoder_mlp_int8_resident(x32, *args[1:], block_f=bf)
+    ms = cuda_ms(call)
+    alone, split = mlp_device_times(call)
     plain_ms = cuda_ms(lambda: fm.encoder_mlp_int8_resident_plain(
         x32, *args[1:], block_f=bf), reps=3, warmup=1)
     nbytes = 2 * m * d * 4 + 2 * d * f + (f + d) * 4 * 2 + 2 * d * 4
@@ -328,16 +370,18 @@ def phase_kernels():
     ok2f = err < K2_TOL and got.dtype == torch.float32
     log(f"[kernel] K2-f32 encoder_mlp_int8_resident f32 M={m} d={d} "
         f"ffn={f} block_f={bf}: max_abs_err {err:.3e} (tol {K2_TOL}) -> "
-        f"{'PASS' if ok2f else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{'PASS' if ok2f else 'FAIL'}; kernel {ms:.4f} ms back to back, "
+        f"{alone:.4f} alone ({split}), plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms (operations), "
-        f"torch._int_mm fc1+fc2 alone {lib_ms:.4f} ms")
+        f"torch._int_mm fc1+fc2 {lib_kn:.4f} ms on the (K, N) weights, "
+        f"{lib_km:.4f} on their K-major copies")
     out["K2-f32"] = dict(
         name="encoder_mlp_int8_resident (f32 activations)", route="cuda",
         source="nobs_whisper_torch/csrc/fused_mlp.cu",
         replaces="nobs_whisper_tpu/ops/fused_mlp.py:298",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by="operations", library_ms=lib_ms, ok=ok2f)
-    del args, got, ref, x32, a8, h8
+    del args, got, ref, x32
     torch.cuda.empty_cache()
 
     # ---- K3 (flat layout) and K9 (per head) ----
@@ -452,9 +496,13 @@ def variant_kernel_checks():
             f"{avg:.3e}, {frac:.2e} of elements differ "
             f"(tol {tol[0]}, mean {tol[1]}) -> {'PASS' if ok else 'FAIL'}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound[0]:.4f} ms ({bound[1]}), {lib_name} {lib_ms:.4f} ms")
+            f"{bound[0]:.4f} ms ({bound[1]}), {lib_name} " + (
+                f"{lib_ms[0]:.4f} ms on the (K, N) weights, {lib_ms[1]:.4f} "
+                "on their K-major copies" if isinstance(lib_ms, tuple)
+                else f"{lib_ms:.4f} ms"))
         out[key] = _entry(f"{name} ({key})", source, replaces, err, ms,
-                          plain_ms, bound, lib_ms, ok)
+                          plain_ms, bound, min(lib_ms) if isinstance(
+                              lib_ms, tuple) else lib_ms, ok)
 
     # ---- K1: fused o, int8 scores / PV ----
     args = k1_setup(dev, b, h, t, d, seed=14)
@@ -463,9 +511,8 @@ def variant_kernel_checks():
     bo = 0.1 * torch.randn(d, generator=g, device=dev)
     a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
     proj = (args[3], args[5], args[6], wo)          # wq, wk, wv, wo
-    k1_lib = {n: cuda_ms(lambda n=n: (
-        sdpa(), [torch._int_mm(a8, w["q"]) for w in proj[:n]]))
-        for n in (3, 4)}
+    k1_lib = {n: int_mm_ms([(a8, w["q"]) for w in proj[:n]], sdpa)
+              for n in (3, 4)}
     proj_ops = 2.0 * m * d * 3 * d
     for fuse_o, s8, pv in ((True, False, False), (False, True, False),
                            (False, False, True), (False, True, True)):
@@ -516,9 +563,8 @@ def variant_kernel_checks():
     largs = (x, g1, b1n, wq, bq, wk, wv, bv, wo, bo, g2, b2n, fc1, fc1_b,
              fc2, fc2_b)
     h8 = torch.randint(-127, 128, (m, f), device=dev, dtype=torch.int8)
-    lib_ms = cuda_ms(lambda: (sdpa(), [torch._int_mm(a8, w["q"]) for w in
-                                       (wq, wk, wv, wo, fc1)],
-                              torch._int_mm(h8, fc2["q"])))
+    lib_ms = int_mm_ms([(a8, w["q"]) for w in (wq, wk, wv, wo, fc1)]
+                       + [(h8, fc2["q"])], sdpa)
     layer_ops = 2.0 * m * d * (4 * d + 2 * f)
     nbytes = 2 * m * d * 2 + 4 * d * d + 2 * d * f + (13 * d + 2 * f) * 4
     for s8, pv in ((False, False), (True, True)):
@@ -668,8 +714,9 @@ def qkv_checks(m, xd, d=1280):
     a = (torch.randn(m, d, device=dev) * 0.5).to(xd)
     eb = x.element_size()
     a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
-    lib3 = cuda_ms(lambda: [torch._int_mm(a8, w["q"]) for w in (wq, wk, wv)])
-    lib1 = cuda_ms(lambda: torch._int_mm(a8, wq["q"]))
+    lib3_kn, lib3_km = int_mm_ms([(a8, w["q"]) for w in (wq, wk, wv)])
+    lib1_kn, lib1_km = int_mm_ms([(a8, wq["q"])])
+    lib3, lib1 = min(lib3_kn, lib3_km), min(lib1_kn, lib1_km)
     out = {}
     # K10
     args = (x, ln_g, ln_b, wq, bq, wk, wv, bv)
@@ -689,7 +736,8 @@ def qkv_checks(m, xd, d=1280):
         f"max_abs_err {err:.3e} (tol {QKV_TOL}) -> "
         f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
-        f"{nbytes / 1e6:.1f} MB), torch._int_mm x3 alone {lib3:.4f} ms")
+        f"{nbytes / 1e6:.1f} MB), torch._int_mm x3 {lib3_kn:.4f} ms on the "
+        f"(K, N) weights, {lib3_km:.4f} on their K-major copies")
     out["K10"] = _entry(
         "encoder_qkv_int8" + (" (f32 activations)" if tag else ""),
         "fused_qkv.cu", "fused_qkv.py:79", err, ms, plain_ms, bound,
@@ -712,7 +760,8 @@ def qkv_checks(m, xd, d=1280):
         f"max_abs_err {err:.3e} (tol {QKV_TOL}) -> "
         f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
-        f"{nbytes / 1e6:.1f} MB), torch._int_mm alone {lib1:.4f} ms")
+        f"{nbytes / 1e6:.1f} MB), torch._int_mm {lib1_kn:.4f} ms on the "
+        f"(K, N) weight, {lib1_km:.4f} on its K-major copy")
     out["K11"] = _entry(
         "residual_o_int8" + (" (f32 activations)" if tag else ""),
         "fused_qkv.cu", "fused_qkv.py:131", err, ms, plain_ms, bound,
@@ -729,17 +778,17 @@ def k8_check(m, xd, d=1280, f=5120, bf=1280):
     tag = "" if xd == torch.bfloat16 else "-f32"
     args = k2_setup(dev, m, d, f, seed=8)
     args = (args[0].to(xd),) + args[1:]
-    a8 = torch.randint(-127, 128, (m, d), device=dev, dtype=torch.int8)
-    h8 = torch.randint(-127, 128, (m, f), device=dev, dtype=torch.int8)
-    lib_ms = cuda_ms(lambda: (torch._int_mm(a8, args[3]["q"]),
-                              torch._int_mm(h8, args[5]["q"])))
+    lib_kn, lib_km = mlp_int_mm(m, d, f, args)
+    lib_ms = min(lib_kn, lib_km)
     got = fm.encoder_mlp_int8(*args, block_f=bf)
     torch.cuda.synchronize()
     ref = fm.encoder_mlp_int8_plain(*args, block_f=bf)
     err = (got.float() - ref.float()).abs().max().item()
     ok = err < K2_TOL and got.dtype == xd and \
         bool(torch.isfinite(got.float()).all())
-    ms = cuda_ms(lambda: fm.encoder_mlp_int8(*args, block_f=bf))
+    call = lambda: fm.encoder_mlp_int8(*args, block_f=bf)
+    ms = cuda_ms(call)
+    alone, split = mlp_device_times(call)
     plain_ms = cuda_ms(lambda: fm.encoder_mlp_int8_plain(
         *args, block_f=bf), reps=3, warmup=1)
     nbytes = 2 * m * d * args[0].element_size() + 2 * d * f + \
@@ -747,9 +796,11 @@ def k8_check(m, xd, d=1280, f=5120, bf=1280):
     bound = _bound_int8(nbytes, 2.0 * m * d * f * 2)
     log(f"[kernel] K8{tag} encoder_mlp_int8 M={m} d={d} ffn={f} "
         f"block_f={bf} x {xd}: max_abs_err {err:.3e} (tol {K2_TOL}) -> "
-        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms back to back, "
+        f"{alone:.4f} alone ({split}), plain "
         f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
-        f"torch._int_mm fc1+fc2 alone {lib_ms:.4f} ms")
+        f"torch._int_mm fc1+fc2 {lib_kn:.4f} ms on the (K, N) weights, "
+        f"{lib_km:.4f} on their K-major copies")
     return _entry("encoder_mlp_int8" + (" (f32 activations)" if tag else ""),
                   "fused_mlp.cu", "fused_mlp.py:173", err, ms, plain_ms,
                   bound, lib_ms, ok)

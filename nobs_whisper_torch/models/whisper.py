@@ -36,7 +36,8 @@ import torch.nn.functional as F
 from ..core.config import WhisperConfig
 from ..core.device import disable_tf32
 from ..ops import attention_pallas as ap
-from ..ops.quant import dense_int8_dynamic, is_quantized, ln_f32, q8_matmul
+from ..ops.quant import (dense_int8_dynamic, is_quantized, k_major, ln_f32,
+                         q8_matmul)
 
 Params = Dict[str, Any]
 
@@ -64,8 +65,9 @@ def params_from_jax(tree, device="cpu", dtype=torch.float32) -> Params:
 
 
 def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i`` of a stacked block dict (views, no copies)."""
-    return {k: ({"q": v["q"][i], "s": v["s"][i]} if is_quantized(v)
+    """Layer ``i`` of a stacked block dict (views, no copies; a QTensor's
+    K-major copy ``"qt"`` too, where it has one)."""
+    return {k: ({kk: vv[i] for kk, vv in v.items()} if is_quantized(v)
                 else v[i]) for k, v in blocks.items()}
 
 
@@ -364,6 +366,12 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
 
     sm_scale = float(d // n_head) ** -0.5
     i8 = dict(int8_scores=gates.int8_scores, int8_pv=gates.int8_pv)
+    if gates.mlp and x.is_cuda:
+        # K2's kernels (K8's, K12's) read fc1 and fc2 K-major: each stacked
+        # weight's copy is made at the first launch and kept in its QTensor
+        # (ops/quant.py::k_major), which _layer slices with "q"
+        k_major(blocks["fc1_w"])
+        k_major(blocks["fc2_w"])
     for i in range(cfg.n_audio_layer):
         p = _layer(blocks, i)
         if gates.attention == "K12":

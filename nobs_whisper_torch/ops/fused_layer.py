@@ -25,6 +25,7 @@ import torch
 
 from . import encoder_attention as ea
 from . import fused_mlp as fm
+from .quant import k_major
 
 launch_count = 0
 variant_launch_count: collections.Counter = collections.Counter()
@@ -82,14 +83,12 @@ def encoder_layer_fused(x, ln1_g, ln1_b, wq, bq, wk, wv, bv, wo, bo,
     dev = x.device
     f32 = lambda z: z.to(device=dev, dtype=torch.float32).contiguous()
     m = b * t
-    mlp = [f32(ln2_g), f32(ln2_b), fc1["q"].contiguous(),
-           f32(fc1["s"]).reshape(ffn), f32(fc1_b), fc2["q"].contiguous(),
+    # K2's operands: the weights K-major (made once per QTensor), then its
+    # workspace (a, amax, aq) and the layer's output
+    mlp = [f32(ln2_g), f32(ln2_b), k_major(fc1),
+           f32(fc1["s"]).reshape(ffn), f32(fc1_b), k_major(fc2),
            f32(fc2["s"]).reshape(d), f32(fc2_b),
-           torch.empty((m, ffn), dtype=torch.float32, device=dev),     # a
-           torch.empty((m, ffn // block_f), dtype=torch.int32,
-                       device=dev),                                   # amax
-           torch.empty((m, ffn), dtype=torch.int8, device=dev),        # aq
-           torch.empty_like(ops[0])]                                   # out
+           *fm.mlp_workspace(m, ffn, block_f, dev), torch.empty_like(ops[0])]
     from . import _build
     lib = _build.load("fused_layer", _SIG)
     err = lib.nwt_encoder_layer_fused(

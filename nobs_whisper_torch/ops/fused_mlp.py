@@ -10,8 +10,12 @@ Ports of ``ops/fused_mlp.py``'s two encoder MLP kernels (whisper.py:528-554):
 The TPU kernels compute one function and differ in what stays in VMEM; the
 function's one parameter is ``block_f``, the width of the chunks in which
 fc2's input is re-quantized. Both CUDA entry points live in
-``csrc/fused_mlp.cu`` on the same templated kernels; its source note says
-what bounds them on an H100 and how the design answers that.
+``csrc/fused_mlp.cu`` on the same templated kernels (int8 ``wgmma`` fed by
+TMA, fc1's requantization across a thread-block cluster that spans one
+chunk: :func:`fc1_plan`); its source note says what bounds them on an H100
+and how the design answers that. The kernels read the weights K-major:
+each QTensor's copy is made once, at its first launch
+(``ops/quant.py::k_major``).
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
 its ``*_plain`` version for a CPU tensor. ``launch_count`` (K2) and
@@ -31,10 +35,11 @@ call it, nor does the port's. Its CUDA entry point is in
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
-from .quant import int8_matmul_exact, ln_f32, quantize_rows
+from .quant import int8_matmul_exact, k_major, ln_f32, quantize_rows
 
 launch_count = 0
 launch_count_f32 = 0
@@ -48,6 +53,8 @@ _ENTRY = {("K2", torch.bfloat16): "nwt_encoder_mlp_int8",
           ("K8", torch.bfloat16): "nwt_encoder_mlp_int8_chunked",
           ("K8", torch.float32): "nwt_encoder_mlp_int8_chunked_f32"}
 _SIG = {fn: _ARGS for fn in _ENTRY.values()}
+# csrc/fused_mlp.cu's fc1 tile widths and largest cluster (fc1_plan)
+FC1_BN_WIDE, FC1_BN, MLP_MAX_CLUSTER = 160, 128, 16
 _K7_ENTRY = {torch.bfloat16: "nwt_fused_mlp_q8",
              torch.float32: "nwt_fused_mlp_q8_f32"}
 _K7_SIG = {fn: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
@@ -64,6 +71,32 @@ def resolve_block_f(block_f: int, ffn: int) -> int:
             block_f = ffn
             break
     return block_f
+
+
+def fc1_plan(block_f: int) -> Tuple[int, int]:
+    """(tile width, cluster size) of K2's fc1 kernel for chunks of
+    ``block_f`` columns, as ``csrc/fused_mlp.cu::fc1_plan`` chooses them:
+    a cluster spans one chunk of a row tile, at most ``MLP_MAX_CLUSTER``
+    blocks of ``FC1_BN_WIDE`` (else ``FC1_BN``) columns. Cluster 0: no
+    cluster covers the chunk, and the kernel takes its two-pass variant
+    (fc1's f32 output through device memory, then a requant pass)."""
+    if block_f % FC1_BN_WIDE == 0 and \
+            block_f // FC1_BN_WIDE <= MLP_MAX_CLUSTER:
+        return FC1_BN_WIDE, block_f // FC1_BN_WIDE
+    n = block_f // FC1_BN
+    return FC1_BN, n if n <= MLP_MAX_CLUSTER else 0
+
+
+def mlp_workspace(m: int, ffn: int, block_f: int, dev):
+    """K2's device workspace for M rows: fc1's f32 output ``a`` (M, ffn)
+    on the two-pass variant only (else one unused element), the per-(row,
+    chunk) absmax bits and the int8 fc2 input."""
+    two_pass = fc1_plan(block_f)[1] == 0
+    a = torch.empty((m, ffn) if two_pass else (1,), dtype=torch.float32,
+                    device=dev)
+    amax = torch.empty((m, ffn // block_f), dtype=torch.int32, device=dev)
+    aq = torch.empty((m, ffn), dtype=torch.int8, device=dev)
+    return a, amax, aq
 
 
 def gelu_tanh(a: torch.Tensor) -> torch.Tensor:
@@ -159,21 +192,20 @@ def _launch(key, x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f):
     from . import _build
     lib = _build.load("fused_mlp", _SIG)
     dev = x.device
+    # every converted tensor stays in a name until the launch has returned
     f32 = lambda z: z.to(device=dev, dtype=torch.float32).contiguous()
     x = x.contiguous()
-    w1, w2 = fc1["q"].contiguous(), fc2["q"].contiguous()
+    w1t, w2t = k_major(fc1), k_major(fc2)
     s1, s2 = f32(fc1["s"]).reshape(ffn), f32(fc2["s"]).reshape(d)
     g, be, b1, b2 = f32(ln_g), f32(ln_b), f32(fc1_b), f32(fc2_b)
     out = torch.empty_like(x)
     xq = torch.empty((m, d), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
-    a = torch.empty((m, ffn), dtype=torch.float32, device=dev)
-    amax = torch.empty((m, ffn // block_f), dtype=torch.int32, device=dev)
-    aq = torch.empty((m, ffn), dtype=torch.int8, device=dev)
+    a, amax, aq = mlp_workspace(m, ffn, block_f, dev)
     ptr = lambda z: ctypes.c_void_p(z.data_ptr())
     err = getattr(lib, _ENTRY[key, x.dtype])(
-        ptr(x), ptr(g), ptr(be), ptr(w1), ptr(s1), ptr(b1),
-        ptr(w2), ptr(s2), ptr(b2), ptr(out), ptr(xq), ptr(sx), ptr(a),
+        ptr(x), ptr(g), ptr(be), ptr(w1t), ptr(s1), ptr(b1),
+        ptr(w2t), ptr(s2), ptr(b2), ptr(out), ptr(xq), ptr(sx), ptr(a),
         ptr(amax), ptr(aq), m, d, ffn, block_f,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, _ENTRY[key, x.dtype])

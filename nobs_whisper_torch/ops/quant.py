@@ -1,11 +1,12 @@
 """Int8 weight quantization (PyTorch port of ``ops/quant.py``).
 
 Weights keep the reference layout: a QTensor is ``{"q": int8 (..., K, N),
-"s": f32 (..., 1, N)}``, per-output-channel symmetric scales. Integer
-products are computed exactly: int32 (``torch._int_mm``, on either
-device, where its shape rule allows), float64 for the shapes it refuses —
-an f32 sum of up to 5120 products of ±127 can pass 2^24 and stop being
-exact.
+"s": f32 (..., 1, N)}``, per-output-channel symmetric scales, and on the
+card, once K2's kernels have read it, ``"qt"``: ``q``'s K-major copy
+(:func:`k_major`). Integer products are computed exactly: int32
+(``torch._int_mm``, on either device, where its shape rule allows),
+float64 for the shapes it refuses — an f32 sum of up to 5120 products of
+±127 can pass 2^24 and stop being exact.
 
 K6, the reference's Pallas dequantizing matmul (:func:`q8_matmul`, opt-in
 behind ``NWT_Q8_KERNEL_MIN_BYTES``; gate in ``models/whisper.py::_dense``),
@@ -51,6 +52,19 @@ def quantize_int8(w: torch.Tensor) -> QTensor:
     s = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
     return {"q": q.contiguous(), "s": s.to(torch.float32)}
+
+
+def k_major(qt: QTensor) -> torch.Tensor:
+    """``qt["q"]`` (..., K, N) as its transposed copy (..., N, K),
+    row-major: the K-major layout in which 8-bit ``wgmma`` reads a weight
+    (K2's kernels, ``csrc/fused_mlp.cu``). Made at the first call and kept
+    in the QTensor under ``"qt"`` beside ``"q"``, so that it is made once
+    per weight, never per call; ``"q"`` stays what the plain versions and
+    the weight bridge read."""
+    qt_ = qt.get("qt")
+    if qt_ is None:
+        qt_ = qt["qt"] = qt["q"].transpose(-1, -2).contiguous()
+    return qt_
 
 
 def dequantize_int8(qt: QTensor, dtype=torch.float32) -> torch.Tensor:

@@ -21,9 +21,13 @@ K3 and K9 are held to one bf16 step elementwise (rtol 2^-7, atol 2^-9, as
 tests/test_torch_kernels.py holds their plain versions to the Pallas
 kernels); K2, whose flipped int8 activation moves a whole row of fc2, to
 the JAX package's own bound of 0.05 (tests/test_fused_mlp.py:78), at both
-activation types. K4 and K5 (f32 output of bf16 probabilities times V) are
-held to one bf16 step elementwise, as their plain versions are held to the
-Pallas kernels (tests/test_torch_decode_kernels.py). K6 rounds the same
+activation types; K2 and K8 are besides held bit for bit to the port's
+first, mma.sync version of their kernels (tests/goldens/
+fused_mlp_mma_sync.cu, built here): their int32 sums are exact and the
+absmax is order-free, so every order of the sums gives the same bits.
+K4 and K5 (f32 output of bf16 probabilities times V) are held to one bf16
+step elementwise, as their plain versions are held to the Pallas kernels
+(tests/test_torch_decode_kernels.py). K6 rounds the same
 bf16 operands as its plain version and differs in the order, and in the
 tensor cores the rounding, of its f32 sums: 1e-3 absolute plus 1e-3
 relative on outputs of order 1. K8, K10 and K11 share K2's int8
@@ -530,6 +534,90 @@ def test_k8_kernel_matches_plain(cuda, m, d, f, block_f, x_dtype):
     ref = fm.encoder_mlp_int8_plain(*args, block_f=block_f)
     assert got.dtype == x_dtype
     assert (got.float() - ref.float()).abs().max().item() < K2_TOL
+
+
+@pytest.fixture(scope="module")
+def mma_sync_mlp():
+    """The port's first K2/K8 kernels (``tests/goldens/
+    fused_mlp_mma_sync.cu``: mma.sync GEMMs, fc1's f32 output through
+    device memory, a requant pass), built on the card: the bits that the
+    wgmma kernels of ``csrc/fused_mlp.cu`` must give."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import os
+    from nobs_whisper_torch.ops import _build
+    src = os.path.join(os.path.dirname(__file__), "goldens",
+                       "fused_mlp_mma_sync.cu")
+    with open(src) as f:
+        libs, _ = _build.build_variants(
+            {"mlp_mma_sync": f.read()},
+            os.path.join(_build.BUILD_DIR, "goldens"), fm._SIG)
+    return libs["mlp_mma_sync"]
+
+
+def _mma_sync_call(lib, key, args, block_f):
+    """``args`` through the mma.sync kernel's C entry of ``key``: the
+    weights in the (d_in, d_out) layout and the full f32 workspace."""
+    x, g, be, fc1, b1, fc2, b2 = args
+    m, d = x.shape
+    ffn = fc1["q"].shape[-1]
+    dev = x.device
+    out = torch.empty_like(x)
+    ws = [torch.empty((m, d), dtype=torch.int8, device=dev),
+          torch.empty((m,), dtype=torch.float32, device=dev),
+          torch.empty((m, ffn), dtype=torch.float32, device=dev),
+          torch.empty((m, ffn // block_f), dtype=torch.int32, device=dev),
+          torch.empty((m, ffn), dtype=torch.int8, device=dev)]
+    s1 = fc1["s"].reshape(ffn).contiguous()
+    s2 = fc2["s"].reshape(d).contiguous()
+    ops = [x, g, be, fc1["q"], s1, b1, fc2["q"], s2, b2, out, *ws]
+    err = getattr(lib, fm._ENTRY[key, x.dtype])(
+        *(z.data_ptr() for z in ops), m, d, ffn, block_f,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return out
+
+
+# (ffn, block_f): the whole FFN as one chunk and 3072 of 3072, which no
+# cluster of at most 16 blocks covers (the two-pass variant, fm.fc1_plan),
+# the call sites' chunks, and 128-column tiles (256)
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [3072, 3000, 1500, 333])
+@pytest.mark.parametrize("f,block_f", [
+    (5120, 5120), (5120, 2560), (5120, 1280), (5120, 640), (5120, 256),
+    (3072, 3072)])
+@pytest.mark.parametrize("key", ["K2", "K8"])
+def test_k2_k8_wgmma_bits(cuda, mma_sync_mlp, key, f, block_f, m, x_dtype):
+    """K2 and K8 at large-v3-turbo width (d = 1280, ffn = 5120), at every
+    chunk width the fc1 plan distinguishes, the rows of a batch of two
+    windows, of two and one windows of 1500, and a ragged count: within
+    K2's 0.05 of the plain version, the same bits from two calls, and the
+    same bits as the port's first (mma.sync) kernel."""
+    args = _k2_inputs(m, 1280, f, cuda, seed=m + block_f)
+    args = (args[0].to(x_dtype),) + args[1:]
+    fn = fm.encoder_mlp_int8 if key == "K8" else fm.encoder_mlp_int8_resident
+    got = fn(*args, block_f=block_f)
+    again = fn(*args, block_f=block_f)
+    gold = _mma_sync_call(mma_sync_mlp, key, args, block_f)
+    torch.cuda.synchronize()
+    assert got.dtype == x_dtype and torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    assert torch.equal(got, gold), (got.float() - gold.float()).abs().max()
+    ref = fm.mlp_int8_plain(*args, block_f)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err < K2_TOL, err
+
+
+def test_k_major_copy_made_once(cuda):
+    """The K-major copies are made at a QTensor's first launch and kept:
+    a second launch finds the same tensors."""
+    args = _k2_inputs(256, 256, 512, cuda)
+    assert "qt" not in args[3] and "qt" not in args[5]
+    fm.encoder_mlp_int8_resident(*args, block_f=256)
+    first = (args[3]["qt"], args[5]["qt"])
+    fm.encoder_mlp_int8_resident(*args, block_f=256)
+    assert args[3]["qt"] is first[0] and args[5]["qt"] is first[1]
+    assert torch.equal(first[0], args[3]["q"].t())
 
 
 def _k13_inputs(b, c_in, n_frames, d, dev, p_dtype=torch.bfloat16, seed=0):
