@@ -85,12 +85,12 @@ and with f32 x, two calls bit for bit with f32 x, fc1 1280 x 5120, fc2
 5120 x 1280, M=256; the serving wave's prefill rows, M=24, at the logit
 shape with f32 x and at fc2, each two calls bit for bit; each timed back
 to back, alone in a CUDA graph and by the wrapper's host work), K10,
-K11 and
-K8 (block_f=1280) at the knob paths' rows (d=1280; M=3000 with bf16 and
-with f32 x, M=1500 with f32 x) and K13 (3000 frames, d=1280: B=2 with
-C_in=128 at t_out_pad 1536 and 1504 and with C_in=80, and B=8; two calls
-bit for bit; timed back to back, alone in a CUDA graph, and the wrapper's
-host work) and the variants at K1's shapes (K1 with fused o, K1 and
+K11 and K8 (block_f=1280) at the knob paths' rows (d=1280; M=3000 with
+bf16 and with f32 x, M=1500 with f32 x; timed back to back and alone in a
+CUDA graph, the device time split by kernel) and K13 (3000 frames,
+d=1280: B=2 with C_in=128 at t_out_pad 1536 and 1504 and with C_in=80,
+and B=8; two calls bit for bit; timed back to back, alone in a CUDA graph,
+and the wrapper's host work) and the variants at K1's shapes (K1 with fused o, K1 and
 K3 with int8 scores, int8 PV and both, K12 and K12 with both at
 ffn=5120, block_f=1280; the K3 int8 variants' device time split into
 the attention kernel and ``int8_prep``), K14 (B=40, B=2 and B=1 30 s
@@ -250,10 +250,11 @@ def mlp_int_mm(m, d, f, args):
     return int_mm_ms([(a8, args[3]["q"]), (h8, args[5]["q"])])
 
 
-def mlp_device_times(call):
-    """K2's (or K8's) device time alone (the call in a CUDA graph) and its
-    split by kernel (``torch.profiler``): ln_quant, fc1 and fc2, and the
-    memset and requant pass on the two-pass variant."""
+def kernel_device_times(call):
+    """A kernel's device time alone (the call in a CUDA graph) and its
+    split by kernel (``torch.profiler``): K2's (or K8's) ln_quant, fc1 and
+    fc2, and the memset and requant pass on the two-pass variant; K10's and
+    K11's quantization pass and GEMM."""
     from nobs_whisper_torch.utils.profiling import device_ms_split
     alone = graph_ms(call)
     _, rest = device_ms_split(call, 10, "\0")
@@ -330,7 +331,7 @@ def phase_kernels():
     err = (got.float() - ref.float()).abs().max().item()
     call = lambda: fm.encoder_mlp_int8_resident(*args, block_f=bf)
     ms = cuda_ms(call)
-    alone, split = mlp_device_times(call)
+    alone, split = kernel_device_times(call)
     plain_ms = cuda_ms(lambda: fm.encoder_mlp_int8_resident_plain(
         *args, block_f=bf), reps=3, warmup=1)
     lib_kn, lib_km = mlp_int_mm(m, d, f, args)
@@ -362,7 +363,7 @@ def phase_kernels():
     err = (got - ref).abs().max().item()
     call = lambda: fm.encoder_mlp_int8_resident(x32, *args[1:], block_f=bf)
     ms = cuda_ms(call)
-    alone, split = mlp_device_times(call)
+    alone, split = kernel_device_times(call)
     plain_ms = cuda_ms(lambda: fm.encoder_mlp_int8_resident_plain(
         x32, *args[1:], block_f=bf), reps=3, warmup=1)
     nbytes = 2 * m * d * 4 + 2 * d * f + (f + d) * 4 * 2 + 2 * d * 4
@@ -727,14 +728,17 @@ def qkv_checks(m, xd, d=1280):
               for g, r in zip(got, ref))
     ok = err < QKV_TOL and all(g.dtype == xd for g in got) and all(
         bool(torch.isfinite(g.float()).all()) for g in got)
-    ms = cuda_ms(lambda: fq.encoder_qkv_int8(*args))
+    call = lambda: fq.encoder_qkv_int8(*args)
+    ms = cuda_ms(call)
+    alone, split = kernel_device_times(call)
     plain_ms = cuda_ms(lambda: fq.encoder_qkv_int8_plain(*args),
                        reps=3, warmup=1)
     nbytes = 4 * m * d * eb + 3 * d * d + 8 * d * 4
     bound = _bound_int8(nbytes, 3 * 2.0 * m * d * d)
     log(f"[kernel] K10{tag} encoder_qkv_int8 M={m} d={d} x {xd}: "
         f"max_abs_err {err:.3e} (tol {QKV_TOL}) -> "
-        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms back to back, "
+        f"{alone:.4f} alone ({split}), plain "
         f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
         f"{nbytes / 1e6:.1f} MB), torch._int_mm x3 {lib3_kn:.4f} ms on the "
         f"(K, N) weights, {lib3_km:.4f} on their K-major copies")
@@ -751,14 +755,17 @@ def qkv_checks(m, xd, d=1280):
     err = (got.float() - ref.float()).abs().max().item()
     ok = err < QKV_TOL and got.dtype == xd and \
         bool(torch.isfinite(got.float()).all())
-    ms = cuda_ms(lambda: fq.residual_o_int8(*args))
+    call = lambda: fq.residual_o_int8(*args)
+    ms = cuda_ms(call)
+    alone, split = kernel_device_times(call)
     plain_ms = cuda_ms(lambda: fq.residual_o_int8_plain(*args), reps=3,
                        warmup=1)
     nbytes = 3 * m * d * eb + d * d + 2 * d * 4
     bound = _bound_int8(nbytes, 2.0 * m * d * d)
     log(f"[kernel] K11{tag} residual_o_int8 M={m} d={d} x {xd}: "
         f"max_abs_err {err:.3e} (tol {QKV_TOL}) -> "
-        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms back to back, "
+        f"{alone:.4f} alone ({split}), plain "
         f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
         f"{nbytes / 1e6:.1f} MB), torch._int_mm {lib1_kn:.4f} ms on the "
         f"(K, N) weight, {lib1_km:.4f} on its K-major copy")
@@ -788,7 +795,7 @@ def k8_check(m, xd, d=1280, f=5120, bf=1280):
         bool(torch.isfinite(got.float()).all())
     call = lambda: fm.encoder_mlp_int8(*args, block_f=bf)
     ms = cuda_ms(call)
-    alone, split = mlp_device_times(call)
+    alone, split = kernel_device_times(call)
     plain_ms = cuda_ms(lambda: fm.encoder_mlp_int8_plain(
         *args, block_f=bf), reps=3, warmup=1)
     nbytes = 2 * m * d * args[0].element_size() + 2 * d * f + \
@@ -1759,12 +1766,13 @@ def phase_serving(card, eng):
 
 
 # the hand-written kernels an encoder batch launches (K1, K2 and every
-# variant's pieces; csrc/), for the profile's encoder share
+# variant's pieces; csrc/), for the profile's encoder share; a kernel
+# counts where one of these is part of its name
 ENCODER_CSRC_KERNELS = (
     "attn_wgmma_kernel", "ln_quant_kernel",
-    "qkv_gemm_kernel", "fc1_gemm_kernel", "fc2_gemm_kernel", "requant_kernel",
-    "i8_stats_kernel", "i8_quant_kv_kernel", "conv_k3_kernel",
-    "res_o_gemm_kernel")
+    "qkv_gemm_kernel", "mlp_fc1_", "mlp_fc2_kernel", "fc2_gemm_kernel",
+    "requant_kernel", "i8_stats_kernel", "i8_quant_kv_kernel",
+    "stem_mel_rows_kernel", "stem_conv_kernel", "proj_wgmma_kernel")
 
 
 def profile_wave(be, wave, card):

@@ -383,19 +383,6 @@ struct MlpFC2Args {
   int M, d, F, block_f;
 };
 
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
 // ta maps aq (M, F), tb maps w2t (d, F), both in boxes of 128 rows. Grid
 // (d / 128, ceil(M / 128)).
 template <typename T>

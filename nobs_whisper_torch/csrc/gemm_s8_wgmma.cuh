@@ -1,8 +1,8 @@
 // The int8 GEMM main loop on Hopper (sm_90a): a block's 128 x BN tile of
 // A (M, K) B^T with A (M, K) and B (N, K) int8 row-major, summed exactly in
-// int32. Used by fused_mlp.cu (K2, K8 and K12's MLP half); written so that
-// the other int8 GEMMs of the encoder (K10, K11, K1's projections, which
-// still run common.cuh's mma.sync GEMM) can take it.
+// int32. Used by fused_mlp.cu (K2, K8 and K12's MLP half) and fused_qkv.cu
+// (K10, K11); written so that K1's projections, which still run
+// common.cuh's mma.sync GEMM, can take it.
 //
 // Both operands K-major: 8-bit wgmma reads B from shared memory K-major
 // only, so a weight stored (K, N) row-major (the reference layout) is
@@ -108,17 +108,18 @@ __device__ __forceinline__ void wgmma_s8(uint32_t (&d)[BN / 2], uint64_t da,
 
 // The producer's loop: n_slabs slabs of K, A's rows from m0 (ta: an int8
 // (M, K) map, boxes of 128 bytes x 128 rows) and B's from n0 (tb: an int8
-// (N, K) map, boxes of 128 bytes x BN rows), into a ring of STAGES stages.
+// (N, K) map, boxes of 128 bytes x BN rows), into a ring of STAGES stages
+// whose slab g0 is next (a block that walks several tiles keeps counting).
 template <int BN, int STAGES>
 __device__ __forceinline__ void g8_produce(const CUtensorMap* ta,
                                            const CUtensorMap* tb,
                                            uint32_t ring, uint32_t full,
                                            uint32_t empty, int n_slabs,
-                                           int m0, int n0) {
+                                           int m0, int n0, int g0 = 0) {
   using L = G8Tile<BN>;
   for (int it = 0; it < n_slabs; ++it) {
-    const int s = it % STAGES;
-    if (it >= STAGES) mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+    const int g = g0 + it, s = g % STAGES;
+    if (g >= STAGES) mbar_wait(empty + 8 * s, ((g / STAGES) & 1) ^ 1);
     mbar_expect_tx(full + 8 * s, L::STAGE);
     const uint32_t dst = ring + s * L::STAGE;
     tma_load(dst, ta, it * G8_BK, m0, full + 8 * s);
@@ -139,8 +140,8 @@ __device__ __forceinline__ void g8_mma(uint32_t (&acc)[BN / 2], uint32_t a,
   wgmma_commit();
 }
 
-// Consumer warpgroup wg (0 or 1) waits for slab it's stage and issues its
-// products.
+// Consumer warpgroup wg (0 or 1) waits for slab it's stage (it counted as
+// g8_produce counts g) and issues its products.
 template <int BN, int STAGES>
 __device__ __forceinline__ void g8_mma_slab(uint32_t (&acc)[BN / 2],
                                             uint32_t ring, uint32_t full,

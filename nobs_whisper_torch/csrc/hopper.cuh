@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the kernels written for sm_90a
 // (encoder_attention.cu: K1, K3, K9 and K12's attention; conv_stem.cu:
-// K13): mbarriers, TMA loads through tensor maps, wgmma descriptors and
-// fences (inline PTX), and the CUDA driver's tensor-map encoder fetched at
-// run time through the runtime, so that nothing links -lcuda.
+// K13; gemm_s8_wgmma.cuh: K2, K8, K10, K11): mbarriers, TMA loads and
+// stores through tensor maps, wgmma descriptors and fences (inline PTX),
+// and the CUDA driver's tensor-map encoder fetched at run time through the
+// runtime, so that nothing links -lcuda.
 
 #pragma once
 
@@ -84,6 +85,32 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
       : "memory");
+}
+
+// one box of a 2-D tensor map from shared memory (column c0, row c1) to
+// device memory as one bulk group; elements past the map's bounds are not
+// written. The generic-proxy writes that filled the box must be fenced
+// first (fence_proxy_async) by every thread that wrote it, then a barrier.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, "
+      "%2}], [%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// orders this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones (a TMA store of what it wrote)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor: start address, stride byte offset (the

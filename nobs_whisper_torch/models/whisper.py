@@ -304,6 +304,17 @@ def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
 encode_count = 0      # encoder batches run (each runs every layer once)
 
 
+def k_major_weights(gates: EncoderGates) -> Tuple[str, ...]:
+    """The stacked int8 weights that the gated kernels read K-major: K2's
+    (K8's, K12's) fc1 and fc2, K10's q, k and v, K11's o. ``_encode``
+    makes each one's copy at its first call on the card and keeps it in
+    the QTensor (``ops/quant.py::k_major``), which ``_layer`` slices with
+    ``q``."""
+    return ((("fc1_w", "fc2_w") if gates.mlp else ())
+            + (("q_w", "k_w", "v_w") if gates.qkv == "K10" else ())
+            + (("o_w",) if gates.o == "K11" else ()))
+
+
 @torch.inference_mode()
 def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
            compute_dtype=torch.float32) -> torch.Tensor:
@@ -366,12 +377,9 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
 
     sm_scale = float(d // n_head) ** -0.5
     i8 = dict(int8_scores=gates.int8_scores, int8_pv=gates.int8_pv)
-    if gates.mlp and x.is_cuda:
-        # K2's kernels (K8's, K12's) read fc1 and fc2 K-major: each stacked
-        # weight's copy is made at the first launch and kept in its QTensor
-        # (ops/quant.py::k_major), which _layer slices with "q"
-        k_major(blocks["fc1_w"])
-        k_major(blocks["fc2_w"])
+    if x.is_cuda:
+        for name in k_major_weights(gates):
+            k_major(blocks[name])
     for i in range(cfg.n_audio_layer):
         p = _layer(blocks, i)
         if gates.attention == "K12":

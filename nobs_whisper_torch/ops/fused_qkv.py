@@ -9,12 +9,15 @@
 
 Both take bf16 or f32 activations: the reference's gate tests no dtype.
 The CUDA kernels live in ``csrc/fused_qkv.cu``; its source note says what
-bounds them on an H100 and how the design answers that. Each wrapper
-launches its kernel for a CUDA tensor (or raises) and runs its ``*_plain``
-version for a CPU tensor. ``k10_launch_count`` and ``k11_launch_count``
-count kernel launches of both activation types, ``*_f32`` the f32 ones
-alone. :func:`qkv_reference` and :func:`residual_o_reference` are the
-XLA path's numerics (``dense_int8_dynamic``), which the kernels replace.
+bounds them on an H100 and how the design answers that: a row
+quantization pass, then one int8 ``wgmma`` GEMM fed by TMA, which reads
+each weight as its K-major copy (``ops/quant.py::k_major``, made once per
+QTensor and kept beside ``q``). Each wrapper launches its kernel for a
+CUDA tensor (or raises) and runs its ``*_plain`` version for a CPU
+tensor. ``k10_launch_count`` and ``k11_launch_count`` count kernel
+launches of both activation types, ``*_f32`` the f32 ones alone.
+:func:`qkv_reference` and :func:`residual_o_reference` are the XLA
+path's numerics (``dense_int8_dynamic``), which the kernels replace.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import ctypes
 
 import torch
 
-from .quant import dense_int8_dynamic, int8_matmul_exact, ln_f32, quantize_rows
+from .quant import (dense_int8_dynamic, int8_matmul_exact, k_major, ln_f32,
+                    quantize_rows)
 
 k10_launch_count = 0
 k10_launch_count_f32 = 0
@@ -39,6 +43,10 @@ _ENTRY = {("K10", torch.bfloat16): "nwt_encoder_qkv_int8",
           ("K11", torch.float32): "nwt_residual_o_int8_f32"}
 _SIG = {fn: _QKV_ARGS if key == "K10" else _RES_O_ARGS
         for (key, _), fn in _ENTRY.items()}
+def qkv_workspace(m, d, dev):
+    """Both kernels' workspace: the int8 rows (m, d) and their scales."""
+    return (torch.empty((m, d), dtype=torch.int8, device=dev),
+            torch.empty((m,), dtype=torch.float32, device=dev))
 
 
 def _proj(hq, sx, w, bias=None):
@@ -91,13 +99,19 @@ def _checks(key, x, weights):
     return _build.load("fused_qkv", _SIG)
 
 
-def _ptr(z):
-    return ctypes.c_void_p(z.data_ptr())
+def _f32(z, dev):
+    """``z`` as contiguous f32 on ``dev``: ``z`` itself where it is one
+    already (the wrapper's host time is most of a call's at these
+    sizes)."""
+    if z.dtype == torch.float32 and z.device == dev and z.is_contiguous():
+        return z
+    return z.to(device=dev, dtype=torch.float32).contiguous()
 
 
 def encoder_qkv_int8(x, ln_g, ln_b, wq, q_b, wk, wv, v_b):
     """K10. ``x``: (M, d) bf16 or f32 rows; ``wq``/``wk``/``wv``: int8
-    QTensors ({"q": (d, d) int8, "s": (1, d) f32}, (d_in, d_out) layout);
+    QTensors ({"q": (d, d) int8, "s": (1, d) f32}, (d_in, d_out) layout;
+    the kernel reads their K-major copies, made at the first launch);
     ``q_b``/``v_b``: (d,) biases (k has none). Returns (q, k, v), each
     (M, d) in x.dtype. The reference's row tile ``block_m``
     (``NWT_QKV_BM``) does not change the result and has no counterpart
@@ -108,20 +122,17 @@ def encoder_qkv_int8(x, ln_g, ln_b, wq, q_b, wk, wv, v_b):
     lib = _checks("K10", x, (wq, wk, wv))
     m, d = x.shape
     dev = x.device
-    f32 = lambda z: z.to(device=dev, dtype=torch.float32).contiguous()
+    # every converted tensor stays in a name until the launch has returned
     x = x.contiguous()
-    w = [z["q"].contiguous() for z in (wq, wk, wv)]
-    s = [f32(z["s"]).reshape(d) for z in (wq, wk, wv)]
-    g, be, bq, bv = f32(ln_g), f32(ln_b), f32(q_b), f32(v_b)
+    w = [k_major(z) for z in (wq, wk, wv)]
+    s = [_f32(z["s"], dev) for z in (wq, wk, wv)]
+    g, be, bq, bv = (_f32(z, dev) for z in (ln_g, ln_b, q_b, v_b))
     q, k, v = (torch.empty_like(x) for _ in range(3))
-    xq = torch.empty((m, d), dtype=torch.int8, device=dev)
-    sx = torch.empty((m,), dtype=torch.float32, device=dev)
+    xq, sx = qkv_workspace(m, d, dev)
     fn = _ENTRY["K10", x.dtype]
-    err = getattr(lib, fn)(
-        _ptr(x), _ptr(g), _ptr(be), _ptr(w[0]), _ptr(s[0]), _ptr(bq),
-        _ptr(w[1]), _ptr(s[1]), _ptr(w[2]), _ptr(s[2]), _ptr(bv),
-        _ptr(q), _ptr(k), _ptr(v), _ptr(xq), _ptr(sx), m, d,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    err = getattr(lib, fn)(*(z.data_ptr() for z in (
+        x, g, be, w[0], s[0], bq, w[1], s[1], w[2], s[2], bv, q, k, v, xq,
+        sx)), m, d, torch._C._cuda_getCurrentRawStream(dev.index))
     from . import _build
     _build.check(err, fn)
     k10_launch_count += 1
@@ -142,17 +153,14 @@ def residual_o_int8(x, a, wo, o_b):
     m, d = x.shape
     dev = x.device
     x, a = x.contiguous(), a.contiguous()
-    s = wo["s"].to(device=dev, dtype=torch.float32).reshape(d).contiguous()
-    b = o_b.to(device=dev, dtype=torch.float32).contiguous()
-    w = wo["q"].contiguous()
+    s, b = _f32(wo["s"], dev), _f32(o_b, dev)
+    w = k_major(wo)
     out = torch.empty_like(x)
-    aq = torch.empty((m, d), dtype=torch.int8, device=dev)
-    sa = torch.empty((m,), dtype=torch.float32, device=dev)
+    aq, sa = qkv_workspace(m, d, dev)
     fn = _ENTRY["K11", x.dtype]
-    err = getattr(lib, fn)(
-        _ptr(x), _ptr(a), _ptr(w), _ptr(s), _ptr(b),
-        _ptr(out), _ptr(aq), _ptr(sa), m, d,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    err = getattr(lib, fn)(*(z.data_ptr() for z in (
+        x, a, w, s, b, out, aq, sa)), m, d,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     from . import _build
     _build.check(err, fn)
     k11_launch_count += 1

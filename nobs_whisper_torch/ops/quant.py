@@ -2,9 +2,9 @@
 
 Weights keep the reference layout: a QTensor is ``{"q": int8 (..., K, N),
 "s": f32 (..., 1, N)}``, per-output-channel symmetric scales, and on the
-card, once K2's kernels have read it, ``"qt"``: ``q``'s K-major copy
-(:func:`k_major`). Integer products are computed exactly: int32
-(``torch._int_mm``, on either device, where its shape rule allows),
+card, once K2's, K10's or K11's kernels have read it, ``"qt"``: ``q``'s
+K-major copy (:func:`k_major`). Integer products are computed exactly:
+int32 (``torch._int_mm``, on either device, where its shape rule allows),
 float64 for the shapes it refuses — an f32 sum of up to 5120 products of
 ±127 can pass 2^24 and stop being exact.
 
@@ -57,7 +57,8 @@ def quantize_int8(w: torch.Tensor) -> QTensor:
 def k_major(qt: QTensor) -> torch.Tensor:
     """``qt["q"]`` (..., K, N) as its transposed copy (..., N, K),
     row-major: the K-major layout in which 8-bit ``wgmma`` reads a weight
-    (K2's kernels, ``csrc/fused_mlp.cu``). Made at the first call and kept
+    (K2's kernels, ``csrc/fused_mlp.cu``; K10's and K11's,
+    ``csrc/fused_qkv.cu``). Made at the first call and kept
     in the QTensor under ``"qt"`` beside ``"q"``, so that it is made once
     per weight, never per call; ``"q"`` stays what the plain versions and
     the weight bridge read."""

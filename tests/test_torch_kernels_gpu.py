@@ -31,7 +31,11 @@ step elementwise, as their plain versions are held to the Pallas kernels
 bf16 operands as its plain version and differs in the order, and in the
 tensor cores the rounding, of its f32 sums: 1e-3 absolute plus 1e-3
 relative on outputs of order 1. K8, K10 and K11 share K2's int8
-numerics and its bound of 0.05 (tests/test_fused_qkv.py:37,51). K13 rounds
+numerics and its bound of 0.05 (tests/test_fused_qkv.py:37,51); K10 and
+K11 are besides held bit for bit to the port's first kernels
+(tests/goldens/fused_qkv_mma_sync.cu with the common.cuh it was built
+with, tests/goldens/common_mma_sync.cuh, so the quantization pass too),
+for the same reason as K2. K13 rounds
 the same bf16 operands at the same points in another summation order; a
 flipped bf16 sum before a flat stretch of the gelu is several output
 steps: the JAX tests' 3e-2 (tests/test_conv_stem.py:34-36), padded rows
@@ -608,9 +612,11 @@ def test_k2_k8_wgmma_bits(cuda, mma_sync_mlp, key, f, block_f, m, x_dtype):
     assert err < K2_TOL, err
 
 
-def test_k_major_copy_made_once(cuda):
+def test_k_major_copy_made_once(cuda, monkeypatch):
     """The K-major copies are made at a QTensor's first launch and kept:
-    a second launch finds the same tensors."""
+    a second launch finds the same tensors. K2's fc1/fc2 through its
+    wrapper; with ``NWT_INT8_QKV`` the int8 encoder's stacked q/k/v/o,
+    which ``_encode`` copies once at its first call on the card."""
     args = _k2_inputs(256, 256, 512, cuda)
     assert "qt" not in args[3] and "qt" not in args[5]
     fm.encoder_mlp_int8_resident(*args, block_f=256)
@@ -618,6 +624,107 @@ def test_k_major_copy_made_once(cuda):
     fm.encoder_mlp_int8_resident(*args, block_f=256)
     assert args[3]["qt"] is first[0] and args[5]["qt"] is first[1]
     assert torch.equal(first[0], args[3]["q"].t())
+
+    from nobs_whisper_torch.models import whisper as tw
+    from nobs_whisper_torch.utils.testing import tiny_test_config
+    monkeypatch.setenv("NWT_INT8_QKV", "1")
+    cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=32)
+    params = qt.quantize_encoder_params(tw.init_params(2, cfg,
+                                                       device=cuda))
+    blocks = params["encoder"]["blocks"]
+    names = ("q_w", "k_w", "v_w", "o_w")
+    assert not any("qt" in blocks[n] for n in names)
+    mel = torch.randn(2, cfg.n_mels, 2 * cfg.n_audio_ctx, device=cuda)
+    before = (fq.k10_launch_count, fq.k11_launch_count)
+    want = tw.encode(params, mel, cfg)
+    assert (fq.k10_launch_count, fq.k11_launch_count) == (
+        before[0] + cfg.n_audio_layer, before[1] + cfg.n_audio_layer)
+    first = [blocks[n]["qt"] for n in names]
+    for n, t in zip(names, first):
+        assert t.is_contiguous()
+        assert torch.equal(t, blocks[n]["q"].transpose(-1, -2))
+    assert torch.equal(tw.encode(params, mel, cfg), want)
+    assert all(blocks[n]["qt"] is t for n, t in zip(names, first))
+
+
+@pytest.fixture(scope="module")
+def mma_sync_qkv():
+    """The port's first K10/K11 kernels (``tests/goldens/
+    fused_qkv_mma_sync.cu``: a scalar-load quantization pass and
+    ``mma.sync`` GEMMs, with ``tests/goldens/common_mma_sync.cuh``, the
+    ``common.cuh`` they were built with), built on the card: the bits
+    that the wgmma kernels of ``csrc/fused_qkv.cu`` must give."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import os
+    import shutil
+    from nobs_whisper_torch.ops import _build
+    here = os.path.join(os.path.dirname(__file__), "goldens")
+    out = os.path.join(_build.BUILD_DIR, "goldens_qkv")
+    os.makedirs(out, exist_ok=True)
+    shutil.copy(os.path.join(here, "common_mma_sync.cuh"), out)
+    with open(os.path.join(here, "fused_qkv_mma_sync.cu")) as f:
+        libs, _ = _build.build_variants({"qkv_mma_sync": f.read()}, out,
+                                        fq._SIG)
+    return libs["qkv_mma_sync"]
+
+
+def _mma_sync_qkv_call(lib, key, args):
+    """``args`` through the mma.sync kernels' C entry of ``key``: the
+    weights in the (d_in, d_out) layout."""
+    x = args[0]
+    m, d = x.shape
+    f32 = lambda z: z.float().contiguous().reshape(-1)
+    xq, sx = fq.qkv_workspace(m, d, x.device)
+    if key == "K11":
+        _, a, wo, bo = args
+        outs = [torch.empty_like(x)]
+        ops = [x, a, wo["q"], f32(wo["s"]), f32(bo), outs[0], xq, sx]
+    else:
+        _, g, be, wq, bq, wk, wv, bv = args
+        outs = [torch.empty_like(x) for _ in range(3)]
+        ops = [x, f32(g), f32(be), wq["q"], f32(wq["s"]), f32(bq), wk["q"],
+               f32(wk["s"]), wv["q"], f32(wv["s"]), f32(bv), *outs, xq, sx]
+    err = getattr(lib, fq._ENTRY[key, x.dtype])(
+        *(z.data_ptr() for z in ops), m, d,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return outs
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d", [(3000, 1280), (1500, 1280), (333, 1280),
+                                 (300, 1280), (3000, 256), (1500, 256),
+                                 (333, 256), (300, 256)])
+def test_k10_k11_wgmma_bits(cuda, mma_sync_qkv, m, d, x_dtype):
+    """K10 and K11 at large-v3-turbo width and at d = 256 (128-column tiles
+    only), at the knob path's rows (two and one windows of 1500) and two
+    ragged counts: the same bits from two calls, the same bits as the
+    port's first (mma.sync) kernels, and within ``K2_TOL`` of the plain
+    versions."""
+    x, g, be, wq, bq, wk, wv, bv = _k1_inputs(1, 2, m, d, cuda, seed=m + d)
+    x = x[0].to(x_dtype)
+    a = (torch.randn(m, d, device=cuda) * 0.5).to(x_dtype)
+    for key, args, fn, plain in (
+            ("K10", (x, g, be, wq, bq, wk, wv, bv), fq.encoder_qkv_int8,
+             fq.encoder_qkv_int8_plain),
+            ("K11", (x, a, wq, bq), fq.residual_o_int8,
+             fq.residual_o_int8_plain)):
+        got = fn(*args)
+        got = list(got) if key == "K10" else [got]
+        again = fn(*args)
+        again = list(again) if key == "K10" else [again]
+        gold = _mma_sync_qkv_call(mma_sync_qkv, key, args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        ref = list(ref) if key == "K10" else [ref]
+        for z, z2, zg, r in zip(got, again, gold, ref):
+            assert z.dtype == x_dtype and torch.isfinite(z.float()).all()
+            assert torch.equal(z, z2), key
+            assert torch.equal(z, zg), (key, (z.float() - zg.float()).abs()
+                                        .max().item())
+            err = (z.float() - r.float()).abs().max().item()
+            assert err < K2_TOL, (key, err)
 
 
 def _k13_inputs(b, c_in, n_frames, d, dev, p_dtype=torch.bfloat16, seed=0):
