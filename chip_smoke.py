@@ -17,7 +17,8 @@ arguments). Phases; any failure exits non-zero before the result line:
    max error against the stated tolerance, kernel / plain / library ms
    (CUDA events) and the bound computed from the shapes against published
    H100 peaks; K2 and K8 also alone in a CUDA graph, split by kernel
-   (``torch.profiler``: ln_quant, fc1, fc2); the int8 GEMM kernels'
+   (``torch.profiler``: ln_quant, fc1, fc2), and K1 alone and split by
+   part (ln_quant, the q/k/v GEMM, attention); the int8 GEMM kernels'
    yardstick is ``torch._int_mm`` on the weights as stored and on their
    K-major copies, both printed, the faster one kept;
 3. small inputs against references: the f32 path against the oracle
@@ -92,8 +93,10 @@ d=1280: B=2 with C_in=128 at t_out_pad 1536 and 1504 and with C_in=80,
 and B=8; two calls bit for bit; timed back to back, alone in a CUDA graph,
 and the wrapper's host work) and the variants at K1's shapes (K1 with fused o, K1 and
 K3 with int8 scores, int8 PV and both, K12 and K12 with both at
-ffn=5120, block_f=1280; the K3 int8 variants' device time split into
-the attention kernel and ``int8_prep``), K14 (B=40, B=2 and B=1 30 s
+ffn=5120, block_f=1280; the K1 and K12 rows also alone in a CUDA graph
+and split by part: ln_quant, the q/k/v GEMM, int8_prep, attention, the o
+quantization and the o GEMM, K12's fc1 and fc2; the K3 int8 variants'
+device time split into the attention kernel and ``int8_prep``), K14 (B=40, B=2 and B=1 30 s
 windows, 128 and 80 mels, against its plain version and the f64 oracle;
 timed at B=40 and B=2 with 128: back to back, alone in a CUDA graph, and
 the wrapper's host work) and K7 (d=1280, ffn=5120; M=8 and M=1, bf16 and
@@ -263,6 +266,22 @@ def kernel_device_times(call):
     return alone, ", ".join(f"{short(n)} {t:.4f}" for n, t in rest)
 
 
+def k1_device_times(call):
+    """K1's (or K12's) device time alone (the call in a CUDA graph) and
+    its split by part (``torch.profiler``: ln_quant, the q/k/v GEMM,
+    int8_prep, attention, the o quantization and the o GEMM; K12's fc1 and
+    fc2 besides), or why the split was not measured."""
+    from nobs_whisper_torch.utils.profiling import device_ms_by_part
+    alone = graph_ms(call)
+    try:
+        parts = device_ms_by_part(call, 10)
+    except Exception as e:
+        return alone, f"by part not measured: {e!r}"
+    if not parts:
+        return alone, "by part not measured: no device time in the trace"
+    return alone, ", ".join(f"{k} {t:.4f}" for k, t in parts)
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -284,7 +303,9 @@ def phase_kernels():
     steps = (diff / (K1_STEP["atol"] + K1_STEP["rtol"]
                      * ref.float()[:, :n_real].abs())).max().item()
     del diff
-    ms = cuda_ms(lambda: ea.encoder_attention_fused_qkv(*args, n_real, sm, h))
+    call = lambda: ea.encoder_attention_fused_qkv(*args, n_real, sm, h)
+    ms = cuda_ms(call)
+    alone, parts = k1_device_times(call)
     plain_ms = cuda_ms(lambda: ea.encoder_attention_fused_qkv_plain(
         *args, n_real, sm, h), reps=3, warmup=1)
     qkv = [torch.randn(b, h, t, 64, device=dev, dtype=torch.bfloat16)
@@ -310,7 +331,8 @@ def phase_kernels():
         f"max |kernel - plain| / (atol + rtol |plain|) {steps:.3f} "
         f"(<= 1, {K1_STEP}) finite {finite} -> "
         f"{'PASS' if ok1 else 'FAIL'}; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"{ms:.4f} ms back to back, {alone:.4f} alone ({parts}), plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms "
         f"(operations), SDPA + torch._int_mm x3 (q/k/v projections) "
         f"{lib_kn:.4f} ms on the (K, N) weights, {lib_km:.4f} on their "
         f"K-major copies")
@@ -484,19 +506,23 @@ def variant_kernel_checks():
         return _bound_mixed(nbytes, i8, b16)
 
     def check(key, kind, fn, plain, bound, lib_ms, lib_name, source,
-              replaces, name, shape):
+              replaces, name, shape, parts=False):
         got = fn()
         torch.cuda.synchronize()
         ref = plain()
         err, avg, frac, ok = _var_err(got, ref, n_real, kind)
         del got, ref
         ms = cuda_ms(fn)
+        split = ""
+        if parts:   # K1's and K12's: alone, and by part
+            alone, split = k1_device_times(fn)
+            split = f" back to back, {alone:.4f} alone ({split})"
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         tol = VAR_TOL[kind]
         log(f"[kernel] {key} {name} {shape}: max_abs_err {err:.3e} mean "
             f"{avg:.3e}, {frac:.2e} of elements differ "
             f"(tol {tol[0]}, mean {tol[1]}) -> {'PASS' if ok else 'FAIL'}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"kernel {ms:.4f} ms{split}, plain {plain_ms:.4f} ms, bound "
             f"{bound[0]:.4f} ms ({bound[1]}), {lib_name} " + (
                 f"{lib_ms[0]:.4f} ms on the (K, N) weights, {lib_ms[1]:.4f} "
                 "on their K-major copies" if isinstance(lib_ms, tuple)
@@ -532,7 +558,7 @@ def variant_kernel_checks():
               f"SDPA + torch._int_mm x{3 + fuse_o} (the projections)",
               "encoder_attention.cu",
               "encoder_attention.py:565", "encoder_attention_fused_qkv",
-              f"B={b} T={t} d={d} H={h} n_real={n_real}")
+              f"B={b} T={t} d={d} H={h} n_real={n_real}", parts=True)
     torch.cuda.empty_cache()
 
     # ---- K3: int8 scores / PV ----
@@ -583,7 +609,7 @@ def variant_kernel_checks():
               "SDPA + torch._int_mm x6 (the layer's GEMM shapes)",
               "fused_layer.cu", "fused_layer.py:217", "encoder_layer_fused",
               f"B={b} T={t} d={d} H={h} ffn={f} block_f={bf} "
-              f"n_real={n_real}")
+              f"n_real={n_real}", parts=True)
         out[key]["ok"] &= halves_ok
     return out
 
@@ -1769,8 +1795,7 @@ def phase_serving(card, eng):
 # variant's pieces; csrc/), for the profile's encoder share; a kernel
 # counts where one of these is part of its name
 ENCODER_CSRC_KERNELS = (
-    "attn_wgmma_kernel", "ln_quant_kernel",
-    "qkv_gemm_kernel", "mlp_fc1_", "mlp_fc2_kernel", "fc2_gemm_kernel",
+    "attn_wgmma_kernel", "ln_quant_kernel", "mlp_fc1_", "mlp_fc2_kernel",
     "requant_kernel", "i8_stats_kernel", "i8_quant_kv_kernel",
     "stem_mel_rows_kernel", "stem_conv_kernel", "proj_wgmma_kernel")
 

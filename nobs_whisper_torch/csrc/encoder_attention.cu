@@ -127,14 +127,16 @@
 //      steps reuse (encoder_attention.py:416-433). GPU blocks run in
 //      parallel and in no order, so this is a separate pass writing int8
 //      rows + scales.
-//   2. qkv_gemm_kernel (common.cuh, shared with K10): the three
-//      projections as one int8 mma.sync GEMM launch (grid.z picks q, k or
-//      v). The epilogue dequantizes (acc * s_row * s_col + bias) and writes
-//      bf16(q * dh^-0.5), bf16(k), bf16(v) -- exactly the operands the TPU
-//      kernel feeds its bf16 dots; under int8 scores q stays f32 and
-//      unscaled, as the TPU kernel quantizes it (:443, :455). The outputs
-//      make one round trip through device memory (3 x B x T x d), which the
-//      TPU kernel keeps in VMEM.
+//   2. proj_wgmma_kernel (proj_wgmma.cuh, K10's GEMM): the three
+//      projections as one persistent int8 wgmma launch on the weights'
+//      K-major copies, a block an SM walking the 3 d / 128 x ceil(M / 128)
+//      tiles. The epilogue dequantizes ((acc * s_row) * s_col + bias) and
+//      writes bf16(q * dh^-0.5), bf16(k), bf16(v) -- exactly the operands
+//      the TPU kernel feeds its bf16 dots; under int8 scores q is written
+//      in f32 and unscaled (the kernel's q type), as the TPU kernel
+//      quantizes it (:443, :455), its 64 KB tile leaving 5 ring stages.
+//      The outputs make one round trip through device memory (3 x B x T x
+//      d), which the TPU kernel keeps in VMEM.
 //   3. The int8 variants' preparation (int8_prep): q quantized per (row,
 //      head), divided by its scale max(absmax, 1e-6) / 127; k and v per
 //      (batch row, head), times the reciprocal of max(absmax over rows <
@@ -148,13 +150,19 @@
 //   4. K1 with the o projection (NWT_ATTN_FUSED=2): the attention writes
 //      its normalised output in f32 (the TPU kernel requantizes the f32
 //      pair tile, :466); ln_quant_kernel without LN quantizes each (row,
-//      head pair) of 128 columns; fc2_gemm_kernel (common.cuh) runs the o
-//      projection from f32(x) + bo, flushing its int32 accumulator with
-//      each 128-deep slice's row scale, slices in order: the TPU kernel's
-//      pair-by-pair sum (:470-476, :490-493), with no atomics. The f32
-//      attention output and its int8 copy go through device memory (the
-//      TPU kernel keeps the accumulator in VMEM).
-//
+//      head pair) of 128 columns; mlp_fc2_kernel (proj_wgmma.cuh, K2's
+//      fc2) runs the o projection on wo's K-major copy from f32(x) + bo,
+//      flushing its int32 accumulator with each 128-deep slice's row
+//      scale, slices in order: the TPU kernel's pair-by-pair sum (:470-476,
+//      :490-493), with no atomics. A slice is one slab of the ring, so the
+//      kernel runs each slab as two 64-column halves, one half's sum
+//      flushed while the other half's products run. The f32 attention
+//      output and its int8 copy go through device memory (the TPU kernel
+//      keeps the accumulator in VMEM).
+// Steps 2 and 4 give the bits of the port's first, mma.sync GEMMs
+// (tests/goldens/common_mma_sync.cuh): exact int32 sums, the epilogue's
+// order kept.
+
 // What differs from the TPU kernels: they pair two dh = 64 heads into a
 // 128-lane block and zero the other head's q lanes (K1, K3), because the
 // TPU's lanes are 128 wide; here a head is a warpgroup's wgmma tile of any
@@ -165,6 +173,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "proj_wgmma.cuh"
 
 #include <climits>
 #include <type_traits>
@@ -175,6 +184,8 @@ constexpr int AQ = 64;      // query rows per consumer warpgroup
 constexpr int AK = 64;      // keys per tile
 
 enum : int { I8_SCORES = 1, I8_PV = 2, FUSE_O = 4 };   // entry points' flags
+constexpr int O_CHUNK = 128;   // K1's fused o: a requant chunk, a head pair
+static_assert(O_CHUNK == G8_BK, "the o projection's chunks are slabs");
 
 // One (batch row, head) per blockIdx.(z, y). Strides in elements: a head's
 // row t of batch row b starts at b * sb + h * sh + t * st (flat (B, T, d):
@@ -1066,12 +1077,14 @@ inline cudaError_t int8_prep(const TQ* q, const bf16* k, const bf16* v,
 }
 
 // K1, every variant. x (B, T, d) bf16 with T % 64 == 0, d % 128 == 0,
-// d == 64 * n_head; weights (d, d) int8 row-major (d_in, d_out) with (d,)
-// f32 column scales; ln_g, ln_b, bq, bv, bo (d,) f32. Workspace: xq (B*T, d)
-// int8, sx (B*T,) f32, q (B, T, d) bf16 (f32 with I8_SCORES), k, v (B, T, d)
-// bf16; with FUSE_O a32 (B*T, d) f32, aq (B*T, d) int8, sa (B*T, d / 128)
-// f32; with the int8 flags qq, qs, kq, vq, amax as int8_prep says. Writes
-// out (B, T, d) bf16: the attention, or with FUSE_O x + attention @ wo + bo.
+// d == 64 * n_head, 0 < n_real <= T; wq, wk, wv, wo: the K-major copies
+// (d_out, d_in) of the int8 (d, d) weights, with (d,) f32 column scales;
+// ln_g, ln_b, bq, bv, bo (d,) f32; every pointer 16-byte aligned.
+// Workspace: xq (B*T, d) int8, sx (B*T,) f32, q (B, T, d) bf16 (f32 with
+// I8_SCORES), k, v (B, T, d) bf16; with FUSE_O a32 (B*T, d) f32, aq (B*T,
+// d) int8, sa (B*T, d / O_CHUNK) f32; with the int8 flags qq, qs, kq, vq,
+// amax as int8_prep says. Writes out (B, T, d) bf16: the attention, or
+// with FUSE_O x + attention @ wo + bo.
 inline cudaError_t encoder_attention_fused_qkv(
     const void* x, const void* ln_g, const void* ln_b,
     const void* wq, const void* sq, const void* bq,
@@ -1083,6 +1096,8 @@ inline cudaError_t encoder_attention_fused_qkv(
     void* qq, void* qs, void* kq, void* vq, void* amax,
     int B, int T, int d, int n_real, float sm_scale, int flags,
     cudaStream_t st) {
+  if (B < 1 || T < 64 || T % 64 || d % 128 || n_real < 1 || n_real > T)
+    return cudaErrorInvalidValue;
   const int M = B * T, H = d / 64;
   const bool s8 = flags & I8_SCORES, fuse_o = flags & FUSE_O;
   cudaError_t e = launch_ln_quant(
@@ -1091,9 +1106,13 @@ inline cudaError_t encoder_attention_fused_qkv(
       static_cast<float*>(sx), M, d, st);
   if (e != cudaSuccess) return e;
 
-  e = launch_qkv_gemm<bf16>(xq, sx, wq, sq, bq, wk, sk, wv, sv, bv, q, k, v,
-                            sm_scale, M, d, st,
-                            s8 ? static_cast<float*>(q) : nullptr);
+  // q bf16 and pre-scaled, or f32 and unscaled for the int8 scores
+  e = s8 ? launch_qkv_proj<bf16, false, float>(xq, sx, wq, sq, bq, wk, sk,
+                                               wv, sv, bv, q, k, v, 1.0f, M,
+                                               d, st)
+         : launch_qkv_proj<bf16, true, bf16>(xq, sx, wq, sq, bq, wk, sk, wv,
+                                             sv, bv, q, k, v, sm_scale, M, d,
+                                             st);
   if (e != cudaSuccess) return e;
   if (flags & (I8_SCORES | I8_PV)) {
     e = int8_prep<float>(static_cast<const float*>(q),
@@ -1118,26 +1137,24 @@ inline cudaError_t encoder_attention_fused_qkv(
   if (e != cudaSuccess) return e;
 
   // o projection: per-(row, head pair) quantization of the f32 attention
-  // output (rows of 128), then x + bo + the pair slices' products in order
+  // output (rows of O_CHUNK), then x + bo + the pair slices' products in
+  // order
   e = launch_ln_quant<float, false>(static_cast<const float*>(a32), nullptr,
                                     nullptr, static_cast<int8_t*>(aq),
-                                    static_cast<float*>(sa), M * (d / 128),
-                                    128, st);
+                                    static_cast<float*>(sa),
+                                    M * (d / O_CHUNK), O_CHUNK, st);
   if (e != cudaSuccess) return e;
-  FC2Args<bf16> f;
-  f.aq = static_cast<const int8_t*>(aq);
-  f.amax = nullptr;
-  f.sa = static_cast<const float*>(sa);
-  f.w2 = static_cast<const int8_t*>(wo);
-  f.s2 = static_cast<const float*>(so);
-  f.b2 = static_cast<const float*>(bo);
-  f.x = static_cast<const bf16*>(x);
-  f.out = static_cast<bf16*>(out);
-  f.M = M;
-  f.d = d;
-  f.F = d;
-  f.block_f = 128;
-  return launch_fc2_gemm(f, st);
+  CUtensorMap taq, two;
+  if (!g8_map(&taq, aq, d, M, d, 128) || !g8_map(&two, wo, d, d, d, FC2_BN))
+    return cudaErrorInvalidValue;
+  const MlpFC2Args<bf16> f = {nullptr,
+                              static_cast<const float*>(sa),
+                              static_cast<const float*>(so),
+                              static_cast<const float*>(bo),
+                              static_cast<const bf16*>(x),
+                              static_cast<bf16*>(out),
+                              M, d, d, O_CHUNK};
+  return launch_fc2(taq, two, f, st);
 }
 
 }  // namespace nwt

@@ -8,11 +8,14 @@
 // and PV variants included), the result rounded to bf16 (fused_layer.py:129),
 // then K2's resident MLP at K12's own fc2-input chunk (NWT_MLP_BF or 1280).
 // So this entry point launches those pieces in sequence on one stream:
-// encoder_attention.cu's K1 (LN1 + quant, the q/k/v GEMM, the int8
-// variants' preparation, attention, the per-pair quantization, the o GEMM
-// from x + bo) and fused_mlp.cu's K2 (LN2 + quant, fc1 + gelu + requant
-// across a cluster on int8 wgmma, fc2 from x2 + b2). K1's quantized-row
-// scratch is reused for LN2's.
+// encoder_attention.cu's K1 (LN1 + quant, the q/k/v GEMM on int8 wgmma,
+// the int8 variants' preparation, attention, the per-pair quantization,
+// the o GEMM from x + bo on int8 wgmma) and fused_mlp.cu's K2 (LN2 + quant,
+// fc1 + gelu + requant across a cluster on int8 wgmma, fc2 from x2 + b2).
+// The two GEMM kernels of K1 live in proj_wgmma.cuh, which both sources
+// include (K2's fc2 is K1's o GEMM kernel at another chunk), so that the
+// two C entries of those sources are each defined once here. K1's
+// quantized-row scratch is reused for LN2's.
 //
 // Bound on an H100 at large-v3-turbo, B = 2 windows (T = 1536, n_real =
 // 1500, d = 1280, H = 20, ffn = 5120): 121 G int8 operations (q/k/v 30.2,
@@ -31,12 +34,13 @@
 #include "encoder_attention.cu"
 #include "fused_mlp.cu"
 
-// K1's arguments (flags must hold FUSE_O; out receives x2, the attention
-// half's bf16 output), then LN2, fc1 (w1t (F, d) int8: w1's K-major copy;
-// s1, b1 (F,) f32), fc2 (w2t (d, F) int8: w2's; s2, b2 (d,) f32), K2's
-// workspace a (M, F) f32 (read only on its two-pass variant), amax (M, F /
-// block_f) u32, aq_mlp (M, F) int8, and the layer's output (B, T, d) bf16.
-// F % block_f == 0, block_f % 128 == 0.
+// K1's arguments (the K-major copies of wq, wk, wv, wo; flags must hold
+// FUSE_O; out receives x2, the attention half's bf16 output), then LN2,
+// fc1 (w1t (F, d) int8: w1's K-major copy; s1, b1 (F,) f32), fc2 (w2t (d,
+// F) int8: w2's; s2, b2 (d,) f32), K2's workspace a (M, F) f32 (read only
+// on its two-pass variant), amax (M, F / block_f) u32, aq_mlp (M, F) int8,
+// and the layer's output (B, T, d) bf16. F % block_f == 0, block_f % 128
+// == 0.
 extern "C" int nwt_encoder_layer_fused(
     NWT_K1_ARGS, const void* ln2_g, const void* ln2_b, const void* w1t,
     const void* s1, const void* b1, const void* w2t, const void* s2,

@@ -63,13 +63,14 @@
 //      stores; the cluster's rank 0 writes each row's chunk absmax (float
 //      bits). No f32 (M, ffn) intermediate, no memset, no requant launch.
 //      The card holds 7 clusters of 16 at once (112 SMs), 15 of 8.
-//   3. mlp_fc2_kernel<T>: fc2 on 128 x 128 tiles (its f32 accumulator
-//      beside the int32 one leaves no registers for wider tiles), 6 ring
-//      stages of 32 KB. The f32 accumulator starts at x + b2; at each
-//      chunk boundary the slab's group is retired (wait_group 0) and the
-//      int32 sum is added into it scaled by the row-chunk scale and s2; the
-//      next chunk's first step restarts the int32 sum (scale-d = 0). The
-//      output goes through shared memory to 16-byte stores.
+//   3. mlp_fc2_kernel (proj_wgmma.cuh, which K1's fused o projection
+//      launches too): fc2 on 128 x 128 tiles (its f32 accumulator beside
+//      the int32 one leaves no registers for wider tiles), 6 ring stages
+//      of 32 KB. The f32 accumulator starts at x + b2; at each chunk
+//      boundary the slab's group is retired (wait_group 0) and the int32
+//      sum is added into it scaled by the row-chunk scale and s2; the next
+//      chunk's first step restarts the int32 sum (scale-d = 0). The output
+//      goes through shared memory to 16-byte stores.
 //   A chunk that no cluster of at most 16 blocks covers (block_f > 2048
 //   unless 160 divides it into at most 16: at ffn 5120 only block_f 5120)
 //   takes the two-pass variant: mlp_fc1_twopass_kernel writes the f32
@@ -90,32 +91,13 @@
 // arithmetic is f32 in both, as in the TPU kernel (x cast to f32, the
 // accumulator cast to out's type at the end).
 
-#include "common.cuh"
-#include "gemm_s8_wgmma.cuh"
+#include "proj_wgmma.cuh"
 
 namespace nwt {
 
-// fc1's tile widths and the largest cluster (the non-portable 16)
+// fc1's tile widths and the largest cluster (the non-portable 16); fc2,
+// its ring and its tile: proj_wgmma.cuh
 constexpr int FC1_BN_WIDE = 160, FC1_BN = 128, MLP_MAX_CLUSTER = 16;
-constexpr int FC2_BN = 128;
-
-// every GEMM kernel here: 128 x BN tiles, a block an SM of 384 threads, the
-// third warpgroup the producer, setmaxnreg moving its registers to the two
-// consumer warpgroups (232 a thread: fc2 holds 64 int32 and 64 f32
-// accumulators); rings of 180-192 KB: 5 stages of 36 KB (BN 160), 6 of 32
-// KB (128)
-struct MlpCfg {
-  static constexpr int THREADS = 384;
-  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-  static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536, "regs");
-};
-__host__ __device__ constexpr int ring_stages(int bn) {
-  return bn == 160 ? 5 : 6;
-}
-__host__ __device__ constexpr int ring_smem(int bn) {   // + the alignment
-  return ring_stages(bn) * (128 + bn) * G8_BK + 1024;
-}
-constexpr int BAR_CONSUMERS = 1;   // named barrier of the 256 MMA threads
 
 // fc1's tile width and cluster size for chunk width block_f; cluster 0:
 // no cluster covers the chunk, the two-pass variant (FC1_BN columns)
@@ -156,7 +138,7 @@ struct FC1Args {
 // bytes. Grid (F / BN, ceil(M / 128)), clusters of block_f / BN blocks
 // along x: a cluster covers one chunk of a row tile.
 template <int BN>
-__global__ void __launch_bounds__(MlpCfg::THREADS, 1)
+__global__ void __launch_bounds__(G8Cfg::THREADS, 1)
 mlp_fc1_cluster_kernel(const __grid_constant__ CUtensorMap ta,
                        const __grid_constant__ CUtensorMap tb,
                        const FC1Args p) {
@@ -175,7 +157,7 @@ mlp_fc1_cluster_kernel(const __grid_constant__ CUtensorMap ta,
 
   if (wg == 2) {   // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        MlpCfg::PRODUCER_REGS));
+        G8Cfg::PRODUCER_REGS));
     if (threadIdx.x == L::PRODUCER)
       g8_produce<BN, STAGES>(&ta, &tb, ring, full, empty, n_slabs, m0,
                                   n0);
@@ -185,7 +167,7 @@ mlp_fc1_cluster_kernel(const __grid_constant__ CUtensorMap ta,
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      MlpCfg::CONSUMER_REGS));
+      G8Cfg::CONSUMER_REGS));
 
   uint32_t acc[L::NACC];
 #pragma unroll
@@ -278,7 +260,7 @@ mlp_fc1_cluster_kernel(const __grid_constant__ CUtensorMap ta,
 
 // ta maps xq (M, d), tb maps w1t (F, d), both in boxes of 128 rows. Grid
 // (F / 128, ceil(M / 128)).
-__global__ void __launch_bounds__(MlpCfg::THREADS, 1)
+__global__ void __launch_bounds__(G8Cfg::THREADS, 1)
 mlp_fc1_twopass_kernel(const __grid_constant__ CUtensorMap ta,
                const __grid_constant__ CUtensorMap tb, const FC1Args p) {
   using L = G8Tile<FC1_BN>;
@@ -295,14 +277,14 @@ mlp_fc1_twopass_kernel(const __grid_constant__ CUtensorMap ta,
 
   if (wg == 2) {   // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        MlpCfg::PRODUCER_REGS));
+        G8Cfg::PRODUCER_REGS));
     if (threadIdx.x == L::PRODUCER)
       g8_produce<FC1_BN, STAGES>(&ta, &tb, ring, full, empty, n_slabs,
                                       m0, n0);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      MlpCfg::CONSUMER_REGS));
+      G8Cfg::CONSUMER_REGS));
 
   uint32_t acc[L::NACC];
 #pragma unroll
@@ -370,128 +352,6 @@ requant_kernel(const float* __restrict__ a, const unsigned* __restrict__ amax,
 }
 
 // ---------------------------------------------------------------------------
-// fc2 + residual
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct MlpFC2Args {
-  const unsigned* amax;  // (M, F / block_f) float bits
-  const float* s2;       // (d,) column scales
-  const float* b2;       // (d,)
-  const T* x;            // residual (M, d)
-  T* out;                // (M, d)
-  int M, d, F, block_f;
-};
-
-// ta maps aq (M, F), tb maps w2t (d, F), both in boxes of 128 rows. Grid
-// (d / 128, ceil(M / 128)).
-template <typename T>
-__global__ void __launch_bounds__(MlpCfg::THREADS, 1)
-mlp_fc2_kernel(const __grid_constant__ CUtensorMap ta,
-               const __grid_constant__ CUtensorMap tb,
-               const MlpFC2Args<T> p) {
-  using L = G8Tile<FC2_BN>;
-  constexpr int STAGES = ring_stages(FC2_BN);
-  extern __shared__ uint8_t fc2_smem[];
-  __shared__ __align__(8) uint64_t bars[2 * STAGES];
-  const uint32_t ring = (smem_u32(fc2_smem) + 1023) & ~1023u;
-  const uint32_t full = smem_u32(bars), empty = full + 8 * STAGES;
-  const int n0 = blockIdx.x * FC2_BN, m0 = blockIdx.y * 128;
-  const int n_slabs = p.F / G8_BK;
-  if (threadIdx.x == 0) g8_init_bars<STAGES>(full, empty);
-  __syncthreads();
-  const int wg = threadIdx.x >> 7;
-
-  if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        MlpCfg::PRODUCER_REGS));
-    if (threadIdx.x == L::PRODUCER)
-      g8_produce<FC2_BN, STAGES>(&ta, &tb, ring, full, empty, n_slabs,
-                                      m0, n0);
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      MlpCfg::CONSUMER_REGS));
-
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int rl = wg * 64 + warp * 16 + (lane >> 2);   // rows rl, rl + 8
-  bool live[2];
-  float facc[L::NACC];   // x + b2, then each chunk's (acc s_rc) s2 added
-#pragma unroll
-  for (int h = 0; h < 2; ++h) live[h] = m0 + rl + 8 * h < p.M;
-#pragma unroll
-  for (int j = 0; j < FC2_BN / 8; ++j) {
-    const int c = n0 + 8 * j + 2 * (lane & 3);
-    const float2 b = *reinterpret_cast<const float2*>(p.b2 + c);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float2 x = make_float2(0.f, 0.f);
-      if (live[h]) x = load2(p.x + (size_t)(m0 + rl + 8 * h) * p.d + c);
-      facc[4 * j + 2 * h] = live[h] ? __fadd_rn(x.x, b.x) : 0.f;
-      facc[4 * j + 2 * h + 1] = live[h] ? __fadd_rn(x.y, b.y) : 0.f;
-    }
-  }
-
-  uint32_t acc[L::NACC];
-#pragma unroll
-  for (int i = 0; i < L::NACC; ++i) acc[i] = 0;
-  const int per_chunk = p.block_f / G8_BK, n_chunks = p.F / p.block_f;
-  for (int it = 0; it < n_slabs; ++it) {
-    const int kc = it % per_chunk;
-    g8_mma_slab<FC2_BN, STAGES>(acc, ring, full, it, wg, kc == 0);
-    if (kc < per_chunk - 1) {
-      wgmma_wait<1>();   // slab it - 1's group has read its stage
-      if (it > 0 && (threadIdx.x & 127) == 0)
-        mbar_arrive(empty + 8 * ((it - 1) % STAGES));
-    } else {   // chunk boundary: acc s_rc s2 into the f32 sum
-      wgmma_wait<0>();
-      fence_regs(acc);
-      if (it > 0 && (threadIdx.x & 127) == 0)
-        mbar_arrive(empty + 8 * ((it - 1) % STAGES));
-      const int chunk = it / per_chunk;
-      float sa[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        sa[h] = live[h] ? chunk_scale(p.amax, m0 + rl + 8 * h, n_chunks, chunk)
-                        : 0.f;
-#pragma unroll
-      for (int j = 0; j < FC2_BN / 8; ++j) {
-        const int c = n0 + 8 * j + 2 * (lane & 3);
-        const float2 s = *reinterpret_cast<const float2*>(p.s2 + c);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 4 * j + 2 * h;
-          facc[i] = __fadd_rn(facc[i], dequant((int)acc[i], sa[h], s.x));
-          facc[i + 1] =
-              __fadd_rn(facc[i + 1], dequant((int)acc[i + 1], sa[h], s.y));
-        }
-      }
-    }
-  }
-
-  // out through a tile over the ring (both warpgroups have read every
-  // stage once past this barrier), then 16-byte stores of whole rows
-  g8_bar<BAR_CONSUMERS>(256);
-  constexpr int LD = FC2_BN + 8;   // rows 16 / 32 bytes apart from a bank
-  static_assert(128 * LD * sizeof(T) <= STAGES * L::STAGE, "tile");
-  T* tile = reinterpret_cast<T*>(fc2_smem + (ring - smem_u32(fc2_smem)));
-#pragma unroll
-  for (int j = 0; j < FC2_BN / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      store2(tile + (rl + 8 * h) * LD + 8 * j + 2 * (lane & 3),
-             facc[4 * j + 2 * h], facc[4 * j + 2 * h + 1]);
-  g8_bar<BAR_CONSUMERS>(256);
-  constexpr int VEC = 16 / sizeof(T), CPR = FC2_BN / VEC;
-  for (int k = threadIdx.x; k < 128 * CPR; k += 256) {
-    const int rr = k / CPR, cc = k % CPR, r = m0 + rr;
-    if (r < p.M)
-      *reinterpret_cast<int4*>(p.out + (size_t)r * p.d + n0 + VEC * cc) =
-          *reinterpret_cast<const int4*>(tile + rr * LD + VEC * cc);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -511,7 +371,7 @@ inline cudaError_t launch_fc1_cluster(const CUtensorMap& ta,
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.F / BN, (a.M + 127) / 128);
-  cfg.blockDim = dim3(MlpCfg::THREADS);
+  cfg.blockDim = dim3(G8Cfg::THREADS);
   cfg.dynamicSmemBytes = ring_smem(BN);
   cfg.stream = st;
   cudaLaunchAttribute attr;
@@ -532,20 +392,8 @@ inline cudaError_t launch_fc1_twopass(const CUtensorMap& ta,
       ring_smem(FC1_BN));
   if (e != cudaSuccess) return e;
   mlp_fc1_twopass_kernel<<<dim3(a.F / FC1_BN, (a.M + 127) / 128),
-                           MlpCfg::THREADS, ring_smem(FC1_BN), st>>>(ta, tb,
+                           G8Cfg::THREADS, ring_smem(FC1_BN), st>>>(ta, tb,
                                                                      a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-inline cudaError_t launch_fc2(const CUtensorMap& ta, const CUtensorMap& tb,
-                              const MlpFC2Args<T>& a, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(
-      mlp_fc2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      ring_smem(FC2_BN));
-  if (e != cudaSuccess) return e;
-  mlp_fc2_kernel<T><<<dim3(a.d / FC2_BN, (a.M + 127) / 128), MlpCfg::THREADS,
-                      ring_smem(FC2_BN), st>>>(ta, tb, a);
   return cudaGetLastError();
 }
 
@@ -611,6 +459,7 @@ int encoder_mlp_int8(
 
   MlpFC2Args<T> f2;
   f2.amax = static_cast<const unsigned*>(amax);
+  f2.sa = nullptr;
   f2.s2 = static_cast<const float*>(s2);
   f2.b2 = static_cast<const float*>(b2);
   f2.x = static_cast<const T*>(x);

@@ -1,8 +1,8 @@
 // The int8 GEMM main loop on Hopper (sm_90a): a block's 128 x BN tile of
 // A (M, K) B^T with A (M, K) and B (N, K) int8 row-major, summed exactly in
-// int32. Used by fused_mlp.cu (K2, K8 and K12's MLP half) and fused_qkv.cu
-// (K10, K11); written so that K1's projections, which still run
-// common.cuh's mma.sync GEMM, can take it.
+// int32. Used by fused_mlp.cu (K2, K8 and K12's MLP half) and
+// proj_wgmma.cuh's kernels (K10, K11, and K1's and K12's q/k/v and o
+// projections).
 //
 // Both operands K-major: 8-bit wgmma reads B from shared memory K-major
 // only, so a weight stored (K, N) row-major (the reference layout) is
@@ -10,6 +10,10 @@
 // caller (ops/quant.py::k_major).
 //
 // The pieces, each used by a kernel that owns the rest (its epilogue):
+//   * G8Cfg: every kernel on this loop runs blocks of 384 threads, its two
+//     consumer warpgroups and the producer's, setmaxnreg moving the
+//     producer's registers to the consumers; BUDGET is the dynamic shared
+//     memory a block has for its ring and an epilogue tile.
 //   * G8Tile<BN>: a ring stage holds one K slab of G8_BK = 128 bytes, the
 //     A tile's 128 rows (64 a consumer warpgroup) and the B tile's BN rows,
 //     each row one 128-byte swizzle atom wide, as the TMA leaves them under
@@ -28,6 +32,9 @@
 //     restarts its sum (fc2's chunks) never writes the accumulator itself:
 //     ptxas serializes every wgmma (C7515) when an instruction other than a
 //     wgmma defines an accumulator in flight.
+//   * g8_mma_half: the same for one 64-column half of the B tile
+//     (wgmma.m64n64k32), for a caller that flushes one half's sum while
+//     the other half's products run.
 //   The caller retires the groups (wgmma_wait<1> keeps one in flight) and
 //   frees slab it - 1's stage after slab it's group is issued: one arrival
 //   per consumer warpgroup on the stage's "empty" mbarrier.
@@ -46,6 +53,14 @@ namespace nwt {
 
 constexpr int G8_BK = 128;        // bytes of K a slab: one swizzle atom
 
+struct G8Cfg {
+  static constexpr int THREADS = 384;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536, "regs");
+  // the block's 227 KB less the alignment slack and the static mbarriers
+  static constexpr int BUDGET = 232448 - 2048;
+};
+
 template <int BN>
 struct G8Tile {
   static_assert(BN % 32 == 0 && BN <= 256, "wgmma N and the TMA box");
@@ -57,6 +72,10 @@ struct G8Tile {
   static_assert(B_BYTES % 1024 == 0, "1024-byte aligned stages");
 };
 
+#define G8_S32                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "        \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
 #define G8_S64                                                          \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
   "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "        \
@@ -76,6 +95,7 @@ struct G8Tile {
 #define G8_R8(i)                                                        \
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),           \
       "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define G8_R32 G8_R8(0), G8_R8(8), G8_R8(16), G8_R8(24)
 #define G8_R64                                                          \
   G8_R8(0), G8_R8(8), G8_R8(16), G8_R8(24), G8_R8(32), G8_R8(40),       \
       G8_R8(48), G8_R8(56)
@@ -100,10 +120,14 @@ __device__ __forceinline__ void wgmma_s8(uint32_t (&d)[BN / 2], uint64_t da,
   else if constexpr (BN == 160)
     asm volatile(G8_WGMMA(160, G8_S80, 80, 81, 82)
                  : G8_R80 : "l"(da), "l"(db), "r"(acc));
-  else
+  else if constexpr (BN == 128)
     asm volatile(G8_WGMMA(128, G8_S64, 64, 65, 66)
                  : G8_R64 : "l"(da), "l"(db), "r"(acc));
-  static_assert(BN == 256 || BN == 160 || BN == 128, "tile widths built");
+  else
+    asm volatile(G8_WGMMA(64, G8_S32, 32, 33, 34)
+                 : G8_R32 : "l"(da), "l"(db), "r"(acc));
+  static_assert(BN == 256 || BN == 160 || BN == 128 || BN == 64,
+                "tile widths built");
 }
 
 // The producer's loop: n_slabs slabs of K, A's rows from m0 (ta: an int8
@@ -137,6 +161,20 @@ __device__ __forceinline__ void g8_mma(uint32_t (&acc)[BN / 2], uint32_t a,
   for (int kk = 0; kk < G8_BK / 32; ++kk)
     wgmma_s8<BN>(acc, smem_desc(a + 32 * kk, 1024, 1),
                  smem_desc(b + 32 * kk, 1024, 1), !(zero && kk == 0));
+  wgmma_commit();
+}
+
+// The products of one K slab on B rows [64 half, 64 half + 64) of a B
+// tile, into a 64-column sum that they restart (scale-d = 0 at the first
+// step), as one commit group.
+__device__ __forceinline__ void g8_mma_half(uint32_t (&acc)[32], uint32_t a,
+                                            uint32_t b, int half) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < G8_BK / 32; ++kk)
+    wgmma_s8<64>(acc, smem_desc(a + 32 * kk, 1024, 1),
+                 smem_desc(b + half * 64 * G8_BK + 32 * kk, 1024, 1),
+                 kk != 0);
   wgmma_commit();
 }
 

@@ -306,13 +306,13 @@ encode_count = 0      # encoder batches run (each runs every layer once)
 
 def k_major_weights(gates: EncoderGates) -> Tuple[str, ...]:
     """The stacked int8 weights that the gated kernels read K-major: K2's
-    (K8's, K12's) fc1 and fc2, K10's q, k and v, K11's o. ``_encode``
-    makes each one's copy at its first call on the card and keeps it in
-    the QTensor (``ops/quant.py::k_major``), which ``_layer`` slices with
-    ``q``."""
+    (K8's, K12's) fc1 and fc2; the q, k and v of K1, K12 and K10; the o
+    of K1 with the o projection fused, K12 and K11. ``_encode`` makes each
+    one's copy at its first call on the card and keeps it in the QTensor
+    (``ops/quant.py::k_major``), which ``_layer`` slices with ``q``."""
     return ((("fc1_w", "fc2_w") if gates.mlp else ())
-            + (("q_w", "k_w", "v_w") if gates.qkv == "K10" else ())
-            + (("o_w",) if gates.o == "K11" else ()))
+            + (("q_w", "k_w", "v_w") if gates.qkv else ())
+            + (("o_w",) if gates.o else ()))
 
 
 @torch.inference_mode()

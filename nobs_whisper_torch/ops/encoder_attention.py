@@ -18,7 +18,10 @@ K1 and K3 take the reference's two opt-in int8 variants of the attention
 ``int8_scores`` (``NWT_ATTN_I8``) and ``int8_pv`` (``NWT_ATTN_I8PV``).
 
 The CUDA kernels live in ``csrc/encoder_attention.cu``; its source note
-says what bounds them on an H100 and how the design answers that. Each
+says what bounds them on an H100 and how the design answers that. K1's
+q/k/v and o projections run on the int8 ``wgmma`` GEMMs of
+``csrc/proj_wgmma.cuh`` (K10's and K2's), which read each weight as its
+K-major copy (``ops/quant.py::k_major``, made once per QTensor). Each
 wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 ``*_plain`` version beside it for a CPU tensor. ``launch_count`` (K1),
 ``k3_launch_count`` and ``k9_launch_count`` count launches of the default
@@ -33,7 +36,7 @@ import ctypes
 
 import torch
 
-from .quant import int8_matmul_exact, ln_f32, quantize_rows
+from .quant import int8_matmul_exact, k_major, ln_f32, quantize_rows
 
 launch_count = 0
 k3_launch_count = 0
@@ -196,7 +199,8 @@ def encoder_attention_fused_qkv(x, ln_g, ln_b, wq, bq, wk, wv, bv,
     ``x``: (B, T, d) residual stream, T padded to a multiple of 64 on the
     card (keys >= ``n_real`` are masked);
     ``wq``/``wk``/``wv``/``wo``: int8 QTensors ({"q": (d, d) int8, "s":
-    (1, d) f32}, (d_in, d_out) layout); ``bq``/``bv``/``bo``: (d,) biases
+    (1, d) f32}, (d_in, d_out) layout; the kernel reads their K-major
+    copies, made at the first launch); ``bq``/``bv``/``bo``: (d,) biases
     (Whisper's k projection has none); ``ln_g``/``ln_b``: (d,) LayerNorm
     params; ``int8_scores``/``int8_pv``: the int8 QK^T and PV variants.
     Returns (B, T, d) in x.dtype: the pre-o-projection attention, or with
@@ -254,13 +258,24 @@ def _i8_workspace(b, t, d, n_head, int8_scores, int8_pv, dev):
                         device=dev))
 
 
+def fused_o_workspace(m: int, d: int, dev) -> list:
+    """K1's scratch for the fused o projection: the f32 attention output
+    (m, d), its int8 copy quantized per (row, head pair) and the pairs'
+    scales (m, d / PAIR); csrc/encoder_attention.cu's requant chunk
+    ``O_CHUNK`` is the pair."""
+    return [torch.empty((m, d), dtype=torch.float32, device=dev),
+            torch.empty((m, d), dtype=torch.int8, device=dev),
+            torch.empty((m, d // PAIR), dtype=torch.float32, device=dev)]
+
+
 def fused_qkv_operands(x, ln_g, ln_b, wq, bq, wk, wv, bv, n_real: int,
                        n_head: int, int8_scores: bool, int8_pv: bool,
                        wo=None, bo=None) -> list:
     """Check K1's inputs for the card and return the 28 tensors of
     ``nwt_encoder_attention_fused_qkv`` in its argument order (inputs,
     output at index 14, workspace); the caller holds them until the
-    launch (ctypes gets raw pointers)."""
+    launch (ctypes gets raw pointers). The weights go as their K-major
+    copies, made once per QTensor and kept in it."""
     b, t, d = x.shape
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
@@ -275,16 +290,13 @@ def fused_qkv_operands(x, ln_g, ln_b, wq, bq, wk, wv, bv, n_real: int,
     dev = x.device
     f32 = lambda z: z.to(device=dev, dtype=torch.float32).contiguous()
     ws = (wq, wk, wv) + ((wo,) if fuse_o else ())
-    w = [z["q"].contiguous() for z in ws]
+    w = [k_major(z) for z in ws]
     s = [f32(z["s"]).reshape(d) for z in ws]
     none = torch.empty(0, device=dev)
     m = b * t
     if fuse_o:
         fused = [w[3], s[3], f32(bo)]
-        work_o = [torch.empty((m, d), dtype=torch.float32, device=dev),
-                  torch.empty((m, d), dtype=torch.int8, device=dev),
-                  torch.empty((m, d // PAIR), dtype=torch.float32,
-                              device=dev)]
+        work_o = fused_o_workspace(m, d, dev)
     else:
         fused, work_o = [none] * 3, [none] * 3
     # q in f32, unscaled, where the int8 scores quantize it

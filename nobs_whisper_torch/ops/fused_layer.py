@@ -58,8 +58,9 @@ def encoder_layer_fused(x, ln1_g, ln1_b, wq, bq, wk, wv, bv, wo, bo,
     """One whole encoder layer. ``x``: (B, T, d) residual stream, T a
     multiple of 64 on the card (keys >= ``n_real`` masked); all linear
     weights int8 QTensors ((d_in, d_out) layout with (1, d_out) f32
-    scales); ``block_f``: the fc2-input requantization chunk. Returns
-    (B, T, d) in x.dtype."""
+    scales; the kernels read every one as its K-major copy, made at the
+    first launch and kept in the QTensor); ``block_f``: the fc2-input
+    requantization chunk. Returns (B, T, d) in x.dtype."""
     global launch_count
     b, t, d = x.shape
     assert n_head % 2 == 0 and d % 128 == 0 and 2 * (d // n_head) == 128, \

@@ -139,6 +139,39 @@ def device_ms_split(fn, reps: int, match: str):
             [(n, t) for n, t in rows if match not in n])
 
 
+# K1's and K12's launches by part, for ``device_ms_by_part``: (label, name
+# fragments), a kernel counted under the first part one of whose fragments
+# its name holds (the port's first GEMMs' names too, for a version built
+# from an older csrc/); K12's LN2 is an ln_quant beside LN1
+K1_PARTS = (
+    ("ln_quant", ("ln_quant_kernel<__nv_bfloat16",)),
+    ("q/k/v GEMM", ("proj_wgmma_kernel", "qkv_gemm_kernel")),
+    ("int8_prep", ("i8_stats_kernel", "i8_quant_kv_kernel")),
+    ("attention", ("attn_wgmma_kernel",)),
+    ("o quant", ("ln_quant_kernel<float",)),
+    ("o GEMM", ("mlp_fc2_kernel<__nv_bfloat16, true>", "fc2_gemm_kernel")),
+    ("fc1", ("mlp_fc1_",)),
+    ("fc2", ("mlp_fc2_kernel",)),
+)
+
+
+def device_ms_by_part(fn, reps: int, parts=K1_PARTS):
+    """Device ms per call of ``fn`` by part (``device_ms_split`` over
+    ``reps`` calls, which the caller has warmed up): [(label, ms)] in the
+    order of ``parts``, then ("other NAME", ms) for a kernel no part
+    names."""
+    _, rows = device_ms_split(fn, reps, "\0")
+    ms: Dict[str, float] = {}
+    for name, t in rows:
+        label = next((lab for lab, frags in parts
+                      if any(f in name for f in frags)),
+                     "other " + name.split("(")[0][:48])
+        ms[label] = ms.get(label, 0.0) + t
+    order = [lab for lab, _ in parts]
+    return sorted(ms.items(), key=lambda kv: order.index(kv[0])
+                  if kv[0] in order else len(order))
+
+
 def rtf(audio_seconds: float, wall_seconds: float) -> float:
     """Real-time factor: audio seconds transcribed per wall second."""
     return audio_seconds / max(wall_seconds, 1e-9)

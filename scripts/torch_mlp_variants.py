@@ -6,7 +6,8 @@ against ``torch._int_mm``, in one process on one NVIDIA card.
 Versions, each built from source with the port's ``nvcc`` flags into
 ``build/mlp_variants/`` (gitignored):
 
-* ``kernel``: the checkout's ``fused_mlp.cu``;
+* ``kernel``: the checkout's ``fused_mlp.cu``, with ``proj_wgmma.cuh``
+  (fc2 and its constants) inlined;
 * ``NAME=VALUE[,NAME=VALUE]`` given with ``--tune``: the same source with
   those ``constexpr int`` constants changed (for example
   ``--tune FC2_STAGES=4``);
@@ -125,6 +126,12 @@ def main():
     with open(os.path.join(ROOT, "nobs_whisper_torch", "csrc",
                            "fused_mlp.cu")) as f:
         src = f.read()
+    # fc2 and its constants live in proj_wgmma.cuh: inlined, so that --tune
+    # and --edit reach them
+    with open(os.path.join(ROOT, "nobs_whisper_torch", "csrc",
+                           "proj_wgmma.cuh")) as f:
+        header = f.read().replace("#pragma once\n", "")
+    src = src.replace('#include "proj_wgmma.cuh"\n', header)
     versions = {"kernel": src}
     for spec in args.tune:
         text = src

@@ -7,7 +7,8 @@ in one process on one NVIDIA card.
 Versions, each built from source with the port's ``nvcc`` flags into
 ``build/qkv_variants/`` (gitignored):
 
-* ``kernel``: the checkout's ``fused_qkv.cu``;
+* ``kernel``: the checkout's ``fused_qkv.cu``, with ``proj_wgmma.cuh``
+  (its kernel and constants) inlined;
 * ``NAME=VALUE[,NAME=VALUE]`` given with ``--tune``: the same source with
   those ``constexpr int`` constants changed (for example
   ``--tune K11_BN=128``);
@@ -166,9 +167,14 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"[card] {smi}", flush=True)
-    with open(os.path.join(ROOT, "nobs_whisper_torch", "csrc",
-                           "fused_qkv.cu")) as f:
+    csrc = os.path.join(ROOT, "nobs_whisper_torch", "csrc")
+    with open(os.path.join(csrc, "fused_qkv.cu")) as f:
         src = f.read()
+    # the kernel and its constants live in proj_wgmma.cuh: inlined, so
+    # that --tune and --edit reach them
+    with open(os.path.join(csrc, "proj_wgmma.cuh")) as f:
+        header = f.read().replace("#pragma once\n", "")
+    src = src.replace('#include "proj_wgmma.cuh"\n', header)
     versions = {"kernel": src}
     for spec in args.tune:
         text = src

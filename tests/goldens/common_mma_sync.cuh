@@ -1,6 +1,7 @@
-// common.cuh as the port's first K10/K11 kernels were built with it (its
-// ln_quant_kernel reads a row with scalar loads), for
-// tests/goldens/fused_qkv_mma_sync.cu.
+// common.cuh as the port's first K2/K8, K10/K11 and K1 GEMMs were built
+// with it (mma.sync int8 GEMMs; its ln_quant_kernel reads a row with
+// scalar loads), for tests/goldens/fused_mlp_mma_sync.cu,
+// fused_qkv_mma_sync.cu and k1_proj_mma_sync.cu.
 //
 // Shared device code for the encoder kernels (sm_90a, plain C interface).
 //

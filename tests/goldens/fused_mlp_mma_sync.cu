@@ -33,7 +33,8 @@
 // the published int8 tensor-core peak; about 21 MB of traffic, 6.3 us. The
 // kernel is compute-bound.
 //
-// Design, four launches (mma.sync int8 GEMMs from common.cuh):
+// Design, four launches (mma.sync int8 GEMMs from common.cuh, frozen as
+// common_mma_sync.cuh beside this file):
 //   1. ln_quant_kernel: LN2 + per-row quant of x.
 //   2. fc1_gemm_kernel: int8 fc1, epilogue acc * s_row * s_col + b1 and the
 //      tanh gelu (constant 0.7978845608028654, never erf), written to device
@@ -57,7 +58,7 @@
 // arithmetic is f32 in both, as in the TPU kernel (x cast to f32, the
 // accumulator cast to out's type at the end).
 
-#include "common.cuh"
+#include "common_mma_sync.cuh"
 
 namespace nwt {
 

@@ -35,7 +35,9 @@ numerics and its bound of 0.05 (tests/test_fused_qkv.py:37,51); K10 and
 K11 are besides held bit for bit to the port's first kernels
 (tests/goldens/fused_qkv_mma_sync.cu with the common.cuh it was built
 with, tests/goldens/common_mma_sync.cuh, so the quantization pass too),
-for the same reason as K2. K13 rounds
+for the same reason as K2; so are K1's and K12's projections at every
+flag (tests/goldens/k1_proj_mma_sync.cu, the port's first, mma.sync
+q/k/v and o GEMMs). K13 rounds
 the same bf16 operands at the same points in another summation order; a
 flipped bf16 sum before a flat stretch of the gelu is several output
 steps: the JAX tests' 3e-2 (tests/test_conv_stem.py:34-36), padded rows
@@ -546,17 +548,27 @@ def mma_sync_mlp():
     fused_mlp_mma_sync.cu``: mma.sync GEMMs, fc1's f32 output through
     device memory, a requant pass), built on the card: the bits that the
     wgmma kernels of ``csrc/fused_mlp.cu`` must give."""
+    return _golden("fused_mlp_mma_sync.cu", "goldens", fm._SIG)
+
+
+def _golden(name, out, signatures):
+    """Build ``tests/goldens/<name>`` on the card beside a copy of
+    ``common_mma_sync.cuh`` (the ``common.cuh`` its mma.sync GEMMs lived
+    in) and load it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     import os
+    import shutil
     from nobs_whisper_torch.ops import _build
-    src = os.path.join(os.path.dirname(__file__), "goldens",
-                       "fused_mlp_mma_sync.cu")
-    with open(src) as f:
-        libs, _ = _build.build_variants(
-            {"mlp_mma_sync": f.read()},
-            os.path.join(_build.BUILD_DIR, "goldens"), fm._SIG)
-    return libs["mlp_mma_sync"]
+    here = os.path.join(os.path.dirname(__file__), "goldens")
+    out = os.path.join(_build.BUILD_DIR, out)
+    os.makedirs(out, exist_ok=True)
+    shutil.copy(os.path.join(here, "common_mma_sync.cuh"), out)
+    lib_name = name.split(".")[0]
+    with open(os.path.join(here, name)) as f:
+        libs, _ = _build.build_variants({lib_name: f.read()}, out,
+                                        signatures)
+    return libs[lib_name]
 
 
 def _mma_sync_call(lib, key, args, block_f):
@@ -615,8 +627,10 @@ def test_k2_k8_wgmma_bits(cuda, mma_sync_mlp, key, f, block_f, m, x_dtype):
 def test_k_major_copy_made_once(cuda, monkeypatch):
     """The K-major copies are made at a QTensor's first launch and kept:
     a second launch finds the same tensors. K2's fc1/fc2 through its
-    wrapper; with ``NWT_INT8_QKV`` the int8 encoder's stacked q/k/v/o,
-    which ``_encode`` copies once at its first call on the card."""
+    wrapper; the int8 encoder's stacked weights, which ``_encode`` copies
+    once at its first call on the card: q/k/v/o with ``NWT_INT8_QKV`` (K10,
+    K11), q/k/v on the default path (K1, with K2's fc1/fc2), and all six
+    with ``NWT_ATTN_FUSED=3`` (K12)."""
     args = _k2_inputs(256, 256, 512, cuda)
     assert "qt" not in args[3] and "qt" not in args[5]
     fm.encoder_mlp_int8_resident(*args, block_f=256)
@@ -625,26 +639,46 @@ def test_k_major_copy_made_once(cuda, monkeypatch):
     assert args[3]["qt"] is first[0] and args[5]["qt"] is first[1]
     assert torch.equal(first[0], args[3]["q"].t())
 
+    qkv, mlp = ("q_w", "k_w", "v_w"), ("fc1_w", "fc2_w")
+    _copies_made_once(cuda, monkeypatch, {"NWT_INT8_QKV": "1"},
+                      torch.float32, qkv + ("o_w",) + mlp,
+                      lambda: (fq.k10_launch_count, fq.k11_launch_count))
+    _copies_made_once(cuda, monkeypatch, {}, torch.bfloat16, qkv + mlp,
+                      lambda: (ea.launch_count, fm.launch_count))
+    _copies_made_once(cuda, monkeypatch, {"NWT_ATTN_FUSED": "3"},
+                      torch.bfloat16, qkv + ("o_w",) + mlp,
+                      lambda: (fl.launch_count,))
+
+
+def _copies_made_once(cuda, monkeypatch, knobs, dtype, names, counts):
+    """A tiny int8 encoder on the card with ``knobs`` set: each kernel of
+    ``counts`` launched once a layer; the stacked weights ``names``, and no
+    other, hold their K-major copies after the first ``encode``, and a
+    second finds the same tensors and gives the same states."""
     from nobs_whisper_torch.models import whisper as tw
     from nobs_whisper_torch.utils.testing import tiny_test_config
-    monkeypatch.setenv("NWT_INT8_QKV", "1")
-    cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=32)
-    params = qt.quantize_encoder_params(tw.init_params(2, cfg,
-                                                       device=cuda))
-    blocks = params["encoder"]["blocks"]
-    names = ("q_w", "k_w", "v_w", "o_w")
-    assert not any("qt" in blocks[n] for n in names)
-    mel = torch.randn(2, cfg.n_mels, 2 * cfg.n_audio_ctx, device=cuda)
-    before = (fq.k10_launch_count, fq.k11_launch_count)
-    want = tw.encode(params, mel, cfg)
-    assert (fq.k10_launch_count, fq.k11_launch_count) == (
-        before[0] + cfg.n_audio_layer, before[1] + cfg.n_audio_layer)
-    first = [blocks[n]["qt"] for n in names]
-    for n, t in zip(names, first):
-        assert t.is_contiguous()
-        assert torch.equal(t, blocks[n]["q"].transpose(-1, -2))
-    assert torch.equal(tw.encode(params, mel, cfg), want)
-    assert all(blocks[n]["qt"] is t for n, t in zip(names, first))
+    with monkeypatch.context() as m:
+        for k, v in knobs.items():
+            m.setenv(k, v)
+        cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=32)
+        params = qt.quantize_encoder_params(tw.init_params(2, cfg,
+                                                           device=cuda))
+        blocks = params["encoder"]["blocks"]
+        quantized = [n for n, w in blocks.items() if qt.is_quantized(w)]
+        assert not any("qt" in blocks[n] for n in quantized)
+        mel = torch.randn(2, cfg.n_mels, 2 * cfg.n_audio_ctx, device=cuda)
+        before = counts()
+        want = tw.encode(params, mel, cfg, compute_dtype=dtype)
+        assert counts() == tuple(c + cfg.n_audio_layer for c in before)
+        assert sorted(n for n in quantized if "qt" in blocks[n]) == sorted(
+            names)
+        first = [blocks[n]["qt"] for n in names]
+        for n, t in zip(names, first):
+            assert t.is_contiguous()
+            assert torch.equal(t, blocks[n]["q"].transpose(-1, -2))
+        assert torch.equal(tw.encode(params, mel, cfg, compute_dtype=dtype),
+                           want)
+        assert all(blocks[n]["qt"] is t for n, t in zip(names, first))
 
 
 @pytest.fixture(scope="module")
@@ -654,19 +688,7 @@ def mma_sync_qkv():
     ``mma.sync`` GEMMs, with ``tests/goldens/common_mma_sync.cuh``, the
     ``common.cuh`` they were built with), built on the card: the bits
     that the wgmma kernels of ``csrc/fused_qkv.cu`` must give."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
-    import os
-    import shutil
-    from nobs_whisper_torch.ops import _build
-    here = os.path.join(os.path.dirname(__file__), "goldens")
-    out = os.path.join(_build.BUILD_DIR, "goldens_qkv")
-    os.makedirs(out, exist_ok=True)
-    shutil.copy(os.path.join(here, "common_mma_sync.cuh"), out)
-    with open(os.path.join(here, "fused_qkv_mma_sync.cu")) as f:
-        libs, _ = _build.build_variants({"qkv_mma_sync": f.read()}, out,
-                                        fq._SIG)
-    return libs["qkv_mma_sync"]
+    return _golden("fused_qkv_mma_sync.cu", "goldens_qkv", fq._SIG)
 
 
 def _mma_sync_qkv_call(lib, key, args):
@@ -1028,6 +1050,126 @@ def test_k12_kernel_is_fused_o_then_k2(cuda, var, b, h, t, d, f, block_f,
     err = (got.float().reshape(b * t, d) - half.float()).abs()
     err = err.reshape(b, t, d)[:, :n_real].max().item()
     assert err < K2_TOL, err
+
+
+@pytest.fixture(scope="module")
+def mma_sync_k1():
+    """The port's first K1 projections (``tests/goldens/
+    k1_proj_mma_sync.cu``: LN1 + quantization and the q/k/v GEMM, the
+    per-pair quantization and the o GEMM, on ``mma.sync``, the weights as
+    stored), built on the card: the bits that K1's and K12's int8
+    ``wgmma`` projections (``csrc/proj_wgmma.cuh``) must give."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return _golden("k1_proj_mma_sync.cu", "goldens_k1", {
+        "nwt_k1_qkv_mma_sync": [P] * 16 + [ctypes.c_float, I, I, I, P],
+        "nwt_k1_o_mma_sync": [P] * 8 + [I, I, P]})
+
+
+def _k1_operands(monkeypatch, fn):
+    """Run ``fn`` (a K1 or K12 wrapper call) and return its output and the
+    28 operands of K1's C entry that the wrapper made (its workspace: the
+    quantized rows, q, k, v, the f32 attention output and its int8 copy)."""
+    seen, real = [], ea.fused_qkv_operands
+
+    def spy(*a, **k):
+        seen.append(real(*a, **k))
+        return seen[-1]
+    with monkeypatch.context() as m:
+        m.setattr(ea, "fused_qkv_operands", spy)
+        out = fn()
+    torch.cuda.synchronize()
+    return out, seen[-1]
+
+
+# (b, h, t, d, n_real): turbo's two windows and one, the T % 128 == 64
+# block at d = 256, and a turbo T that is no multiple of 128
+K1_BITS = [(2, 20, 1536, 1280, 1500), (1, 20, 1536, 1280, 1500),
+           (2, 4, 192, 256, 150), (1, 20, 1472, 1280, 1450)]
+K1_BITS_CASES = [(key, flags, *g) for g in K1_BITS for key in ("K1", "K12")
+                 for flags in range(8) if key == "K1" or flags & 4]
+
+
+@pytest.mark.parametrize("key,flags,b,h,t,d,n_real", K1_BITS_CASES,
+                         ids=["-".join(map(str, c)) for c in K1_BITS_CASES])
+def test_k1_k12_wgmma_bits(cuda, monkeypatch, mma_sync_k1, mma_sync_mlp,
+                           key, flags, b, h, t, d, n_real):
+    """K1 (every flag: 1 int8 scores, 2 int8 PV, 4 the o projection fused)
+    and K12 (flags 4-7) give the bits of the port's first, mma.sync
+    projections: LN1's int8 rows and scales (K1's; K12's LN2 writes the
+    same scratch after them), q (bf16 and pre-scaled, or
+    f32 and unscaled under int8 scores), k and v bit for bit; with the o
+    projection fused, the per-pair int8 rows and scales and x + attention
+    @ wo + bo, on the kernel's own f32 attention output, bit for bit; K12's
+    layer bit for bit the first K2 on that. Between the two, the attention
+    is the same kernel before and after, so K1's output is the parent's;
+    without int8 scores or the fused o it is besides K3 on the mma.sync
+    q, k and v (K3 at scale 1 on q scaled already). Two calls give the
+    same bits."""
+    import ctypes
+    s8, pv, fuse_o = bool(flags & 1), bool(flags & 2), bool(flags & 4)
+    f, bf = (5120, 1280) if d == 1280 else (512, 256)
+    args = _layer_inputs(b, h, t, d, f, cuda, seed=t + flags)
+    sm = float(d // h) ** -0.5
+    kw = dict(int8_scores=s8, int8_pv=pv)
+    if key == "K12":
+        fn = lambda: fl.encoder_layer_fused(*args, n_real, sm, h,
+                                            block_f=bf, **kw)
+    else:
+        o = dict(wo=args[8], bo=args[9]) if fuse_o else {}
+        fn = lambda: ea.encoder_attention_fused_qkv(*args[:8], n_real, sm, h,
+                                                    **kw, **o)
+    got, ops = _k1_operands(monkeypatch, fn)
+    again = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.isfinite(got.float()).all()
+
+    m = b * t
+    x, g, be, wq, bq, wk, wv, bv, wo, bo = args[:10]
+    f32 = lambda z: z.float().contiguous().reshape(-1)
+    q = torch.empty((m, d), device=cuda,
+                    dtype=torch.float32 if s8 else torch.bfloat16)
+    k, v = (torch.empty((m, d), device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    xq, sx = fq.qkv_workspace(m, d, cuda)
+    st = torch.cuda.current_stream().cuda_stream
+    ptr = lambda z: ctypes.c_void_p(z.data_ptr())
+    err = mma_sync_k1.nwt_k1_qkv_mma_sync(
+        *(ptr(z) for z in (x, f32(g), f32(be), wq["q"], f32(wq["s"]), f32(bq),
+                           wk["q"], f32(wk["s"]), wv["q"], f32(wv["s"]),
+                           f32(bv), q, k, v, xq, sx)),
+        ctypes.c_float(1.0 if s8 else sm), m, d, int(s8), ctypes.c_void_p(st))
+    assert err == 0, err
+    torch.cuda.synchronize()
+    mine = {"q": ops[17], "k": ops[18], "v": ops[19]}
+    if key == "K1":   # K12's LN2 reuses K1's quantized-row scratch
+        mine.update(xq=ops[15], sx=ops[16])
+    gold = {"xq": xq, "sx": sx, "q": q, "k": k, "v": v}
+    for name, z in mine.items():
+        assert torch.equal(z.reshape(gold[name].shape), gold[name]), name
+    if not fuse_o:
+        if not s8:
+            k3 = ea.encoder_attention_btd(
+                *(z.reshape(b, t, d) for z in (q, k, v)), n_real, 1.0, h,
+                int8_pv=pv)
+            torch.cuda.synchronize()
+            assert torch.equal(got, k3)
+        return
+
+    out = torch.empty((m, d), device=cuda, dtype=torch.bfloat16)
+    aq = torch.empty((m, d), device=cuda, dtype=torch.int8)
+    sa = torch.empty((m, d // 128), device=cuda, dtype=torch.float32)
+    err = mma_sync_k1.nwt_k1_o_mma_sync(
+        *(ptr(z) for z in (ops[20], wo["q"], f32(wo["s"]), f32(bo), x, out,
+                           aq, sa)), m, d, ctypes.c_void_p(st))
+    assert err == 0, err
+    torch.cuda.synchronize()
+    assert torch.equal(ops[21], aq) and torch.equal(ops[22], sa)
+    assert torch.equal(ops[14].reshape(m, d), out)
+    if key == "K12":
+        layer = _mma_sync_call(mma_sync_mlp, "K2", (out, *args[10:]), bf)
+        torch.cuda.synchronize()
+        assert torch.equal(got.reshape(m, d), layer)
 
 
 # ---------------------------------------------------------------------------
