@@ -81,7 +81,9 @@ arguments). Phases; any failure exits non-zero before the result line:
 10. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 and K5 (B=8 and B=1, H=20, Dh=64, Tp=1536,
-t_real=1500; timed back to back and alone in a CUDA graph), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
+t_real=1500; two calls bit for bit; timed back to back and alone in a
+CUDA graph, cold over enough K/V sets to pass the L2 and over one set;
+K5's cluster size from its plan), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
 and with f32 x, two calls bit for bit with f32 x, fc1 1280 x 5120, fc2
 5120 x 1280, M=256; the serving wave's prefill rows, M=24, at the logit
 shape with f32 x and at fc2, each two calls bit for bit; each timed back
@@ -100,7 +102,7 @@ device time split into the attention kernel and ``int8_prep``), K14 (B=40, B=2 a
 windows, 128 and 80 mels, against its plain version and the f64 oracle;
 timed at B=40 and B=2 with 128: back to back, alone in a CUDA graph, and
 the wrapper's host work) and K7 (d=1280, ffn=5120; M=8 and M=1, bf16 and
-f32 x); phase 3 also holds a d=128 dh=64 int8 decoder with the
+f32 x; fc2 with and without programmatic dependent launch); phase 3 also holds a d=128 dh=64 int8 decoder with the
 three decode knobs on against the same model on the CPU (f32: greedy
 tokens equal; bf16: prefill and step logits within a tolerance), and the
 d=128 dh=64 int8 encoder with the three encoder knobs on (bf16 and f32),
@@ -909,6 +911,9 @@ def stem_check(c_in, t_pad, b=2, n_frames=3000, d=1280, seed=13):
                   err, ms, plain_ms, bound, lib_ms, ok)
 
 
+L2_BYTES = 50 * 2 ** 20
+
+
 def _bound(nbytes, flops):
     """(bound ms, what bounds it) against the published H100 peaks."""
     tb, to = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
@@ -920,7 +925,12 @@ def xattn_check(key, b, h=20, t=1500, dh=64, seed=30):
     against its plain version; the yardstick is SDPA on the same bf16 q,
     K and V in the (B, H, T, Dh) layout (K5: on K/V dequantized to bf16
     before timing, twice the bytes K5 reads), keys past the real ones
-    masked."""
+    masked. Timed back to back (the line's ``ms``) and alone in a CUDA
+    graph, cold (each call on the next of enough K/V sets to pass the 50
+    MB L2, as a decode step finds each layer's cross-KV) and over one set
+    (in L2 where it fits); K5's line names the cluster size its plan
+    chooses (the Python mirror, tied to the source by
+    tests/test_torch_k5_plan.py)."""
     import torch
     import torch.nn.functional as F
     from nobs_whisper_torch.ops import attention_pallas as ap
@@ -928,63 +938,83 @@ def xattn_check(key, b, h=20, t=1500, dh=64, seed=30):
     g = torch.Generator(device=dev).manual_seed(seed + b)
     q = (torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).to(
         torch.bfloat16)
-    k = torch.randn(1, b, h, t, dh, generator=g, device=dev)
-    v = torch.randn(1, b, h, t, dh, generator=g, device=dev)
     if key == "K4":
-        kd, vd = ap.pack_cross_kv_bf16((k, v))
-        packed = {"kT": kd["kT"][0], "v": vd["v"][0]}
-        tp = packed["kT"].shape[-1]
-        fn = lambda: ap.cross_attention_decode_bf16(q, packed, t)
-        plain = lambda: ap.cross_attention_decode_bf16_plain(q, packed, t)
-        kh = packed["kT"].transpose(-1, -2).contiguous()
-        vh = packed["v"]
-        mask = torch.arange(tp, device=dev)[None, :] < t
         # K and V of the real positions, q read, out written (f32)
         nbytes = 2 * b * h * t * dh * 2 + b * h * dh * (2 + 4)
-        name, lib = "cross_attention_decode_bf16", "SDPA on bf16 q/k/v"
     else:
-        kq, vq = ap.quantize_cross_kv((k, v))
-        kq = {z: w[0] for z, w in kq.items()}
-        vq = {z: w[0] for z, w in vq.items()}
-        tp = kq["q"].shape[-1]
-        fn = lambda: ap.cross_attention_decode_q8(q, kq, vq)
-        plain = lambda: ap.cross_attention_decode_q8_plain(q, kq, vq)
-        kh = (kq["q"].float() * kq["s"][:, :, None, :]).transpose(
-            -1, -2).to(torch.bfloat16).contiguous()
-        vh = (vq["q"].float() * vq["s"][..., None]).to(torch.bfloat16)
-        mask = kq["s"][:, :, None, :] > 0
         # every position's int8 K and V and both scales (the mask is by
         # scale), q read, out written
+        tp = -(-t // 128) * 128
         nbytes = b * h * tp * (2 * dh + 2 * 4) + b * h * dh * (2 + 4)
+    sets = []
+    for _ in range(max(1, -(-2 * L2_BYTES // nbytes))):
+        k = torch.randn(1, b, h, t, dh, generator=g, device=dev)
+        v = torch.randn(1, b, h, t, dh, generator=g, device=dev)
+        if key == "K4":
+            kd, vd = ap.pack_cross_kv_bf16((k, v))
+            packed = {"kT": kd["kT"][0], "v": vd["v"][0]}
+            mask = torch.arange(packed["kT"].shape[-1], device=dev)[None, :] < t
+            sets.append((packed, packed["kT"].transpose(-1, -2).contiguous(),
+                         packed["v"], mask))
+        else:
+            kq, vq = ap.quantize_cross_kv((k, v))
+            kq = {z: w[0] for z, w in kq.items()}
+            vq = {z: w[0] for z, w in vq.items()}
+            kh = (kq["q"].float() * kq["s"][:, :, None, :]).transpose(
+                -1, -2).to(torch.bfloat16).contiguous()
+            vh = (vq["q"].float() * vq["s"][..., None]).to(torch.bfloat16)
+            sets.append(((kq, vq), kh, vh, kq["s"][:, :, None, :] > 0))
+        del k, v
+    if key == "K4":
+        call = lambda kv: ap.cross_attention_decode_bf16(q, kv, t)
+        plain = lambda kv: ap.cross_attention_decode_bf16_plain(q, kv, t)
+        tp = sets[0][0]["kT"].shape[-1]
+        name, lib = "cross_attention_decode_bf16", "SDPA on bf16 q/k/v"
+        plan = ""
+    else:
+        call = lambda kv: ap.cross_attention_decode_q8(q, *kv)
+        plain = lambda kv: ap.cross_attention_decode_q8_plain(q, *kv)
         name = "cross_attention_decode_q8"
         lib = "SDPA on K/V dequantized to bf16 (2x K5's bytes)"
-    got = fn()
+        c, sl = ap.k5_plan(b * h, tp, torch.cuda.get_device_properties(
+            0).multi_processor_count, dh)
+        plan = (f"; plan C={c} (slices of {sl} positions, {c * b * h} "
+                f"blocks; ops/attention_pallas.py::k5_plan)")
+    kv0 = sets[0][0]
+    got = call(kv0)
     torch.cuda.synchronize()
-    ref = plain()
+    ref = plain(kv0)
     diff = (got - ref).abs()
     err = diff.max().item()
     steps = (diff / (XATTN_STEP["atol"] + XATTN_STEP["rtol"]
                      * ref.abs())).max().item()
     finite = bool(torch.isfinite(got).all())
-    sdpa = lambda: F.scaled_dot_product_attention(
-        q, kh, vh, attn_mask=mask, scale=float(dh) ** -0.5)
-    ms = cuda_ms(fn, reps=50)
-    # alone on the device: the call captured in a CUDA graph, so that the
-    # host does not pace it (one K/V set: at B=8 K4's bytes pass the 50 MB
-    # L2 and K5's fit in it)
-    device_ms = graph_ms(fn, reps=20)
-    plain_ms = cuda_ms(plain, reps=10, warmup=2)
-    lib_ms = cuda_ms(sdpa, reps=50)
-    lib_alone = graph_ms(sdpa, reps=20)
+    same = bool(torch.equal(got, call(kv0)))
+    sdpa = lambda z: F.scaled_dot_product_attention(
+        q, z[1], z[2], attn_mask=z[3], scale=float(dh) ** -0.5)
+    ms = cuda_ms(lambda: call(kv0), reps=50)
+    # alone on the device: the calls captured in a CUDA graph, so that the
+    # host does not pace them; over every set (cold) and over one (in L2
+    # where it fits)
+    n = len(sets)
+    cold_ms = graph_ms(lambda: [call(z[0]) for z in sets], reps=20) / n
+    warm_ms = graph_ms(lambda: call(kv0), reps=20)
+    plain_ms = cuda_ms(lambda: plain(kv0), reps=10, warmup=2)
+    lib_ms = cuda_ms(lambda: sdpa(sets[0]), reps=50)
+    lib_cold = graph_ms(lambda: [sdpa(z) for z in sets], reps=20) / n
+    lib_warm = graph_ms(lambda: sdpa(sets[0]), reps=20)
     bound, by = _bound(nbytes, 4.0 * b * h * t * dh)
-    ok = finite and steps <= 1.0 and err < XATTN_TOL
+    ok = finite and same and steps <= 1.0 and err < XATTN_TOL
     log(f"[kernel] {key} {name} B={b} H={h} Dh={dh} Tp={tp} t_real={t}: "
         f"max_abs_err {err:.3e} (ceiling {XATTN_TOL}), max |kernel - plain|"
         f" / (atol + rtol |plain|) {steps:.3f} (<= 1, {XATTN_STEP}) finite "
-        f"{finite} -> {'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms back "
-        f"to back, {device_ms:.4f} alone in a CUDA graph; plain "
-        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} "
-        f"MB), {lib} {lib_ms:.4f} ms back to back, {lib_alone:.4f} alone")
+        f"{finite}, two calls bit for bit {same} -> "
+        f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms back to back, "
+        f"alone in a CUDA graph {cold_ms:.4f} cold ({n} K/V sets), "
+        f"{warm_ms:.4f} over one set; plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB), {lib} {lib_ms:.4f} "
+        f"ms back to back, alone {lib_cold:.4f} cold, {lib_warm:.4f} over "
+        f"one set{plan}")
     return dict(name=name, route="cuda",
                 source="nobs_whisper_torch/csrc/cross_attention_decode.cu",
                 replaces=("nobs_whisper_tpu/ops/attention_pallas.py:189"
@@ -992,9 +1022,6 @@ def xattn_check(key, b, h=20, t=1500, dh=64, seed=30):
                           "nobs_whisper_tpu/ops/attention_pallas.py:111"),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms, ok=ok)
-
-
-L2_BYTES = 50 * 2 ** 20
 
 
 def q8_check(m, k, n, x_dtype, what, seed=40, repeat=False):
@@ -1271,6 +1298,13 @@ def k7_check(m, x_dtype, d=1280, ffn=5120, seed=60):
     ok = finite and steps <= 1.0 and got.dtype == x_dtype
     each = lambda f: lambda: [f(x, ln_g, ln_b, *w) for w in sets]
     ms = graph_ms(each(fm.fused_mlp_q8)) / K7_SETS
+    # fc2 by a plain stream-ordered launch, for comparison (PDL is K7's
+    # default)
+    fm.k7_set_pdl(False)
+    try:
+        nopdl_ms = graph_ms(each(fm.fused_mlp_q8)) / K7_SETS
+    finally:
+        fm.k7_set_pdl(True)
     plain_ms = graph_ms(each(fm.fused_mlp_q8_plain), reps=10) / K7_SETS
     eager_ms = cuda_ms(each(fm.fused_mlp_q8), reps=10) / K7_SETS
     deq = [(w1["q"].to(torch.bfloat16) * w1["s"].to(torch.bfloat16), b1,
@@ -1293,7 +1327,8 @@ def k7_check(m, x_dtype, d=1280, ffn=5120, seed=60):
         f"max_abs_err {err:.3e}, max |kernel - plain| / (atol + rtol "
         f"|plain|) {steps:.3f} (<= 1, {tol}) finite {finite} -> "
         f"{'PASS' if ok else 'FAIL'}; kernel {ms:.4f} ms (device, CUDA "
-        f"graph; one eager call back to back {eager_ms:.4f} ms), plain "
+        f"graph, fc2 by programmatic dependent launch; {nopdl_ms:.4f} "
+        f"without it; one eager call back to back {eager_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
         f"{nbytes / 1e6:.2f} MB), LN + matmuls on bf16-dequantized weights "
         f"{lib_ms:.4f} ms")
@@ -1306,11 +1341,9 @@ def k7_check(m, x_dtype, d=1280, ffn=5120, seed=60):
 
 def k7_rows_ms(d=1280, ffn=5120, seed=60):
     """K7's device time (``graph_ms``, over the ``K7_SETS`` weight sets)
-    at M = 1-8 bf16 rows. The kernel picks a tile of 1, 2, 4 or 8 rows by
-    M, and the rows of a tile beyond M are zeros that run the same FFMA as
-    real ones, so M = 3 runs the 4-row tile and M = 5-7 the 8-row tile:
-    equal times within a tile and steps between tiles say what each
-    smaller tile saves."""
+    at M = 1-8 bf16 rows. Its decode kernel runs every M <= 8 as one
+    8-row tile of the tensor cores' n8 side, so equal times say that the
+    rows cost nothing and the weight's stream is the time."""
     import torch
     from nobs_whisper_torch.ops import fused_mlp as fm
     from nobs_whisper_torch.ops.quant import quantize_int8
@@ -1326,9 +1359,8 @@ def k7_rows_ms(d=1280, ffn=5120, seed=60):
         x = rn(m, d).to(torch.bfloat16)
         times[m] = graph_ms(lambda: [fm.fused_mlp_q8(x, ln_g, ln_b, *w)
                                      for w in sets]) / K7_SETS
-    log("[kernel] K7 by rows (bf16 x, d 1280, ffn 5120; tile rows 1, 2, 4, "
-        "4, 8, 8, 8, 8): " + ", ".join(f"M={m} {t:.4f} ms"
-                                       for m, t in times.items()))
+    log("[kernel] K7 by rows (bf16 x, d 1280, ffn 5120; one 8-row tile): "
+        + ", ".join(f"M={m} {t:.4f} ms" for m, t in times.items()))
 
 
 def op_kernel_checks():

@@ -210,35 +210,6 @@ __device__ __forceinline__ void g8_bar(int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "r"(threads) : "memory");
 }
 
-// ---------------------------------------------------------------------------
-// thread-block clusters
-// ---------------------------------------------------------------------------
-
-// every thread of every block of the cluster; shared-memory writes before
-// it are visible to the whole cluster after it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ unsigned cluster_size() {
-  unsigned n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
-// the shared-memory address `addr` of this block in block `rank`
-__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,
-                                                 unsigned rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a) : "r"(addr), "r"(rank));
-  return a;
-}
-
 // an int8 2-D tensor map: rows of `cols` bytes (pitch `pitch`), boxes of
 // 128 bytes x box_rows rows under the 128-byte swizzle, zero fill
 inline bool g8_map(CUtensorMap* map, const void* z, int cols, int rows,

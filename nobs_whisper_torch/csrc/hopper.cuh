@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the kernels written for sm_90a
 // (encoder_attention.cu: K1, K3, K9 and K12's attention; conv_stem.cu:
-// K13; gemm_s8_wgmma.cuh: K2, K8, K10, K11): mbarriers, TMA loads and
-// stores through tensor maps, wgmma descriptors and fences (inline PTX),
-// and the CUDA driver's tensor-map encoder fetched at run time through the
-// runtime, so that nothing links -lcuda.
+// K13; gemm_s8_wgmma.cuh: K2, K8, K10, K11; cross_attention_decode.cu: K5;
+// q8_decode.cuh: K6, K7): mbarriers, TMA loads and stores through tensor
+// maps, bulk copies, thread-block clusters, wgmma descriptors and fences
+// (inline PTX), and the CUDA driver's tensor-map encoder fetched at run
+// time through the runtime, so that nothing links -lcuda.
 
 #pragma once
 
@@ -87,6 +88,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// `bytes` contiguous bytes into shared memory as one bulk copy on the copy
+// engine, completing on the mbarrier (both addresses 16-byte aligned,
+// bytes a multiple of 16; no tensor map)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // one box of a 2-D tensor map from shared memory (column c0, row c1) to
 // device memory as one bulk group; elements past the map's bounds are not
 // written. The generic-proxy writes that filled the box must be fenced
@@ -111,6 +124,44 @@ __device__ __forceinline__ void bulk_wait_read() {
 // async-proxy ones (a TMA store of what it wrote)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters
+// ---------------------------------------------------------------------------
+
+// every thread of every block of the cluster; shared-memory writes before
+// it are visible to the whole cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// the shared-memory address `addr` of this block in block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,
+                                                 unsigned rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(addr), "r"(rank));
+  return a;
+}
+
+// the float at the same shared-memory offset in block `rank`
+__device__ __forceinline__ float ld_cluster_f32(const float* p,
+                                                unsigned rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(cluster_addr(smem_u32(p), rank)) : "memory");
+  return v;
 }
 
 // wgmma shared-memory descriptor: start address, stride byte offset (the

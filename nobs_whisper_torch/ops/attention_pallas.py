@@ -18,14 +18,17 @@ Port of ``ops/attention_pallas.py``:
   (``NWT_XATTN_KERNEL``, ``NWT_Q8_KV_PALLAS``; gates in
   ``models/whisper.py``). Their CUDA kernels live in
   ``csrc/cross_attention_decode.cu``, whose source note says what bounds
-  them on an H100. Each wrapper launches its kernel for a CUDA tensor (or
-  raises) and runs the ``*_plain`` version beside it for a CPU tensor;
-  ``k4_launch_count`` and ``k5_launch_count`` count kernel launches only.
+  them on an H100. K5 splits the positions over a thread-block cluster:
+  :func:`k5_plan` is its choice of cluster size and slice. Each wrapper
+  launches its kernel for a CUDA tensor (or raises) and runs the
+  ``*_plain`` version beside it for a CPU tensor; ``k4_launch_count`` and
+  ``k5_launch_count`` count kernel launches only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -44,9 +47,58 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {"nwt_xattn_decode_bf16": [_P] * 4 + [_I] * 4 + [_F, _P],
         "nwt_xattn_decode_q8": [_P] * 6 + [_I] * 3 + [_F, _P]}
 
+# csrc/cross_attention_decode.cu's K5 constants: threads a block, the
+# largest cluster, the slice step in positions, blocks an SM the split aims
+# at, blocks an SM a slice leaves room for, a block's shared memory
+K5_THREADS, K5_MAX_C, K5_STEP = 256, 16, 16
+K5_TARGET, K5_RESIDENT, K5_SMEM_MAX = 1, 2, 232448
+K5_PK = 4 * K5_THREADS   # floats of the score groups' partial sums
+K5_BOX, K5_MAX_BOX = 256, 16   # positions a TMA box of K; boxes a slice
+
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def k5_boxes(s: int) -> Tuple[int, int]:
+    """(boxes, positions a box) of K5's TMA copies of a slice of ``s``
+    positions: as few boxes of at most ``K5_BOX`` positions as cover it,
+    all of one width, a multiple of 16."""
+    m = s // K5_STEP
+    nb = -(-m // (K5_BOX // K5_STEP))
+    return nb, -(-m // nb) * K5_STEP
+
+
+def k5_smem(dh: int, s: int) -> int:
+    """Shared-memory bytes of a K5 block with slices of ``s`` positions:
+    the mbarriers, partial sums and exchange slots (``k5_head``), then the
+    K boxes and the two scale rows (V is read from L2)."""
+    warps = K5_THREADS // 32
+    head = (8 * (K5_MAX_BOX + 4) + 4 * warps * dh + 4 * K5_PK + 4 * dh
+            + 8 * K5_MAX_C + 4 * dh + 4 * warps)
+    nb, bw = k5_boxes(s)
+    return _round_up(head, 128) + dh * nb * bw + 8 * s
+
+
+@functools.lru_cache(maxsize=256)
+def k5_plan(bh: int, tp: int, sms: int, dh: int = 64) -> Tuple[int, int]:
+    """K5's (cluster size C, slice S) for ``bh`` (batch row, head) pairs
+    over ``tp`` positions on a card of ``sms`` multiprocessors, as
+    ``csrc/cross_attention_decode.cu::k5_plan`` chooses them: C doubles
+    while the grid has fewer than ``K5_TARGET`` blocks an SM, or a slice
+    leaves no room for ``K5_RESIDENT`` blocks an SM, up to ``K5_MAX_C``
+    and half the 16-position chunks; S is the chunks over C, rounded up,
+    in positions. C = 0 where no slice fits a block (Tp too long)."""
+    chunks = tp // K5_STEP
+    slice_ = lambda c: -(-chunks // c) * K5_STEP
+    c = 1
+    while (c < K5_MAX_C and 2 * c <= chunks
+           and (c * bh < K5_TARGET * sms
+                or k5_smem(dh, slice_(c)) > K5_SMEM_MAX // K5_RESIDENT)):
+        c *= 2
+    s = slice_(c)
+    fits = k5_smem(dh, s) <= K5_SMEM_MAX and k5_boxes(s)[0] <= K5_MAX_BOX
+    return (c if fits else 0), s
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +302,9 @@ def cross_attention_decode_q8(q: torch.Tensor, kq: QKV, vq: QKV
     ``q``: (B, H, 1, Dh), rounded to bf16 in the kernel's place;
     ``kq``: {"q": (B, H, Dh, Tp) int8, "s": (B, H, Tp) f32};
     ``vq``: {"q": (B, H, Tp, Dh) int8, "s": (B, H, Tp) f32}; a zero scale
-    masks its position. Returns (B, H, 1, Dh) f32."""
+    masks its position. Tp % 16 == 0 and 16-byte aligned K, V and scales
+    (the kernel's bulk copies), as ``quantize_cross_kv`` lays them out.
+    Returns (B, H, 1, Dh) f32."""
     global k5_launch_count
     if q.device.type == "cpu":
         return cross_attention_decode_q8_plain(q, kq, vq)
@@ -260,22 +314,35 @@ def cross_attention_decode_q8(q: torch.Tensor, kq: QKV, vq: QKV
             or tuple(kq["q"].shape) != (b, h, dh, tp)
             or tuple(vq["q"].shape) != (b, h, tp, dh)
             or tuple(kq["s"].shape) != (b, h, tp)
-            or tuple(vq["s"].shape) != (b, h, tp) or tp % 8):
+            or tuple(vq["s"].shape) != (b, h, tp) or tp % K5_STEP):
         raise ValueError(
             f"K5 takes int8 kq (B, H, Dh, Tp), vq (B, H, Tp, Dh) and f32 "
-            f"(B, H, Tp) scales with Tp % 8 == 0; got {tuple(kq['q'].shape)}"
-            f" {kq['q'].dtype}, {tuple(vq['q'].shape)} {vq['q'].dtype}")
+            f"(B, H, Tp) scales with Tp % {K5_STEP} == 0; got "
+            f"{tuple(kq['q'].shape)} {kq['q'].dtype}, "
+            f"{tuple(vq['q'].shape)} {vq['q'].dtype}")
     from . import _build
     lib = _build.load("cross_attention_decode", _SIG)
+    # every converted tensor stays in a name until the launch has returned
     f32 = lambda z: z.to(torch.float32).contiguous()
     qb = q.to(torch.bfloat16).contiguous()
     kqq, vqq = kq["q"].contiguous(), vq["q"].contiguous()
     ks, vs = f32(kq["s"]), f32(vq["s"])
+    ptrs = [z.data_ptr() for z in (qb, kqq, ks, vqq, vs)]
+    if any(p % 16 for p in ptrs[1:]):
+        raise ValueError("K5 takes K, V and scales on 16-byte boundaries "
+                         "(its TMA and bulk copies)")
     out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=q.device)
-    ptr = lambda z: ctypes.c_void_p(z.data_ptr())
+    # the raw stream query, as K6's wrapper: the decode loop's host time is
+    # its cost
     err = lib.nwt_xattn_decode_q8(
-        ptr(qb), ptr(kqq), ptr(ks), ptr(vqq), ptr(vs), ptr(out), b * h, dh,
-        tp, ctypes.c_float(float(dh) ** -0.5), _stream(q.device))
+        *ptrs, out.data_ptr(), b * h, dh, tp,
+        ctypes.c_float(float(dh) ** -0.5),
+        torch._C._cuda_getCurrentRawStream(q.device.index))
+    if err == 1:   # cudaErrorInvalidValue: what the checks above leave
+        raise ValueError(f"K5 refused B*H={b * h}, Dh={dh}, Tp={tp}: more "
+                         f"than 65535 (batch row, head) pairs, or a Tp "
+                         f"whose sixteenth part no block's shared memory "
+                         f"holds")
     _build.check(err, "cross_attention_decode_q8")
     k5_launch_count += 1
     return out

@@ -28,7 +28,9 @@ K7 :func:`fused_mlp_q8` (``fused_mlp_q8``) is the decoder MLP for a few
 rows with the int8 weights dequantized to bf16 (no requantization of the
 activations). The reference keeps it as an op and its decoder does not
 call it, nor does the port's. Its CUDA entry point is in
-``csrc/fused_mlp_q8.cu``; ``k7_launch_count`` counts its launches, and
+``csrc/fused_mlp_q8.cu``: two launches of K6's decode kernel
+(``csrc/q8_decode.cuh``) a group of up to 16 rows, split as K6 splits the
+same shapes; ``k7_launch_count`` counts calls, and
 :func:`mlp_reference` is the reference's erf-gelu yardstick for it.
 """
 
@@ -59,6 +61,8 @@ _K7_ENTRY = {torch.bfloat16: "nwt_fused_mlp_q8",
              torch.float32: "nwt_fused_mlp_q8_f32"}
 _K7_SIG = {fn: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
            + [ctypes.c_void_p] for fn in _K7_ENTRY.values()}
+_K7_SIG["nwt_fused_mlp_q8_set_pdl"] = [ctypes.c_int]
+K7_GROUP = 16   # csrc/fused_mlp_q8.cu's K7_GROUP: rows a pair of launches
 
 
 def resolve_block_f(block_f: int, ffn: int) -> int:
@@ -237,6 +241,15 @@ def fused_mlp_q8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b
     return (x.to(torch.float32) + o).to(x.dtype)
 
 
+def k7_set_pdl(on: bool) -> None:
+    """K7's fc2 by programmatic dependent launch (the default) or by a
+    plain stream-ordered launch, for every call that follows in this
+    process, on any thread: one process-wide switch for timing and testing
+    both, not a per-call option (the card only)."""
+    from . import _build
+    _build.load("fused_mlp_q8", _K7_SIG).nwt_fused_mlp_q8_set_pdl(int(on))
+
+
 def fused_mlp_q8(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b) -> torch.Tensor:
     """K7: x + fc2(gelu_tanh(fc1(LN x))) with int8 QTensors ``fc1`` (d,
     ffn) and ``fc2`` (ffn, d) dequantized to bf16; x (M, d) bf16 or f32,
@@ -258,12 +271,14 @@ def fused_mlp_q8(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b) -> torch.Tensor:
     from . import _build
     lib = _build.load("fused_mlp_q8", _K7_SIG)
     dev = x.device
-    # every converted tensor stays in a name until the launch has returned
+    # every converted tensor stays in a name until the launch has returned;
+    # the kernel's 16-byte loads want x, the LN and the weights aligned
+    al = lambda z: z if z.data_ptr() % 16 == 0 else z.clone()
     f32 = lambda z: z.to(device=dev, dtype=torch.float32).contiguous()
-    x = x.contiguous()
-    w1, w2 = fc1["q"].contiguous(), fc2["q"].contiguous()
+    x = al(x.contiguous())
+    w1, w2 = al(fc1["q"].contiguous()), al(fc2["q"].contiguous())
     s1, s2 = f32(fc1["s"]).reshape(ffn), f32(fc2["s"]).reshape(d)
-    g, be, b1, b2 = f32(ln_g), f32(ln_b), f32(fc1_b), f32(fc2_b)
+    g, be, b1, b2 = al(f32(ln_g)), al(f32(ln_b)), f32(fc1_b), f32(fc2_b)
     act = torch.empty((m, ffn), dtype=torch.bfloat16, device=dev)
     out = torch.empty_like(x)
     ptr = lambda z: ctypes.c_void_p(z.data_ptr())

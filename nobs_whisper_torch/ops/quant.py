@@ -24,7 +24,7 @@ tensor; ``k6_launch_count`` counts kernel launches only, and
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Union
+from typing import Any, Dict, Tuple, Union
 
 import torch
 
@@ -35,6 +35,11 @@ QTensor = Dict[str, torch.Tensor]
 k6_launch_count = 0
 k6_decode_launch_count = 0      # launches with M <= K6_DECODE_ROWS
 K6_DECODE_ROWS = 16             # csrc/q8_matmul.cu's DECODE_ROWS
+# csrc/q8_decode.cuh's decode kernel: columns a block, weight rows a slab,
+# K rows of x a block stages, blocks a cluster, blocks an SM the split
+# aims at (k6_split)
+K6_DBN, K6_DBK, K6_DXK_MAX, K6_MAX_CLUSTER, K6_SPLIT_TARGET = (
+    128, 32, 2048, 16, 1)
 
 _Q8_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _Q8_SIG = {"nwt_q8_matmul_bf16": _Q8_ARGS, "nwt_q8_matmul_f32": _Q8_ARGS}
@@ -79,6 +84,20 @@ def is_quantized(w: Any) -> bool:
 # ---------------------------------------------------------------------------
 # K6: x (M, K) bf16/f32 @ dequant(w) -> (M, N) f32
 # ---------------------------------------------------------------------------
+
+def k6_split(k: int, n: int, sms: int) -> Tuple[int, int]:
+    """(split, rows a block) of K6's decode kernel for a (K, N) weight on a
+    card of ``sms`` multiprocessors, as ``csrc/q8_decode.cuh::split_k``
+    chooses them: one 128-column tile a cluster, its K range split until
+    the grid has about ``K6_SPLIT_TARGET`` blocks an SM, at most
+    ``K6_MAX_CLUSTER`` blocks and ``K6_DXK_MAX`` rows a block, in whole
+    32-row slabs."""
+    tiles, slabs = -(-n // K6_DBN), -(-k // K6_DBK)
+    want = -(-(K6_SPLIT_TARGET * sms) // tiles)
+    want = max(1, min(want, K6_MAX_CLUSTER, slabs))
+    per = min(-(-slabs // want), K6_DXK_MAX // K6_DBK)
+    return -(-slabs // per), per * K6_DBK
+
 
 def q8_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """Plain PyTorch K6 with the Pallas kernel's numerics

@@ -27,7 +27,12 @@ fused_mlp_mma_sync.cu, built here): their int32 sums are exact and the
 absmax is order-free, so every order of the sums gives the same bits.
 K4 and K5 (f32 output of bf16 probabilities times V) are held to one bf16
 step elementwise, as their plain versions are held to the Pallas kernels
-(tests/test_torch_decode_kernels.py). K6 rounds the same
+(tests/test_torch_decode_kernels.py); K5 also where its cluster's slices
+are short, empty or wholly masked, and two calls give the same bits. K4
+kept its first kernel and K6 its kernels when K5 and K7 were redesigned:
+both are held bit for bit to those files (tests/goldens/
+xattn_decode_v1.cu, q8_matmul_v1.cu, with the common.cuh they were built
+with, tests/goldens/common_v1.cuh). K6 rounds the same
 bf16 operands as its plain version and differs in the order, and in the
 tensor cores the rounding, of its f32 sums: 1e-3 absolute plus 1e-3
 relative on outputs of order 1. K8, K10 and K11 share K2's int8
@@ -50,7 +55,9 @@ depends on the rounding); on windows where the dense DFT's own rounding
 is past those bounds, against the f64 oracle. K7 rounds the same bf16 operands at the
 same points in another f32 summation order, which can flip a bf16 element
 of the gelu output by one step: bf16 x to one bf16 step elementwise, f32 x
-to 1e-3 absolute plus 1e-3 relative, as K6.
+to 1e-3 absolute plus 1e-3 relative, as K6; two
+calls give the same bits, with fc2 by programmatic dependent launch or
+not.
 """
 
 import numpy as np
@@ -366,7 +373,39 @@ def test_k4_kernel_matches_plain(cuda, b, h, t, t_real, dh):
     _step_close(got, ref)
 
 
+@pytest.fixture(scope="module")
+def xattn_v1():
+    """The port's first K4 and K5 (``tests/goldens/xattn_decode_v1.cu``:
+    one block per (batch row, head)), built on the card: the bits K4 must
+    still give."""
+    return _golden("xattn_decode_v1.cu", "goldens_xattn", ap._SIG,
+                   "common_v1.cuh")
+
+
 @pytest.mark.parametrize("b,h,t,t_real,dh", DECODE_CASES)
+def test_k4_bits_match_its_first_kernel(cuda, xattn_v1, b, h, t, t_real, dh):
+    """K4 kept its kernel when K5 got a cluster of its own: the same bits
+    as the first version at every geometry."""
+    q, k, v = _cross_kv(b, h, t, dh, cuda, seed=t + dh)
+    kd, vd = ap.pack_cross_kv_bf16((k, v))
+    kT, vv = kd["kT"][0].contiguous(), vd["v"][0].contiguous()
+    got = ap.cross_attention_decode_bf16(q, {"kT": kT, "v": vv}, t_real)
+    want = torch.empty_like(got)
+    qb = q.contiguous()
+    err = xattn_v1.nwt_xattn_decode_bf16(
+        qb.data_ptr(), kT.data_ptr(), vv.data_ptr(), want.data_ptr(), b * h,
+        dh, kT.shape[-1], t_real, ap._F(float(dh) ** -0.5),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# K5 beyond DECODE_CASES: turbo at B = 16 (the plan's C = 2 at 320 pairs)
+K5_CASES = DECODE_CASES + [(16, 20, 1500, 1500, 64)]
+
+
+@pytest.mark.parametrize("b,h,t,t_real,dh", K5_CASES)
 def test_k5_kernel_matches_plain(cuda, b, h, t, t_real, dh):
     q, k, v = _cross_kv(b, h, t, dh, cuda, seed=t + dh + 1)
     kq, vq = ap.quantize_cross_kv((k[..., :t_real, :], v[..., :t_real, :]))
@@ -380,6 +419,70 @@ def test_k5_kernel_matches_plain(cuda, b, h, t, t_real, dh):
     assert got.shape == ref.shape == (b, h, 1, dh)
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     _step_close(got, ref)
+
+
+def _k5_operands(b, h, tp, dh, dev, seed, masked=None):
+    """q and int8 cross-KV at any Tp % 16 == 0 (not only the 128-padded
+    layouts ``quantize_cross_kv`` makes): random int8 K and V, positive
+    scales, zero (masked) at the positions ``masked`` selects."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16)
+    i8 = lambda *sh: torch.randint(-127, 128, sh, generator=g, device=dev,
+                                   dtype=torch.int8)
+    sc = lambda: torch.rand(b, h, tp, generator=g, device=dev) * 0.05 + 1e-3
+    kq = {"q": i8(b, h, dh, tp), "s": sc()}
+    vq = {"q": i8(b, h, tp, dh), "s": sc()}
+    if masked is not None:
+        kq["s"][..., masked] = 0.0
+    return q, kq, vq
+
+
+# (B, H, Tp, Dh, masked positions): every position masked (a uniform p,
+# the plan's C > 1); all but the first 40 (whole slices masked); 13
+# 16-position chunks (Tp = 208: slices of 32, the last short, the
+# cluster's last block empty) and 23 (Tp = 368, C = 16: 2 chunks a slice);
+# turbo at B = 1, 8 and 16 with the last 36 positions masked
+K5_EDGE_CASES = [
+    (1, 20, 1536, 64, slice(None)), (2, 4, 128, 64, slice(None)),
+    (1, 20, 1536, 64, slice(40, None)), (1, 4, 208, 64, None),
+    (1, 4, 208, 32, slice(100, 150)), (1, 2, 368, 128, None),
+    (1, 20, 1536, 64, slice(1500, None)), (8, 20, 1536, 64, slice(1500, None)),
+    (16, 20, 1536, 64, slice(1500, None)),
+]
+
+
+@pytest.mark.parametrize("b,h,tp,dh,masked", K5_EDGE_CASES)
+def test_k5_edges_match_plain(cuda, b, h, tp, dh, masked):
+    """K5 within one bf16 step of its plain version where slices are
+    short, empty or wholly masked, and where every position is masked
+    (the plain version's p is then uniform: each block's max is -1e30)."""
+    q, kq, vq = _k5_operands(b, h, tp, dh, cuda, seed=tp + dh + b, masked=masked)
+    before = ap.k5_launch_count
+    got = ap.cross_attention_decode_q8(q, kq, vq)
+    torch.cuda.synchronize()
+    assert ap.k5_launch_count == before + 1
+    ref = ap.cross_attention_decode_q8_plain(q, kq, vq)
+    assert got.shape == ref.shape == (b, h, 1, dh)
+    assert torch.isfinite(got).all()
+    _step_close(got, ref)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_k5_kernel_is_deterministic(cuda, b):
+    """Two calls give the same bits (the cluster's sums are taken in rank
+    order); the output comes from an allocation that held NaNs just
+    before, so an element the kernel did not write would show."""
+    q, kq, vq = _k5_operands(b, 20, 1536, 64, cuda, seed=b,
+                             masked=slice(1500, None))
+    outs = []
+    for _ in range(2):
+        junk = torch.full((b, 20, 1, 64), float("nan"), device=cuda)
+        del junk
+        outs.append(ap.cross_attention_decode_q8(q, kq, vq))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs[0]).all())
+    assert torch.equal(outs[0], outs[1])
 
 
 def _q8_weight(k, n, dev, seed, offset=0):
@@ -424,6 +527,33 @@ def test_k6_kernel_matches_plain(cuda, m, k, n, x_dtype, offset):
     assert got.shape == (m, n) and got.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                **K6_TOL)
+
+
+@pytest.fixture(scope="module")
+def q8_v1():
+    """K6 as it was before its decode kernel moved into
+    ``csrc/q8_decode.cuh`` (``tests/goldens/q8_matmul_v1.cu``), built on the
+    card: the bits K6 must still give."""
+    return _golden("q8_matmul_v1.cu", "goldens_q8", qt._Q8_SIG,
+                   "common_v1.cuh")
+
+
+@pytest.mark.parametrize("m,k,n,x_dtype,offset", K6_CASES)
+def test_k6_bits_match_v1(cuda, q8_v1, m, k, n, x_dtype, offset):
+    """K6 on the shared decode header gives the bits of its own first
+    file at every case, both kernels and both x types."""
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(x_dtype)
+    w = _q8_weight(k, n, cuda, seed=k + n, offset=offset)
+    got = qt.q8_matmul(x, w)
+    want = torch.empty_like(got)
+    s = w["s"].to(torch.float32).contiguous()
+    err = getattr(q8_v1, qt._Q8_ENTRY[x_dtype])(
+        x.data_ptr(), w["q"].data_ptr(), s.data_ptr(), want.data_ptr(), m, k,
+        n, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
@@ -551,10 +681,11 @@ def mma_sync_mlp():
     return _golden("fused_mlp_mma_sync.cu", "goldens", fm._SIG)
 
 
-def _golden(name, out, signatures):
-    """Build ``tests/goldens/<name>`` on the card beside a copy of
-    ``common_mma_sync.cuh`` (the ``common.cuh`` its mma.sync GEMMs lived
-    in) and load it."""
+def _golden(name, out, signatures, header="common_mma_sync.cuh"):
+    """Build ``tests/goldens/<name>`` on the card beside a copy of its
+    frozen ``common.cuh`` (``common_mma_sync.cuh``, where the first mma.sync
+    GEMMs lived, or ``common_v1.cuh`` for the decode kernels' first
+    versions) and load it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     import os
@@ -563,7 +694,7 @@ def _golden(name, out, signatures):
     here = os.path.join(os.path.dirname(__file__), "goldens")
     out = os.path.join(_build.BUILD_DIR, out)
     os.makedirs(out, exist_ok=True)
-    shutil.copy(os.path.join(here, "common_mma_sync.cuh"), out)
+    shutil.copy(os.path.join(here, header), out)
     lib_name = name.split(".")[0]
     with open(os.path.join(here, name)) as f:
         libs, _ = _build.build_variants({lib_name: f.read()}, out,
@@ -1254,7 +1385,8 @@ def test_k14_silent_stretch_reaches_floor(cuda, n_mels):
 @pytest.mark.parametrize("m,d,ffn", [(1, 128, 512), (2, 128, 512),
                                      (8, 128, 512), (1, 1280, 5120),
                                      (2, 1280, 5120), (8, 1280, 5120),
-                                     (11, 256, 1024)])
+                                     (11, 256, 1024), (16, 1280, 5120),
+                                     (24, 1280, 5120)])
 def test_k7_kernel_matches_plain(cuda, m, d, ffn, x_dtype):
     g = torch.Generator(device=cuda).manual_seed(m + d)
     rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
@@ -1274,3 +1406,30 @@ def test_k7_kernel_matches_plain(cuda, m, d, ffn, x_dtype):
     else:
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    **K6_TOL)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 8, 24])
+def test_k7_kernel_is_deterministic(cuda, m, x_dtype):
+    """Two calls give the same bits, with fc2 by programmatic dependent
+    launch and without it (the switch changes when fc2 starts, not what it
+    sums); the outputs come from allocations that held NaNs just before."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    d, ffn = 1280, 5120
+    x = rn(m, d).to(x_dtype)
+    args = (x, 1.0 + 0.1 * rn(d), 0.1 * rn(d),
+            quantize_int8(rn(d, ffn) * d ** -0.5), 0.1 * rn(ffn),
+            quantize_int8(rn(ffn, d) * ffn ** -0.5), 0.1 * rn(d))
+    outs = []
+    try:
+        for pdl in (True, True, False):
+            fm.k7_set_pdl(pdl)
+            junk = torch.full((m, d), float("nan"), device=cuda).to(x_dtype)
+            del junk
+            outs.append(fm.fused_mlp_q8(*args))
+    finally:
+        fm.k7_set_pdl(True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs[0].float()).all())
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
