@@ -80,10 +80,10 @@ arguments). Phases; any failure exits non-zero before the result line:
    phases 3-8 must show K7 = K14 = 0;
 10. one ``kernels`` JSON line, then the result line.
 
-Phase 2 also checks K4 and K5 (B=8 and B=1, H=20, Dh=64, Tp=1536,
-t_real=1500; two calls bit for bit; timed back to back and alone in a
-CUDA graph, cold over enough K/V sets to pass the L2 and over one set;
-K5's cluster size from its plan), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
+Phase 2 also checks K4 (B=8, B=1 and B=16) and K5 (B=8 and B=1) at
+H=20, Dh=64, Tp=1536, t_real=1500 (two calls bit for bit; timed back to
+back and alone in a CUDA graph, cold over enough K/V sets to pass the L2
+and over one set; each kernel's cluster size from its plan), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
 and with f32 x, two calls bit for bit with f32 x, fc1 1280 x 5120, fc2
 5120 x 1280, M=256; the serving wave's prefill rows, M=24, at the logit
 shape with f32 x and at fc2, each two calls bit for bit; each timed back
@@ -928,9 +928,9 @@ def xattn_check(key, b, h=20, t=1500, dh=64, seed=30):
     masked. Timed back to back (the line's ``ms``) and alone in a CUDA
     graph, cold (each call on the next of enough K/V sets to pass the 50
     MB L2, as a decode step finds each layer's cross-KV) and over one set
-    (in L2 where it fits); K5's line names the cluster size its plan
-    chooses (the Python mirror, tied to the source by
-    tests/test_torch_k5_plan.py)."""
+    (in L2 where it fits); the line names the cluster size the kernel's
+    plan chooses (the Python mirrors, tied to the source by
+    tests/test_torch_k4_plan.py and tests/test_torch_k5_plan.py)."""
     import torch
     import torch.nn.functional as F
     from nobs_whisper_torch.ops import attention_pallas as ap
@@ -965,19 +965,22 @@ def xattn_check(key, b, h=20, t=1500, dh=64, seed=30):
             vh = (vq["q"].float() * vq["s"][..., None]).to(torch.bfloat16)
             sets.append(((kq, vq), kh, vh, kq["s"][:, :, None, :] > 0))
         del k, v
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if key == "K4":
         call = lambda kv: ap.cross_attention_decode_bf16(q, kv, t)
         plain = lambda kv: ap.cross_attention_decode_bf16_plain(q, kv, t)
         tp = sets[0][0]["kT"].shape[-1]
         name, lib = "cross_attention_decode_bf16", "SDPA on bf16 q/k/v"
-        plan = ""
+        c, sl = ap.k4_plan(b * h, tp, sms)
+        plan = (f"; plan C={c} (slices of {sl} positions, {c * b * h} "
+                f"blocks; a ring stage {ap.k4_rows(sl, dh)} rows of K or "
+                f"{ap.k4_vbox(dh)} of V; ops/attention_pallas.py::k4_plan)")
     else:
         call = lambda kv: ap.cross_attention_decode_q8(q, *kv)
         plain = lambda kv: ap.cross_attention_decode_q8_plain(q, *kv)
         name = "cross_attention_decode_q8"
         lib = "SDPA on K/V dequantized to bf16 (2x K5's bytes)"
-        c, sl = ap.k5_plan(b * h, tp, torch.cuda.get_device_properties(
-            0).multi_processor_count, dh)
+        c, sl = ap.k5_plan(b * h, tp, sms, dh)
         plan = (f"; plan C={c} (slices of {sl} positions, {c * b * h} "
                 f"blocks; ops/attention_pallas.py::k5_plan)")
     kv0 = sets[0][0]
@@ -1086,7 +1089,8 @@ def q8_check(m, k, n, x_dtype, what, seed=40, repeat=False):
 
 
 def decode_kernel_checks():
-    """K4 and K5 at B=8 and B=1 (the line keeps B=8), K6 on the decoder's
+    """K4 at B=8, B=1 and B=16 and K5 at B=8 and B=1 (the line keeps B=8;
+    every check must pass), K6 on the decoder's
     shapes (the line keeps the logit projection with f32 x, which the
     serving path runs, and two calls must give the same bits there; every
     check must pass). K6 also at the serving wave's prefill rows (3
@@ -1096,10 +1100,10 @@ def decode_kernel_checks():
     twice."""
     import torch
     out = {}
-    for key in ("K4", "K5"):
+    for key, more in (("K4", (1, 16)), ("K5", (1,))):
         e8 = xattn_check(key, b=8)
-        e1 = xattn_check(key, b=1)
-        e8["ok"] &= e1["ok"]
+        for b in more:
+            e8["ok"] &= xattn_check(key, b=b)["ok"]
         out[key] = e8
     logits = q8_check(8, 1280, 51866, torch.float32, "logits", repeat=True)
     ok = logits["ok"]

@@ -22,18 +22,48 @@
 //
 // What bounds them on an H100: bytes. A step reads each position's K and V
 // once for one query: 2 x Dh multiply-adds per 2 x Dh elements. At
-// large-v3-turbo (H = 20, Dh = 64, Tp = 1536) and B = 8, K4 reads 62.9 MB of
-// bf16 (about 19 us at 3.35 TB/s) and K5 33.5 MB of int8 and scales (about
-// 10 us; 1.3 us at B = 1); the arithmetic is a few hundred MFLOP.
+// large-v3-turbo (H = 20, Dh = 64, Tp = 1536, 1500 real) and B = 8, K4
+// reads 61.4 MB of bf16 (about 18 us at 3.35 TB/s; 2.3 us at B = 1) and K5
+// 33.5 MB of int8 and scales (about 10 us; 1.3 us at B = 1); the
+// arithmetic is a few hundred MFLOP.
 //
-// K4: one block of 256 threads per (batch row, head). The scores row (Tp
-// f32) stays in shared memory, so K and V are each read once, in three
-// phases: (1) each thread owns 8 consecutive positions and walks the Dh
-// rows of K with 16-byte loads; (2) block max, exp, block sum and the
-// normalisation in place; (3) each thread owns 8 of the Dh columns and
-// every 32nd position of V, and the per-thread partial sums are added in a
-// fixed order. Phase 1 skips position chunks wholly past t_real, phase 3
-// the positions past it.
+// K4: a thread-block cluster of C blocks per (batch row, head), each block
+// a slice of S positions (a multiple of 8, at most K4_SPAN; the last
+// slices may be short or empty). Where K5 stages its slice of K whole and
+// reads V from L2, K4's bf16 slice (twice K5's bytes) streams through a
+// ring of K4_STAGES stages of 8 KB in shared memory, on bulk copies that
+// one warp of the block issues: first K, R rows of the slice a stage (one
+// copy a row, the slice's real positions), then V, 64 rows (Dh 64) a
+// stage (one copy); 128 compute threads release each stage with an
+// mbarrier arrival, and the copying warp refills it. So a block's shared
+// memory is the ring and the scores row (S x 4 bytes), ~30 KB, and five
+// blocks share an SM. At B >= 8 the time follows how evenly the bytes
+// fall over the SMs (blocks on an SM that holds more of them finish
+// later: PERF.md), so the plan (k4_plan) splits until the grid has
+// K4_TARGET blocks an SM, slices no shorter than K4_MIN_SLICE, in one
+// wave: at turbo B = 1 C = 8 (160 blocks of 192 positions, the whole
+// slice on the copy engine at entry), B = 8 C = 2 (320 blocks, 2-3 an
+// SM), B = 16 C = 2 (640 blocks, 4-5 an SM, where C = 1 puts 1.24x the
+// mean bytes on the SMs that hold 3). Clusters of 4 do not fit one wave
+// at B = 8 (the card holds 154 of them at once). Then:
+//   (1) scores a K stage at a time: a thread keeps the sums of its words
+//       (4 positions each) over every stage in registers; where the words
+//       leave threads over, G groups share each stage's rows and their
+//       sums are added in order at the end; positions at or past t_real
+//       are never loaded (a slice wholly past it loads nothing: max
+//       -1e30, sum 0, partial output 0);
+//   (2) the max and the sum exchanged over the cluster as in K5 (pushes
+//       into the peers' shared memory, a remote mbarrier arrival each),
+//       then p / sum and its bf16 cast in place, while the ring's first V
+//       boxes land;
+//   (3) PV a V box at a time from shared memory, a thread 8 columns and
+//       every TL-th row, summed by shuffles and across warps in a fixed
+//       order; the partial outputs pushed to their owners and added in
+//       rank order, as K5.
+// What bounds it on an H100: bytes (K and V of the real positions once):
+// at B = 8 and 16 it reads at 2.3-2.7 TB/s, faster than torch.sum over as
+// many bytes (PERF.md); at B = 1 the chain of latencies of one block
+// (loads, three exchanges).
 //
 // K5: a thread-block cluster of C blocks per (batch row, head), each block
 // a slice of S positions (a multiple of 16; the last slices may be short
@@ -88,118 +118,6 @@
 #include "hopper.cuh"
 
 namespace nwt {
-
-// ---------------------------------------------------------------------------
-// K4: one block per (batch row, head), packed bf16
-// ---------------------------------------------------------------------------
-
-constexpr int XA_THREADS = 256;
-constexpr int XA_RED = 2048;   // floats of the phase-3 partial sums
-
-struct XAArgs {
-  const bf16* q;        // (BH, Dh)
-  const bf16* k;        // (BH, Dh, Tp)
-  const bf16* v;        // (BH, Tp, Dh)
-  float* out;           // (BH, Dh)
-  int Tp, t_real;
-  float scale;
-};
-
-// 8 consecutive elements as f32, from 16 aligned bytes
-__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  __syncthreads();                      // red may hold a previous result
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int i = 1; i < XA_THREADS / 32; ++i)
-    r = is_max ? fmaxf(r, red[i]) : __fadd_rn(r, red[i]);
-  return r;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(XA_THREADS)
-xattn_decode_kernel(XAArgs a) {
-  extern __shared__ float sc[];         // scores, then probabilities
-  __shared__ float qs[DH];
-  __shared__ float red[XA_THREADS / 32];
-  const int tid = threadIdx.x, bh = blockIdx.x, Tp = a.Tp;
-  const bf16* k = a.k + (size_t)bh * DH * Tp;
-  const bf16* v = a.v + (size_t)bh * Tp * DH;
-  // the positions below t_real only (whole 8-position chunks)
-  const int t_lim = min(Tp, (a.t_real + 7) & ~7);
-
-  if (tid < DH) qs[tid] = __bfloat162float(a.q[(size_t)bh * DH + tid]);
-  __syncthreads();
-
-  // (1) scores: each thread 8 consecutive positions, all Dh rows of K
-  float mx = __int_as_float(0xff800000u);   // -inf
-  for (int c = tid; c < t_lim / 8; c += XA_THREADS) {
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float kf[8];
-      load8(k + (size_t)d * Tp + 8 * c, kf);
-      const float qd = qs[d];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = fmaf(qd, kf[i], acc[i]);  // exact products
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int t = 8 * c + i;
-      const float s = t < a.t_real ? __fmul_rn(acc[i], a.scale) : -1e30f;
-      sc[t] = s;
-      mx = fmaxf(mx, s);
-    }
-  }
-  mx = block_reduce(mx, red, true);
-
-  // (2) p = exp(s - max), the sum, then p / sum
-  float sum = 0.f;
-  for (int t = tid; t < t_lim; t += XA_THREADS) {
-    const float p = expf(__fsub_rn(sc[t], mx));
-    sc[t] = p;
-    sum = __fadd_rn(sum, p);
-  }
-  sum = block_reduce(sum, red, false);
-  for (int t = tid; t < t_lim; t += XA_THREADS)
-    sc[t] = __bfloat162float(__float2bfloat16_rn(__fdiv_rn(sc[t], sum)));
-  __syncthreads();
-
-  // (3) out = p @ V: thread (tl, dg) owns columns 8 dg .. 8 dg + 7 and
-  // positions tl, tl + TL, ...
-  constexpr int DG = DH / 8, TL = XA_THREADS / DG;
-  const int dg = tid % DG, tl = tid / DG;
-  float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int t = tl; t < a.t_real; t += TL) {
-    float vf[8];
-    load8(v + (size_t)t * DH + 8 * dg, vf);
-    const float p = sc[t];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = fmaf(p, vf[i], o[i]);
-  }
-  __syncthreads();                      // sc is reused for the partials
-#pragma unroll
-  for (int i = 0; i < 8; ++i) sc[tl * DH + 8 * dg + i] = o[i];
-  __syncthreads();
-  if (tid < DH) {
-    float r = 0.f;
-    for (int i = 0; i < TL; ++i) r = __fadd_rn(r, sc[i * DH + tid]);
-    a.out[(size_t)bh * DH + tid] = r;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K5: a cluster per (batch row, head), int8 K/V
@@ -548,6 +466,338 @@ xattn_q8_kernel(const __grid_constant__ CUtensorMap kmap, K5Args a) {
   K5_MARK(9);
 }
 
+// ---------------------------------------------------------------------------
+// K4: a cluster per (batch row, head), packed bf16, K and V through a ring
+// ---------------------------------------------------------------------------
+
+constexpr int K4_THREADS = 128;       // compute threads; one more warp copies
+constexpr int K4_WARPS = K4_THREADS / 32;
+constexpr int K4_MAX_C = 16;          // blocks a cluster (non-portable above 8)
+constexpr int K4_STEP = 8;            // a slice is a multiple of 8 positions
+constexpr int K4_SPAN = 1024;         // positions a slice at most
+constexpr int K4_MIN_SLICE = 192;     // positions a split leaves a slice at least
+constexpr int K4_STAGE = 8192;        // bytes a ring stage
+constexpr int K4_STAGES = 3;          // stages of the ring
+constexpr int K4_TARGET = 2;          // blocks an SM the split aims at
+constexpr int K4_FORCE_C = 0;         // a fixed C (ablations); 0: the plan's
+constexpr int K4_SMEM_MAX = 232448;   // shared memory a block can have (227 KB)
+static_assert(K4_SMEM_MAX == K5_SMEM_MAX, "one limit for both kernels");
+// words (4 positions) a thread's scores keep in registers: a slice's words
+// over the block's threads
+constexpr int K4_WORDS = K4_SPAN / (4 * K4_THREADS);
+// floats of the score groups' partial sums (G groups of a slice's words
+// cover at most the block's threads, a float4 each), later of the warps'
+// partial outputs (K4_WARPS x Dh)
+constexpr int K4_PK = 4 * K4_THREADS;
+static_assert(K4_WARPS * 128 <= K4_PK, "the warps' partial outputs");
+
+// rows of K a stage holds for slices of s <= K4_SPAN positions: the
+// largest power of two of rows of s bf16 in K4_STAGE bytes, at most Dh
+__host__ __device__ constexpr int k4_rows(int s, int dh) {
+  int r = 1;
+  while (2 * r <= dh && 2 * r * 2 * s <= K4_STAGE) r *= 2;
+  return r;
+}
+// positions of V a stage holds: as many rows of Dh (64 at Dh 64)
+__host__ __device__ constexpr int k4_vbox(int dh) {
+  return K4_STAGE / (2 * dh);
+}
+
+// The block's shared memory, in order: the mbarriers (two a stage, full
+// and empty; the three exchanges'; one spare for alignment); the score
+// groups' partial sums (then the warps' partial outputs); q (Dh f32); the
+// exchange slots that the cluster's blocks write into: their maxima, their
+// sums, and their partial outputs of the Dh / C elements this block owns;
+// the warp maxima and sums; then the ring's stages and the scores row
+// (then p).
+__host__ __device__ constexpr int k4_head(int dh) {
+  return 8 * (2 * K4_STAGES + 4) + 4 * K4_PK + 4 * dh + 4 * 2 * K4_MAX_C +
+         4 * dh + 4 * K4_WARPS;
+}
+__host__ __device__ constexpr int k4_head_aligned(int dh) {
+  return (k4_head(dh) + 127) & ~127;
+}
+constexpr size_t k4_smem(int dh, int s) {
+  return (size_t)k4_head_aligned(dh) + (size_t)K4_STAGES * K4_STAGE +
+         (size_t)4 * s;
+}
+
+struct K4Args {
+  const bf16* q;         // (BH, Dh)
+  const bf16* k;         // (BH, Dh, Tp)
+  const bf16* v;         // (BH, Tp, Dh)
+  float* out;            // (BH, Dh)
+  int Tp, S, t_real;
+  float scale;
+};
+
+// phase boundaries of a block, for scripts/torch_xattn_variants.py --trace
+// (nothing in the port's build)
+#ifndef K4_MARK
+#define K4_MARK(i)
+#endif
+
+// consumer-only barrier: the K4_THREADS compute threads (named barrier 1;
+// the copying warp has left the common path)
+__device__ __forceinline__ void k4_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(K4_THREADS) : "memory");
+}
+
+// (registers for five blocks an SM, as the plan's one wave needs)
+template <int DH>
+__global__ void __launch_bounds__(K4_THREADS + 32, 5)
+xattn_bf16_kernel(K4Args a) {
+  K4_MARK(0);
+  constexpr int DG = DH / 8;              // 8-column groups of V
+  constexpr int TL = K4_THREADS / DG;     // position lanes of V
+  static_assert(DG <= 32 && TL * DG == K4_THREADS, "tiling");
+  extern __shared__ __align__(128) uint8_t sm[];
+  const uint32_t bar_full = smem_u32(sm);             // [K4_STAGES]
+  const uint32_t bar_empty = bar_full + 8 * K4_STAGES;  // [K4_STAGES]
+  const uint32_t bar_max = bar_empty + 8 * K4_STAGES, bar_sum = bar_max + 8,
+                 bar_part = bar_max + 16;             // the exchanges
+  float* red = reinterpret_cast<float*>(sm + 8 * (2 * K4_STAGES + 4));
+  float* qs = red + K4_PK;
+  float* xmax = qs + DH;                  // [C]: each block's max
+  float* xsum = xmax + K4_MAX_C;          // [C]: each block's sum
+  float* xpart = xsum + K4_MAX_C;         // [C][Dh / C]: partial outputs
+  float* wred = xpart + DH;               // [K4_WARPS]
+  uint8_t* ring = sm + k4_head_aligned(DH);
+  float* sc = reinterpret_cast<float*>(ring + K4_STAGES * K4_STAGE);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = blockIdx.x, nc = gridDim.x, bh = blockIdx.y;
+  const int S = a.S, t0 = rank * S;
+  // the slice's positions below t_real (a slice at or past it loads
+  // nothing), as one stream through the ring: K's Dh / R stages of R rows
+  // (the slice's n real positions of each, rounded up to 8: one bulk copy
+  // a row), then V's boxes of bv rows (one bulk copy a box)
+  const int n = max(0, min(S, a.t_real - t0)), nrow = (n + 7) & ~7;
+  const int R = k4_rows(S, DH), nk = n > 0 ? DH / R : 0;
+  const int bv = k4_vbox(DH), nv = (n + bv - 1) / bv;
+  const bf16* ks = a.k + (size_t)bh * DH * a.Tp + t0;
+  const bf16* vs = a.v + ((size_t)bh * a.Tp + t0) * DH;
+  const float qv = tid < DH ? __bfloat162float(a.q[(size_t)bh * DH + tid])
+                            : 0.f;   // its latency under the setup
+  // item i of the stream into stage i mod K4_STAGES, by the lanes of the
+  // copying warp: K rows i R .. i R + R - 1 (S positions apart in the
+  // stage), or V box i - nk
+  auto issue = [&](int i) {
+    const int st = i % K4_STAGES;
+    const uint32_t dst = smem_u32(ring + st * K4_STAGE),
+                   bar = bar_full + 8 * st;
+    if (i < nk) {
+      if (lane == 0) mbar_expect_tx(bar, 2 * R * nrow);
+      __syncwarp();
+      for (int r = lane; r < R; r += 32)
+        bulk_load(dst + 2 * r * S, ks + (size_t)(i * R + r) * a.Tp,
+                  2 * nrow, bar);
+    } else if (lane == 0) {
+      const int j = i - nk, rows = min(bv, n - j * bv);
+      mbar_expect_tx(bar, 2 * DH * rows);
+      bulk_load(dst, vs + (size_t)j * bv * DH, 2 * DH * rows, bar);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < K4_STAGES; ++i) {
+      mbar_init(bar_full + 8 * i, 1);
+      mbar_init(bar_empty + 8 * i, K4_WARPS);
+    }
+    mbar_init(bar_max, nc);
+    mbar_init(bar_sum, nc);
+    mbar_init(bar_part, DH);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the peers may signal this block's exchange barriers once every block
+  // has passed this arrival (its wait is just before the first push)
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  if (warp == K4_WARPS) {
+    // the copying warp: the stream's items into the ring, each once every
+    // compute warp has released the stage's previous item; then it leaves
+    for (int i = 0; i < nk + nv; ++i) {
+      if (i >= K4_STAGES)
+        mbar_wait(bar_empty + 8 * (i % K4_STAGES), (i / K4_STAGES - 1) & 1);
+      issue(i);
+    }
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    return;
+  }
+  // a compute warp is done with item i's stage
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * (i % K4_STAGES));
+  };
+  if (tid < DH) qs[tid] = qv;
+  k4_sync();
+  K4_MARK(1);
+
+  // (1) scores, R rows of K a stage. Word w holds positions 4w .. 4w + 3
+  // of the slice. The threads form G groups (as many as the W words leave
+  // threads for, each taking R / G of a stage's rows); thread u of a group
+  // keeps the sums of words u, u + K4_THREADS / G, ... in registers over every
+  // stage, and the groups' sums are added in order at the end. Each warp
+  // releases a stage to the copying warp once it has read it.
+  float mx = -1e30f;
+  {
+    const int W = (n + 3) / 4;
+    int G = 1;
+    while (2 * G <= R && 2 * G * W <= K4_THREADS) G *= 2;
+    const int TG = K4_THREADS / G, g = tid / TG, u = tid % TG, RG = R / G;
+    float4 acc[K4_WORDS];
+#pragma unroll
+    for (int k = 0; k < K4_WORDS; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i < nk; ++i) {
+      const int st = i % K4_STAGES;
+      // every thread waits (a warp with no words must not release a stage
+      // before its item has landed)
+      mbar_wait(bar_full + 8 * st, (i / K4_STAGES) & 1);
+      if (u < W) {
+        const uint2* kr =
+            reinterpret_cast<const uint2*>(ring + st * K4_STAGE) + u;
+        for (int r = g * RG; r < (g + 1) * RG; ++r) {
+          const float qd = qs[i * R + r];
+#pragma unroll
+          for (int k = 0; k < K4_WORDS; ++k)
+            if (u + k * TG < W) {
+              const uint2 x = kr[r * (S / 4) + k * TG];
+              acc[k].x = fmaf(qd, __uint_as_float(x.x << 16), acc[k].x);
+              acc[k].y = fmaf(qd, __uint_as_float(x.x & 0xffff0000u), acc[k].y);
+              acc[k].z = fmaf(qd, __uint_as_float(x.y << 16), acc[k].z);
+              acc[k].w = fmaf(qd, __uint_as_float(x.y & 0xffff0000u), acc[k].w);
+            }
+        }
+      }
+      release(i);
+    }
+    if (G > 1) {   // one word a thread (G W <= 256): the groups' sums in order
+      float4* pk = reinterpret_cast<float4*>(red);
+      if (u < W) pk[g * W + u] = acc[0];
+      k4_sync();
+      if (tid < W) {
+        acc[0] = pk[tid];
+        for (int j = 1; j < G; ++j) {
+          const float4 t = pk[j * W + tid];
+          acc[0] = make_float4(__fadd_rn(acc[0].x, t.x), __fadd_rn(acc[0].y, t.y),
+                               __fadd_rn(acc[0].z, t.z), __fadd_rn(acc[0].w, t.w));
+        }
+      }
+    }
+    float4* s4 = reinterpret_cast<float4*>(sc);
+#pragma unroll
+    for (int k = 0; k < K4_WORDS; ++k) {
+      const int w = G > 1 ? (k == 0 ? tid : W) : tid + k * K4_THREADS;
+      if (w < W) {
+        const float raw[4] = {acc[k].x, acc[k].y, acc[k].z, acc[k].w};
+        float sv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sv[j] = 4 * w + j < n ? __fmul_rn(raw[j], a.scale) : -1e30f;
+          mx = fmaxf(mx, sv[j]);
+        }
+        s4[w] = make_float4(sv[0], sv[1], sv[2], sv[3]);
+      }
+    }
+  }
+  K4_MARK(2);
+  mx = warp_max(mx);
+  if (lane == 0) wred[warp] = mx;
+  k4_sync();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  K4_MARK(3);
+  // (2) the block's max into every block's slot `rank` (max is exact in any
+  // order), then the cluster max from this block's own slots
+  if (warp == 0) {
+    float m = wred[0];
+    for (int i = 1; i < K4_WARPS; ++i) m = fmaxf(m, wred[i]);
+    if (lane < nc) push_f32(xmax + rank, m, bar_max, lane);
+  }
+  mbar_wait_cluster(bar_max);
+  K4_MARK(4);
+  float gmax = xmax[0];
+  for (int r = 1; r < nc; ++r) gmax = fmaxf(gmax, xmax[r]);
+  float sum = 0.f;
+  for (int p = tid; p < n; p += K4_THREADS) {
+    const float e = expf(__fsub_rn(sc[p], gmax));
+    sc[p] = e;
+    sum = __fadd_rn(sum, e);
+  }
+  sum = warp_sum(sum);
+  k4_sync();   // every warp has read wred's maxima
+  if (lane == 0) wred[warp] = sum;
+  k4_sync();
+  K4_MARK(5);
+  if (warp == 0) {   // the block's sum, in warp order, to every block
+    float r = wred[0];
+    for (int i = 1; i < K4_WARPS; ++i) r = __fadd_rn(r, wred[i]);
+    if (lane < nc) push_f32(xsum + rank, r, bar_sum, lane);
+  }
+  mbar_wait_cluster(bar_sum);
+  float gsum = 0.f;
+  for (int r = 0; r < nc; ++r)   // in rank order, the same in every block
+    gsum = __fadd_rn(gsum, xsum[r]);
+  for (int p = tid; p < n; p += K4_THREADS)
+    sc[p] = __bfloat162float(__float2bfloat16_rn(__fdiv_rn(sc[p], gsum)));
+  k4_sync();
+  K4_MARK(6);
+
+  // (3) the block's partial out = bf16(p) @ V, a V box at a time: thread
+  // (tl, dg) owns columns 8 dg .. 8 dg + 7 and the box's rows tl, tl + TL,
+  // ...; summed by shuffles and across warps in a fixed order
+  const int dg = tid % DG, tl = tid / DG;
+  float o[8] = {};
+  for (int j = 0; j < nv; ++j) {
+    const int i = nk + j, st = i % K4_STAGES, rows = min(bv, n - j * bv);
+    mbar_wait(bar_full + 8 * st, (i / K4_STAGES) & 1);
+    const uint4* vr = reinterpret_cast<const uint4*>(ring + st * K4_STAGE) + dg;
+    const float* pj = sc + j * bv;
+    for (int r = tl; r < rows; r += TL) {
+      const uint4 u = vr[r * DG];
+      const float p = pj[r];
+      const uint32_t wv[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        o[2 * k] = fmaf(p, __uint_as_float(wv[k] << 16), o[2 * k]);
+        o[2 * k + 1] =
+            fmaf(p, __uint_as_float(wv[k] & 0xffff0000u), o[2 * k + 1]);
+      }
+    }
+    release(i);
+  }
+#pragma unroll
+  for (int off = DG; off < 32; off <<= 1)   // the warp's position lanes
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      o[k] = __fadd_rn(o[k], __shfl_xor_sync(0xffffffffu, o[k], off));
+  float* opart = red;                       // [K4_WARPS][Dh]
+  if (lane < DG) {
+    *reinterpret_cast<float4*>(opart + warp * DH + 8 * lane) =
+        make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(opart + warp * DH + 8 * lane + 4) =
+        make_float4(o[4], o[5], o[6], o[7]);
+  }
+  k4_sync();
+  K4_MARK(7);
+  // element c's partial, summed over the warps in order, into slot (rank,
+  // c mod E) of block c / E, which owns it (E = Dh / C); each owner adds
+  // its slots in rank order and writes its E elements once
+  const int E = DH / nc;
+  if (tid < DH) {
+    float r = opart[tid];
+    for (int i = 1; i < K4_WARPS; ++i) r = __fadd_rn(r, opart[i * DH + tid]);
+    push_f32(xpart + rank * E + tid % E, r, bar_part, tid / E);
+  }
+  mbar_wait_cluster(bar_part);
+  K4_MARK(8);
+  if (tid < E) {
+    float r = 0.f;
+    for (int q = 0; q < nc; ++q) r = __fadd_rn(r, xpart[q * E + tid]);
+    a.out[(size_t)bh * DH + rank * E + tid] = r;
+  }
+  K4_MARK(9);
+}
+
 }  // namespace nwt
 
 namespace {
@@ -588,6 +838,29 @@ int k5_plan(int bh, int tp, int dh, int sms, int& S) {
   return k5_smem(dh, S) <= (size_t)K5_SMEM_MAX && k5_boxes(S) <= K5_MAX_BOX
              ? c
              : 0;
+}
+
+// K4's cluster size C (0 if the slice at C = K4_MAX_C, or at the forced C,
+// is longer than K4_SPAN) and slice S for BH (batch row, head) pairs: C
+// doubles while the slice is longer than K4_SPAN, or while the grid has
+// fewer than K4_TARGET blocks an SM and halving the slice leaves at least
+// K4_MIN_SLICE positions, up to K4_MAX_C and half the 8-position chunks;
+// S is the chunks over C, rounded up, in positions.
+// ops/attention_pallas.py::k4_plan is the same rule in Python.
+int k4_plan(int bh, int tp, int sms, int& S) {
+  const int chunks = tp / K4_STEP;
+  auto slice = [&](int c) { return (chunks + c - 1) / c * K4_STEP; };
+  int c = K4_FORCE_C;
+  if (c == 0) {
+    c = 1;
+    while (c < K4_MAX_C && 2 * c <= chunks &&
+           (slice(c) > K4_SPAN ||
+            ((long long)c * bh < (long long)K4_TARGET * sms &&
+             slice(2 * c) >= K4_MIN_SLICE)))
+      c *= 2;
+  }
+  S = slice(c);
+  return S <= K4_SPAN ? c : 0;
 }
 
 // K's tensor map for (K base, Tp, BH Dh rows, box width): encoded at the
@@ -631,19 +904,40 @@ bool k5_map(CUtensorMap* out, const int8_t* k, int tp, int rows, int bw,
   return true;
 }
 
-template <int DH>
-cudaError_t launch_k5(const K5Args& a, int BH, cudaStream_t st) {
-  static bool ready = false;   // the kernel's attributes, once per process
-  auto kernel = xattn_q8_kernel<DH>;
+// a grid of (c, BH) blocks in clusters of c along x, with `smem` bytes of
+// dynamic shared memory; the kernel's attributes set at its first launch
+template <typename... P, typename... A>
+cudaError_t launch_clusters(void (*kernel)(P...), bool& ready, int c, int BH,
+                            int threads, size_t smem, cudaStream_t st,
+                            const A&... args) {
   if (!ready) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K5_SMEM_MAX);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K4_SMEM_MAX);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     ready = true;
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c, BH);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_k5(const K5Args& a, int BH, cudaStream_t st) {
+  static bool ready = false;   // the kernel's attributes, once per process
   K5Args args = a;
   const int c = k5_plan(BH, a.Tp, DH, sm_count(), args.S);
   if (c == 0 || BH > 65535 || (long long)BH * DH > INT32_MAX)
@@ -653,50 +947,42 @@ cudaError_t launch_k5(const K5Args& a, int BH, cudaStream_t st) {
   CUtensorMap kmap;
   if (!k5_map(&kmap, a.k, a.Tp, BH * DH, k5_box_width(args.S), DH))
     return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(c, BH);
-  cfg.blockDim = dim3(K5_THREADS);
-  cfg.dynamicSmemBytes = k5_smem(DH, args.S);
-  cfg.stream = st;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = c;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, kmap, args);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return launch_clusters(xattn_q8_kernel<DH>, ready, c, BH, K5_THREADS,
+                         k5_smem(DH, args.S), st, kmap, args);
+}
+
+template <int DH>
+cudaError_t launch_k4(const K4Args& a, int BH, cudaStream_t st) {
+  static bool ready = false;   // the kernel's attributes, once per process
+  K4Args args = a;
+  const int c = k4_plan(BH, a.Tp, sm_count(), args.S);
+  if (c == 0 || BH > 65535) return cudaErrorInvalidValue;
+  return launch_clusters(xattn_bf16_kernel<DH>, ready, c, BH,
+                         K4_THREADS + 32, k4_smem(DH, args.S), st, args);
 }
 
 }  // namespace
 
 // K4. q (BH, Dh) bf16; kT (BH, Dh, Tp) and v (BH, Tp, Dh) bf16, Tp % 8 == 0,
-// 0 < t_real <= Tp, dh in {32, 64, 128}. Writes out (BH, Dh) f32.
+// kT and v 16-byte aligned (the bulk copies; q is read as is),
+// 0 < t_real <= Tp, dh in {32, 64, 128}. Writes out (BH, Dh) f32, every
+// element once.
 extern "C" int nwt_xattn_decode_bf16(const void* q, const void* kT,
                                      const void* v, void* out, int BH, int dh,
                                      int Tp, int t_real, float scale,
                                      void* stream) {
-  if (BH <= 0 || Tp <= 0 || Tp % 8 || t_real <= 0 || t_real > Tp)
+  if (BH <= 0 || Tp <= 0 || Tp % K4_STEP || t_real <= 0 || t_real > Tp)
     return (int)cudaErrorInvalidValue;
-  XAArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(kT),
-           static_cast<const bf16*>(v), static_cast<float*>(out), Tp, t_real,
-           scale};
-  const size_t smem = (size_t)std::max(Tp, XA_RED) * sizeof(float);
+  for (const void* p : {kT, v})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  K4Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(kT),
+           static_cast<const bf16*>(v), static_cast<float*>(out), Tp, 0,
+           t_real, scale};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  auto run = [&](auto kernel) {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    kernel<<<BH, XA_THREADS, smem, st>>>(a);
-    return (int)cudaGetLastError();
-  };
   switch (dh) {
-    case 32: return run(xattn_decode_kernel<32>);
-    case 64: return run(xattn_decode_kernel<64>);
-    case 128: return run(xattn_decode_kernel<128>);
+    case 32: return (int)launch_k4<32>(a, BH, st);
+    case 64: return (int)launch_k4<64>(a, BH, st);
+    case 128: return (int)launch_k4<128>(a, BH, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,8 +18,10 @@ Port of ``ops/attention_pallas.py``:
   (``NWT_XATTN_KERNEL``, ``NWT_Q8_KV_PALLAS``; gates in
   ``models/whisper.py``). Their CUDA kernels live in
   ``csrc/cross_attention_decode.cu``, whose source note says what bounds
-  them on an H100. K5 splits the positions over a thread-block cluster:
-  :func:`k5_plan` is its choice of cluster size and slice. Each wrapper
+  them on an H100. Both split the positions over a thread-block cluster:
+  :func:`k4_plan` and :func:`k5_plan` are their choices of cluster size
+  and slice (K4 streams its slice through a ring of shared memory, K5
+  stages its K whole). Each wrapper
   launches its kernel for a CUDA tensor (or raises) and runs the
   ``*_plain`` version beside it for a CPU tensor; ``k4_launch_count`` and
   ``k5_launch_count`` count kernel launches only.
@@ -54,6 +56,16 @@ K5_THREADS, K5_MAX_C, K5_STEP = 256, 16, 16
 K5_TARGET, K5_RESIDENT, K5_SMEM_MAX = 1, 2, 232448
 K5_PK = 4 * K5_THREADS   # floats of the score groups' partial sums
 K5_BOX, K5_MAX_BOX = 256, 16   # positions a TMA box of K; boxes a slice
+
+
+# csrc/cross_attention_decode.cu's K4 constants: compute threads a block,
+# the largest cluster, the slice step, the longest slice and the shortest a
+# split leaves, in positions; bytes a ring stage and the stages, blocks an
+# SM the split aims at, a block's shared memory
+K4_THREADS, K4_MAX_C, K4_STEP, K4_SPAN = 128, 16, 8, 1024
+K4_MIN_SLICE, K4_STAGE, K4_STAGES = 192, 8192, 3
+K4_TARGET, K4_SMEM_MAX = 2, 232448
+K4_PK = 4 * K4_THREADS   # floats of the score groups' partial sums
 
 
 def _round_up(x: int, m: int) -> int:
@@ -99,6 +111,56 @@ def k5_plan(bh: int, tp: int, sms: int, dh: int = 64) -> Tuple[int, int]:
     s = slice_(c)
     fits = k5_smem(dh, s) <= K5_SMEM_MAX and k5_boxes(s)[0] <= K5_MAX_BOX
     return (c if fits else 0), s
+
+
+def k4_rows(s: int, dh: int) -> int:
+    """Rows of K one stage of K4's ring holds for slices of ``s`` <=
+    ``K4_SPAN`` positions: the largest power of two of rows of ``s`` bf16
+    in ``K4_STAGE`` bytes, at most ``dh`` (4 for turbo's slices of 768)."""
+    r = 1
+    while 2 * r <= dh and 2 * r * 2 * s <= K4_STAGE:
+        r *= 2
+    return r
+
+
+def k4_vbox(dh: int) -> int:
+    """Positions of V one stage holds: as many rows of ``dh`` bf16."""
+    return K4_STAGE // (2 * dh)
+
+
+def k4_smem(dh: int, s: int) -> int:
+    """Shared-memory bytes of a K4 block with slices of ``s`` positions:
+    the mbarriers (a full and an empty one a stage), partial sums and
+    exchange slots (``k4_head``), the ring and the scores row. The slice
+    itself is not held: it streams."""
+    warps = K4_THREADS // 32
+    head = (8 * (2 * K4_STAGES + 4) + 4 * K4_PK + 4 * dh + 8 * K4_MAX_C
+            + 4 * dh + 4 * warps)
+    return _round_up(head, 128) + K4_STAGES * K4_STAGE + 4 * s
+
+
+@functools.lru_cache(maxsize=256)
+def k4_plan(bh: int, tp: int, sms: int) -> Tuple[int, int]:
+    """K4's (cluster size C, slice S) for ``bh`` (batch row, head) pairs
+    over ``tp`` positions on a card of ``sms`` multiprocessors, as
+    ``csrc/cross_attention_decode.cu::k4_plan`` chooses them: C doubles
+    while the slice is longer than ``K4_SPAN``, or while the grid has
+    fewer than ``K4_TARGET`` blocks an SM and halving the slice leaves at
+    least ``K4_MIN_SLICE`` positions, up to ``K4_MAX_C`` and half the
+    8-position chunks; S is the chunks over C, rounded up, in positions.
+    C = 0 where the slice is still longer than ``K4_SPAN`` (Tp too long).
+    A block's shared memory (:func:`k4_smem`, the ring and the scores
+    row) does not limit C."""
+    chunks = tp // K4_STEP
+    slice_ = lambda c: -(-chunks // c) * K4_STEP
+    c = 1
+    while (c < K4_MAX_C and 2 * c <= chunks
+           and (slice_(c) > K4_SPAN
+                or (c * bh < K4_TARGET * sms
+                    and slice_(2 * c) >= K4_MIN_SLICE))):
+        c *= 2
+    s = slice_(c)
+    return (c if s <= K4_SPAN else 0), s
 
 
 # ---------------------------------------------------------------------------
@@ -256,17 +318,15 @@ def _check_decode(q: torch.Tensor, what: str) -> Tuple[int, int, int]:
     return b, h, dh
 
 
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def cross_attention_decode_bf16(q: torch.Tensor, packed,
                                 t_real: int) -> torch.Tensor:
     """K4: single-query cross-attention over the packed bf16 layout.
 
     ``q``: (B, H, 1, Dh), rounded to bf16 as the reference's wrapper does;
     ``packed``: {"kT": (B, H, Dh, Tp) bf16, "v": (B, H, Tp, Dh) bf16}; keys
-    at positions >= ``t_real`` are masked. Returns (B, H, 1, Dh) f32."""
+    at positions >= ``t_real`` are masked. Tp % 8 == 0 and 16-byte aligned
+    kT and v (the kernel's bulk copies), as
+    ``pack_cross_kv_bf16`` lays them out. Returns (B, H, 1, Dh) f32."""
     global k4_launch_count
     if q.device.type == "cpu":
         return cross_attention_decode_bf16_plain(q, packed, t_real)
@@ -276,20 +336,30 @@ def cross_attention_decode_bf16(q: torch.Tensor, packed,
     if (kT.dtype != torch.bfloat16 or v.dtype != torch.bfloat16
             or tuple(kT.shape) != (b, h, dh, tp)
             or tuple(v.shape) != (b, h, tp, dh)
-            or tp % 8 or not 0 < t_real <= tp):
+            or tp % K4_STEP or not 0 < t_real <= tp):
         raise ValueError(
             f"K4 takes bf16 kT (B, H, Dh, Tp) and v (B, H, Tp, Dh) with "
-            f"Tp % 8 == 0 and 0 < t_real <= Tp; got kT {tuple(kT.shape)} "
-            f"{kT.dtype}, v {tuple(v.shape)} {v.dtype}, t_real {t_real}")
+            f"Tp % {K4_STEP} == 0 and 0 < t_real <= Tp; got kT "
+            f"{tuple(kT.shape)} {kT.dtype}, v {tuple(v.shape)} {v.dtype}, "
+            f"t_real {t_real}")
     from . import _build
     lib = _build.load("cross_attention_decode", _SIG)
+    # every converted tensor stays in a name until the launch has returned
     qb = q.to(torch.bfloat16).contiguous()
     kT, v = kT.contiguous(), v.contiguous()
+    if kT.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("K4 takes kT and v on 16-byte boundaries (its bulk "
+                         "copies)")
     out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=q.device)
-    ptr = lambda z: ctypes.c_void_p(z.data_ptr())
     err = lib.nwt_xattn_decode_bf16(
-        ptr(qb), ptr(kT), ptr(v), ptr(out), b * h, dh, tp, int(t_real),
-        ctypes.c_float(float(dh) ** -0.5), _stream(q.device))
+        qb.data_ptr(), kT.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
+        dh, tp, int(t_real), ctypes.c_float(float(dh) ** -0.5),
+        torch._C._cuda_getCurrentRawStream(q.device.index))
+    if err == 1:   # cudaErrorInvalidValue: what the checks above leave
+        raise ValueError(f"K4 refused B*H={b * h}, Dh={dh}, Tp={tp}: more "
+                         f"than 65535 (batch row, head) pairs, or a Tp "
+                         f"whose sixteenth part is longer than {K4_SPAN} "
+                         f"positions")
     _build.check(err, "cross_attention_decode_bf16")
     k4_launch_count += 1
     return out

@@ -226,13 +226,50 @@ def _bf16_weight(qt) -> torch.Tensor:
             * qt["s"].to(torch.bfloat16)).to(torch.float32)
 
 
+def _warp_order_sum(v: torch.Tensor) -> torch.Tensor:
+    """Row sums of f32 ``v`` (M, K) in the order of one warp a row: lane
+    l adds v[l], v[l + 32], ... in turn, then ``warp_sum``'s xor
+    butterfly (offsets 16, 8, 4, 2, 1) adds the 32 lanes, which all end
+    with lane 0's bits. (M, 1)."""
+    m, k = v.shape
+    lanes = torch.zeros((m, 32), dtype=torch.float32, device=v.device)
+    for c in range(0, k, 32):
+        part = v[:, c:c + 32]
+        lanes[:, :part.shape[1]] = lanes[:, :part.shape[1]] + part
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes[:, :off] + lanes[:, off:2 * off]
+    return lanes
+
+
+def ln_k7_order(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """K7's LayerNorm in its kernel's f32 arithmetic, op by op
+    (``csrc/q8_decode.cuh::stage_rows``): mean = (lane-strided sum, then
+    the warp butterfly) / K; var the same over the rounded squares of
+    x - mean, / K; rstd = 1 / sqrt(var + eps); ((x - mean) * rstd) * g
+    + b. Each step is one f32 torch op, correctly rounded on the CPU and
+    on the card alike. The function of ``ln_f32`` in another summation
+    order (which K1, K2, K8 and K10-K12's plain versions keep). x: (M,
+    K) -> f32 (M, K)."""
+    xf = x.to(torch.float32)
+    # f32 scalars made on x's device (no host copy: a CUDA graph captures it)
+    f32 = lambda z: torch.full((), z, dtype=torch.float32, device=xf.device)
+    k = f32(float(xf.shape[-1]))
+    mean = _warp_order_sum(xf) / k
+    dv = xf - mean
+    var = _warp_order_sum(dv * dv) / k
+    rstd = f32(1.0) / torch.sqrt(var + f32(eps))
+    return (dv * rstd) * g.to(torch.float32) + b.to(torch.float32)
+
+
 def fused_mlp_q8_plain(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b
                        ) -> torch.Tensor:
-    """Plain PyTorch K7 at the Pallas kernel's rounding points: LN in f32;
-    ``bf16(h) @ w1 + b1`` with w1 = bf16(bf16(q1) bf16(s1)), exact
-    products and f32 sums; tanh gelu in f32; ``bf16(a) @ w2 + b2``;
-    ``f32(x) + o`` cast to x's dtype. x: (M, d)."""
-    h = ln_f32(x, ln_g, ln_b)
+    """Plain PyTorch K7 at the Pallas kernel's rounding points: LN in f32
+    (summed in the kernel's order, :func:`ln_k7_order`); ``bf16(h) @ w1 +
+    b1`` with w1 = bf16(bf16(q1) bf16(s1)), exact products and f32 sums;
+    tanh gelu in f32; ``bf16(a) @ w2 + b2``; ``f32(x) + o`` cast to x's
+    dtype. x: (M, d)."""
+    h = ln_k7_order(x, ln_g, ln_b)
     a = (h.to(torch.bfloat16).float() @ _bf16_weight(fc1)
          + fc1_b.reshape(1, -1).to(torch.float32))
     a = gelu_tanh(a)

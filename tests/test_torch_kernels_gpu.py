@@ -27,12 +27,13 @@ fused_mlp_mma_sync.cu, built here): their int32 sums are exact and the
 absmax is order-free, so every order of the sums gives the same bits.
 K4 and K5 (f32 output of bf16 probabilities times V) are held to one bf16
 step elementwise, as their plain versions are held to the Pallas kernels
-(tests/test_torch_decode_kernels.py); K5 also where its cluster's slices
-are short, empty or wholly masked, and two calls give the same bits. K4
-kept its first kernel and K6 its kernels when K5 and K7 were redesigned:
-both are held bit for bit to those files (tests/goldens/
-xattn_decode_v1.cu, q8_matmul_v1.cu, with the common.cuh they were built
-with, tests/goldens/common_v1.cuh). K6 rounds the same
+(tests/test_torch_decode_kernels.py); both also where their cluster's
+slices are short, empty or wholly masked (or cut by t_real), and two
+calls give the same bits; K4 is held to one bf16 step of its first
+kernel too (tests/goldens/xattn_decode_v1.cu, built with the common.cuh
+it was built with, tests/goldens/common_v1.cuh). K6 kept its kernels
+when K7 was redesigned: it is held bit for bit to its first file
+(q8_matmul_v1.cu, the same header). K6 rounds the same
 bf16 operands as its plain version and differs in the order, and in the
 tensor cores the rounding, of its f32 sums: 1e-3 absolute plus 1e-3
 relative on outputs of order 1. K8, K10 and K11 share K2's int8
@@ -358,7 +359,11 @@ DECODE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("b,h,t,t_real,dh", DECODE_CASES)
+# turbo at B = 16 (K4's plan: C = 1, 320 blocks; K5's: C = 2, 640)
+TURBO_B16 = [(16, 20, 1500, 1500, 64)]
+
+
+@pytest.mark.parametrize("b,h,t,t_real,dh", DECODE_CASES + TURBO_B16)
 def test_k4_kernel_matches_plain(cuda, b, h, t, t_real, dh):
     q, k, v = _cross_kv(b, h, t, dh, cuda, seed=t + dh)
     kd, vd = ap.pack_cross_kv_bf16((k, v))
@@ -373,19 +378,95 @@ def test_k4_kernel_matches_plain(cuda, b, h, t, t_real, dh):
     _step_close(got, ref)
 
 
+def _k4_operands(b, h, tp, dh, dev, seed):
+    """q and a packed bf16 cross-KV at any Tp % 8 == 0 (not only the
+    128-padded layouts ``pack_cross_kv_bf16`` makes)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device=dev).to(
+        torch.bfloat16)
+    return q, {"kT": rn(b, h, dh, tp), "v": rn(b, h, tp, dh)}
+
+
+# (B, H, Tp, t_real, Dh) where K4's cluster slices (ops/attention_pallas.py
+# ::k4_plan) are short, empty or cut by t_real: Tp = 384 at 8 pairs is 2
+# slices of 192, so t_real = 40 and 10 lie inside the first and leave the
+# second empty; Tp = 1000 at 8 pairs is 4 slices of 256, the last short
+# (232), and t_real = 700 leaves it empty (dh 32 and 128 too); turbo at
+# B = 1 (8 slices of 192) with t_real 40 and 1; Tp = 8, one chunk (C = 1);
+# dh 128 at 10 heads (slices of 192: 8 stages of 16 rows of K, 6 V boxes
+# of 32)
+K4_EDGE_CASES = [
+    (2, 4, 384, 40, 64), (2, 4, 384, 10, 64), (2, 4, 1000, 1000, 64),
+    (2, 4, 1000, 700, 32), (2, 4, 1000, 700, 128), (1, 20, 1536, 40, 64),
+    (1, 20, 1536, 1, 64), (1, 2, 8, 8, 64), (1, 10, 1536, 1500, 128),
+]
+
+
+@pytest.mark.parametrize("b,h,tp,t_real,dh", K4_EDGE_CASES)
+def test_k4_edges_match_plain(cuda, b, h, tp, t_real, dh):
+    """K4 within one bf16 step of its plain version where its cluster's
+    slices are short, empty or cut by t_real."""
+    q, packed = _k4_operands(b, h, tp, dh, cuda, seed=tp + t_real + dh)
+    before = ap.k4_launch_count
+    got = ap.cross_attention_decode_bf16(q, packed, t_real)
+    torch.cuda.synchronize()
+    assert ap.k4_launch_count == before + 1
+    ref = ap.cross_attention_decode_bf16_plain(q, packed, t_real)
+    assert got.shape == ref.shape == (b, h, 1, dh)
+    assert torch.isfinite(got).all()
+    _step_close(got, ref)
+
+
+@pytest.mark.parametrize("b", [1, 8, 16])
+def test_k4_kernel_is_deterministic(cuda, b):
+    """Two calls give the same bits (the cluster's sums are taken in rank
+    order); the output comes from an allocation that held NaNs just
+    before, so an element the kernel did not write would show."""
+    q, packed = _k4_operands(b, 20, 1536, 64, cuda, seed=b)
+    outs = []
+    for _ in range(2):
+        junk = torch.full((b, 20, 1, 64), float("nan"), device=cuda)
+        del junk
+        outs.append(ap.cross_attention_decode_bf16(q, packed, 1500))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs[0]).all())
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_k4_refuses_misaligned_operands(cuda):
+    """kT or v off a 16-byte boundary (a slice of a larger buffer) raises
+    ValueError before any launch: the kernel's bulk copies need
+    the boundary, and there is no other path on the card."""
+    q, packed = _k4_operands(1, 4, 128, 64, cuda, seed=0)
+    for key in ("kT", "v"):
+        buf = torch.zeros(packed[key].numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)
+        moved = dict(packed)
+        moved[key] = buf[1:].view(packed[key].shape)
+        before = ap.k4_launch_count
+        with pytest.raises(ValueError, match="16-byte"):
+            ap.cross_attention_decode_bf16(q, moved, 100)
+        assert ap.k4_launch_count == before
+
+
 @pytest.fixture(scope="module")
 def xattn_v1():
     """The port's first K4 and K5 (``tests/goldens/xattn_decode_v1.cu``:
-    one block per (batch row, head)), built on the card: the bits K4 must
-    still give."""
+    one block per (batch row, head)), built on the card: K4's first
+    kernel."""
     return _golden("xattn_decode_v1.cu", "goldens_xattn", ap._SIG,
                    "common_v1.cuh")
 
 
-@pytest.mark.parametrize("b,h,t,t_real,dh", DECODE_CASES)
+@pytest.mark.parametrize("b,h,t,t_real,dh", DECODE_CASES + TURBO_B16)
 def test_k4_bits_match_its_first_kernel(cuda, xattn_v1, b, h, t, t_real, dh):
-    """K4 kept its kernel when K5 got a cluster of its own: the same bits
-    as the first version at every geometry."""
+    """K4 against its first kernel, one block per (batch row, head): within
+    one bf16 step at every geometry. (Until K4 got a cluster of its own,
+    the two gave the same bits; the cluster splits the f32 sums of the
+    scores, the softmax and PV otherwise, which can flip one bf16
+    probability.)"""
     q, k, v = _cross_kv(b, h, t, dh, cuda, seed=t + dh)
     kd, vd = ap.pack_cross_kv_bf16((k, v))
     kT, vv = kd["kT"][0].contiguous(), vd["v"][0].contiguous()
@@ -398,11 +479,11 @@ def test_k4_bits_match_its_first_kernel(cuda, xattn_v1, b, h, t, t_real, dh):
         torch.cuda.current_stream().cuda_stream)
     assert err == 0, err
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    _step_close(got, want)
 
 
 # K5 beyond DECODE_CASES: turbo at B = 16 (the plan's C = 2 at 320 pairs)
-K5_CASES = DECODE_CASES + [(16, 20, 1500, 1500, 64)]
+K5_CASES = DECODE_CASES + TURBO_B16
 
 
 @pytest.mark.parametrize("b,h,t,t_real,dh", K5_CASES)
