@@ -78,7 +78,15 @@ arguments). Phases; any failure exits non-zero before the result line:
    (one launch); K7 through ``fused_mlp_q8`` on each int8 decoder MLP of
    the turbo engine (one launch a layer). Before it, every count read on
    phases 3-8 must show K7 = K14 = 0;
-10. one ``kernels`` JSON line, then the result line.
+10. the session server (``phase_server``): the int8 turbo engine in
+   ``BatchedEngine(max_batch=8)`` behind ``serve/server.py``, warmed up,
+   configured with a language and a vocabulary over ``POST /config``,
+   driven through ``client.py`` by three concurrent push-to-talk sessions
+   (48 kHz, 0.5 s bodies, SSE to ``done``) and a ``/ws`` session, then one
+   12 s WAV one-shot whose tokens must equal the direct call's; K1 = K2 =
+   32 x encoder batches and no other kernel; ``tiktoken`` never loaded;
+   then the ``serve`` verb in a subprocess, stopped by SIGINT;
+11. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 (B=8, B=1 and B=16) and K5 (B=8 and B=1) at
 H=20, Dh=64, Tp=1536, t_real=1500 (two calls bit for bit; timed back to
@@ -2505,21 +2513,26 @@ def phase_ops(card, qeng):
     return a_ok and b_ok and c_ok, launches
 
 
+def write_cli_checkpoint(path):
+    """The dh=64 tiny GGML checkpoint of the CLI subprocesses (d=128, two
+    heads, seed 3)."""
+    from nobs_whisper_torch.utils.testing import (tiny_test_config,
+                                                  write_tiny_checkpoint)
+    write_tiny_checkpoint(path, cfg=tiny_test_config(d=128, heads=2), seed=3)
+
+
 def phase_cli(card):
     """``python -m nobs_whisper_torch.cli transcribe`` in a subprocess on
     the card (default device and dtype: cuda, bf16), on a dh=64 tiny GGML
     checkpoint and a WAV written by the port's own helpers."""
     import tempfile
     from nobs_whisper_torch.audio.io import write_wav
-    from nobs_whisper_torch.utils.testing import (speech_like_audio,
-                                                  tiny_test_config,
-                                                  write_tiny_checkpoint)
+    from nobs_whisper_torch.utils.testing import speech_like_audio
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         model = os.path.join(tmp, "ggml-tiny-dh64.bin")
         wav = os.path.join(tmp, "clip.wav")
-        write_tiny_checkpoint(model, cfg=tiny_test_config(d=128, heads=2),
-                              seed=3)
+        write_cli_checkpoint(model)
         write_wav(wav, speech_like_audio(2.0, seed=26))
         t0 = time.perf_counter()
         r = subprocess.run(
@@ -2534,6 +2547,326 @@ def phase_cli(card):
         f"stderr {r.stderr[-2000:]}")
     log(f"[cli] -> {'PASS' if ok else 'FAIL'}")
     return ok
+
+
+SERVER_VOCAB = "Kubernetes, pallas, GitHub, PyTorch, Hopper"
+
+
+def _session_run(base, name, audio, rate, out):
+    """One push-to-talk session through the port's client: SSE read in a
+    thread of its own (first-partial time), 0.5 s raw f32 bodies, stop
+    (final latency from the stop request), then the stream to ``done``."""
+    from nobs_whisper_torch.client import Client
+    c = Client(base, timeout=600)
+    s = c.session(language="en", sample_rate=rate)
+    evs = s.events(timeout=600)
+    got = []
+
+    def read():
+        for ev in evs:
+            got.append((time.perf_counter(), ev))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    t0 = time.perf_counter()
+    s.start()
+    step = rate // 2
+    for i in range(0, len(audio), step):
+        s.push_audio(audio[i:i + step])
+    t_stop = time.perf_counter()
+    final = s.stop()
+    t_done = time.perf_counter()
+    reader.join(timeout=120)
+    s.delete()
+    out[name] = dict(t0=t0, t_stop=t_stop, t_done=t_done, final=final,
+                     events=got, audio_s=len(audio) / rate)
+
+
+def _ws_run(base, name, audio, rate, out):
+    """One dictation session over the session's WebSocket: JSON verbs up,
+    binary f32 bodies up, replies and events down, until the stop reply
+    and the ``done`` event."""
+    import json as _json
+    from nobs_whisper_torch.client import Client
+    c = Client(base, timeout=600)
+    s = c.session(language="en", sample_rate=rate)
+    sock = s.websocket(timeout=600)
+    got, replies = [], {}
+    t0 = time.perf_counter()
+    try:
+        sock.send_json({"verb": "start"})
+        step = rate // 2
+        for i in range(0, len(audio), step):
+            sock.send_binary(audio[i:i + step].astype("<f4").tobytes())
+        t_stop = time.perf_counter()
+        sock.send_json({"verb": "stop"})
+        while "stop" not in replies or not any(
+                ev["state"] == "done" for _, ev in got):
+            msg = sock.recv()
+            if msg is None:
+                break
+            obj = _json.loads(msg[1])
+            if "event" in obj:
+                got.append((time.perf_counter(), obj["event"]))
+            elif "reply" in obj:
+                replies[obj["reply"]] = obj
+    finally:
+        sock.close()
+    s.delete()
+    out[name] = dict(t0=t0, t_stop=t_stop, t_done=time.perf_counter(),
+                     final=replies.get("stop", {}).get("transcript"),
+                     replies=replies, audio_s=len(audio) / rate,
+                     events=[(t, _ev(e)) for t, e in got])
+
+
+def _ev(d):
+    from nobs_whisper_torch.client import SessionEvent
+    return SessionEvent(state=d["state"], transcript=d.get("transcript"),
+                        is_final=bool(d.get("is_final")))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        return so.getsockname()[1]
+
+
+def phase_server(card, qeng):
+    """The session server on the card (``serve/server.py`` over
+    ``BatchedEngine(qeng, max_batch=8)``, the int8 large-v3-turbo engine
+    from seed 0), driven through the port's ``client.py``:
+
+    * ``warmup()`` (one batch of each size), then ``POST /config``:
+      language en and a custom vocabulary, which every call then carries
+      as its prompt through the port's own BPE encoder;
+    * three concurrent push-to-talk sessions of 35-45 s of speech-like
+      audio at 48 kHz in 0.5 s raw f32 bodies and one WebSocket dictation
+      session beside them: each gets 2 or more partials (so at least one
+      chunk's prompt carries the previous chunk's text), a non-empty final
+      transcript and the states recording -> processing -> done;
+    * one ``POST /transcribe`` of a 12 s 16 kHz WAV, alone, whose tokens
+      equal those of ``BatchedEngine.transcribe`` called directly on the
+      same engine and audio with nothing in flight;
+    * ``/health`` (loaded) and ``/stats`` (chunks, tokens, batch sizes,
+      no watchdog trip).
+
+    The batcher runs with the fallback ladder off (``temperature_increment
+    =0``, the serve verb's ``--temperature-increment 0``): random weights
+    fail every rung's gates, so each chunk would otherwise decode all six
+    rungs. The one-shot's options are the server's defaults, which differ
+    from the batcher's, so it and the direct call take ``BatchedEngine``'s
+    sequential path, ladder and all. Counts are set to 0 just before the
+    warmup and read after the direct call: K1 = K2 = 32 x encoder batches,
+    every other kernel 0. ``tiktoken`` must not be loaded at the end. Then
+    ``python -m nobs_whisper_torch.cli serve`` in a subprocess on the CLI
+    phase's tiny checkpoint answers ``/health`` and ``/transcribe`` and
+    exits 0 on SIGINT."""
+    import importlib.util
+    import io
+    import tempfile
+    import torch
+    from nobs_whisper_torch.audio.io import read_wav, write_wav
+    from nobs_whisper_torch.client import Client
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    from nobs_whisper_torch.serve.server import serve
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+
+    cfg = qeng.cfg
+    # the server's config and models live in a home of this run's own
+    tmp = tempfile.TemporaryDirectory(prefix="nwt-home-")
+    home = tmp.name
+    old_home = os.environ.get("NOBS_WHISPER_TPU_HOME")
+    os.environ["NOBS_WHISPER_TPU_HOME"] = home
+    ok = True
+    be = BatchedEngine(qeng, opts=DecodeOptions(temperature_increment=0.0),
+                       max_batch=8)
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    httpd = serve(be, host="127.0.0.1", port=port, background=True)
+    client = Client(base, timeout=600)
+    t_phase = time.perf_counter()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        sizes = be.warmup()
+        torch.cuda.synchronize()
+        log(f"[server] {card}: warmup sizes {sizes} (and one "
+            f"language-detection batch of 8) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        conf = client.set_config(language="en",
+                                 custom_vocabulary=SERVER_VOCAB)
+        health = client.health()
+        ok &= bool(health["loaded"]) and conf["language"] == "en"
+        n_warm = len(be.batcher.batch_sizes)
+
+        # three push-to-talk sessions and a WebSocket session at once
+        rate, runs, out = 48000, [], {}
+        for i, dur in enumerate((35.0, 40.0, 45.0)):
+            runs.append(threading.Thread(target=_session_run, args=(
+                base, f"ptt-{i}", speech_like_audio(dur, seed=1 + i,
+                                                   sample_rate=rate),
+                rate, out)))
+        runs.append(threading.Thread(target=_ws_run, args=(
+            base, "ws", speech_like_audio(20.0, seed=9, sample_rate=rate),
+            rate, out)))
+        t0 = time.perf_counter()
+        for th in runs:
+            th.start()
+        for th in runs:
+            th.join(timeout=600)
+        sessions_wall = time.perf_counter() - t0
+        for name in ("ptt-0", "ptt-1", "ptt-2", "ws"):
+            r = out.get(name)
+            if r is None:
+                log(f"[server] {card}: {name}: FAILED (no result)")
+                ok = False
+                continue
+            states = [ev.state for _, ev in r["events"]]
+            partials = [(t, ev) for t, ev in r["events"]
+                        if ev.state == "partial"]
+            steps = [st for st in states if st != "partial"]
+            s_ok = (len(partials) >= 2 and bool(r["final"])
+                    and steps == ["recording", "processing", "done"]
+                    and r["events"][-1][1].is_final)
+            if name == "ws":
+                s_ok &= r["replies"].get("start", {}).get("started") is True
+            first = (partials[0][0] - r["t0"]) if partials else float("nan")
+            log(f"[server] {card}: {name} ({r['audio_s']:.1f} s at {rate} "
+                f"Hz): partials {len(partials)}, first partial "
+                f"{first:.2f} s after start, final {r['t_done'] - r['t_stop']:.2f}"
+                f" s after the last body, states {steps}, final transcript "
+                f"{len(r['final'] or '')} chars -> "
+                f"{'PASS' if s_ok else 'FAIL'}")
+            ok &= s_ok
+
+        # one-shot, alone, against the direct call
+        clip = speech_like_audio(12.0, seed=21)
+        buf = io.BytesIO()
+        write_wav(buf, clip, 16000)
+        wav = buf.getvalue()
+        t0 = time.perf_counter()
+        one = client.transcribe(wav)
+        one_s = time.perf_counter() - t0
+        audio, _ = read_wav(wav)
+        direct = be.transcribe(audio, language="en", vocabulary=SERVER_VOCAB,
+                               opts=DecodeOptions())
+        torch.cuda.synchronize()
+        got = [s_["tokens"] for s_ in one["segments"]]
+        want = [s_.tokens for s_ in direct.segments]
+        o_ok = got == want and bool(want) and one["text"] == direct.text
+        log(f"[server] {card}: one-shot POST /transcribe (12.0 s WAV) "
+            f"latency {one_s:.2f} s, segments {len(got)}, tokens "
+            f"{sum(map(len, got))}; equal to BatchedEngine.transcribe "
+            f"called directly: {got == want} -> {'PASS' if o_ok else 'FAIL'}")
+        ok &= o_ok
+
+        c = read_counts()
+        batches = c["batches"]
+        want_n = cfg.n_audio_layer * batches
+        counts_ok = (batches > 0 and c["K1"] == c["K2"] == want_n
+                     and only(c, {"K1": want_n, "K2": want_n})
+                     and not any(c[k] for k in ("K4", "K5", "K6")))
+        log(f"[server] {card}: launches {_launch_summary(c)} (want K1 = K2 "
+            f"= {cfg.n_audio_layer} x {batches} = {want_n}, others 0) -> "
+            f"{'PASS' if counts_ok else 'FAIL'}")
+        ok &= counts_ok
+        launches = {"K1": c["K1"], "K2": c["K2"]}
+
+        health, stats = client.health(), client.stats()
+        b = stats.get("batcher", {})
+        d = stats.get("decode", {})
+        st_ok = (health["loaded"] is True and d.get("chunks", 0) > 0
+                 and d.get("tokens_emitted", 0) > 0
+                 and b.get("watchdog_trips") == 0
+                 and b.get("max_batch", 0) >= 2)
+        log(f"[server] {card}: /health {health}; /stats decode {d}, "
+            f"batcher {b} -> {'PASS' if st_ok else 'FAIL'}")
+        ok &= st_ok
+        served = be.batcher.batch_sizes[n_warm:]
+        log(f"[server] {card}: wall {time.perf_counter() - t_phase:.2f} s "
+            f"(sessions {sessions_wall:.2f} s, one-shot {one_s:.2f} s); "
+            f"batch sizes after warmup {served}")
+    finally:
+        httpd.shutdown()
+        be.close()
+    tk_loaded = "tiktoken" in sys.modules
+    tk_installed = importlib.util.find_spec("tiktoken") is not None
+    log(f"[server] tiktoken installed: {tk_installed}; "
+        f"loaded by this run: {tk_loaded} -> "
+        f"{'PASS' if not tk_loaded else 'FAIL'}")
+    ok &= not tk_loaded
+    try:
+        ok &= serve_verb(card, home)
+    finally:
+        if old_home is None:
+            os.environ.pop("NOBS_WHISPER_TPU_HOME", None)
+        else:
+            os.environ["NOBS_WHISPER_TPU_HOME"] = old_home
+        tmp.cleanup()
+    return ok, launches
+
+
+def serve_verb(card, home):
+    """``python -m nobs_whisper_torch.cli serve`` in a subprocess on the
+    card (defaults: cuda, bf16, int8) on the CLI phase's tiny checkpoint
+    with ``--batch 4 --warmup``: ``/health`` within a deadline, one
+    ``POST /transcribe``, then SIGINT, and exit 0 within a deadline."""
+    import json as _json
+    import signal
+    import urllib.request
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    root = os.path.dirname(os.path.abspath(__file__))
+    model = os.path.join(home, "ggml-tiny-dh64.bin")
+    write_cli_checkpoint(model)
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, NOBS_WHISPER_TPU_HOME=home)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nobs_whisper_torch.cli", "serve", "--model",
+         model, "--batch", "4", "--warmup", "--port", str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
+        env=env)
+    health, err, rc, one, one_s, t_up = None, "", None, {}, 0.0, 0.0
+    try:
+        deadline = time.monotonic() + 240
+        while health is None and time.monotonic() < deadline \
+                and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(base + "/health",
+                                            timeout=5) as r:
+                    health = _json.loads(r.read())
+            except OSError:
+                time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        if health is not None:
+            pcm = speech_like_audio(2.0, seed=27).astype("<f4").tobytes()
+            req = urllib.request.Request(base + "/transcribe?language=en",
+                                         data=pcm, method="POST")
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                one = _json.loads(r.read())
+            one_s = time.perf_counter() - t1
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+    except Exception as e:      # reported below, fails the phase
+        err = f"{e!r}\n"
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        err += proc.communicate(timeout=60)[1]
+    v_ok = (health is not None and health.get("loaded") is True
+            and rc == 0 and isinstance(one.get("text"), str))
+    warm = [ln for ln in err.splitlines() if "warmup done" in ln]
+    log(f"[server] {card}: serve verb subprocess: /health {health} "
+        f"{t_up:.1f} s after launch ({warm[-1] if warm else 'no warmup'}), "
+        f"one-shot {one_s:.2f} s, exit {rc} on SIGINT -> "
+        f"{'PASS' if v_ok else 'FAIL'}")
+    if not v_ok:
+        log(f"[server] serve verb stderr: {err[-3000:]}")
+    return v_ok
 
 
 def main():
@@ -2589,6 +2922,11 @@ def main():
     ok &= phase_ok
     launches.update(counts)
     took("ops")
+    phase_ok, counts = phase_server(card, qeng)
+    ok &= phase_ok
+    for key, n in counts.items():
+        launches[key] = launches.get(key, 0) + n
+    took("server")
     entries = []
     for key, e in kern.items():
         e = dict(e)

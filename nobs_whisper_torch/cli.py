@@ -1,18 +1,23 @@
-"""Command-line interface of the PyTorch port: the ``transcribe`` verb.
+"""Command-line interface of the PyTorch port.
 
 Usage:
-  python -m nobs_whisper_torch.cli transcribe FILE... --model PATH.bin
+  python -m nobs_whisper_torch.cli transcribe FILE... [--model PATH|ID]
       [--dtype bfloat16|float32] [--language L] [--task transcribe|translate]
       [--batch N] [--json] [--output-format txt|srt|vtt|tsv|json]
       [--output PATH] [--device cuda|cpu]
+  python -m nobs_whisper_torch.cli serve [--host H] [--port P]
+      [--model PATH|ID] [--batch N] [--quant int8|none] [--warmup]
+      [--device cuda|cpu]
+  python -m nobs_whisper_torch.cli models list|download|delete [ID]
+  python -m nobs_whisper_torch.cli config get|set key=value [...]
 
-As the JAX package's ``transcribe`` verb: a GGML checkpoint loaded
-unquantized in the compute dtype, files transcribed one by one (or up to
-N at once through one shared window batcher with ``--batch N``). Runs on
-the card unless ``--device cpu`` is given. Beam search, word timestamps
-and speculative decoding are later slices of the port: asking for them
-raises. Model ids of the JAX package's registry (``serve/models.py``)
-come with the serving slice; give a ``.bin`` path.
+As the JAX package's verbs (its ``route`` verb is not ported yet: ROADMAP.md
+queue 1, item 8b). ``--model`` takes a GGML ``.bin`` path or an id of the
+registry (``serve/models.py``), and falls back to the configured
+``selected_model``. Every verb that loads a model runs on the card unless
+``--device cpu`` is given; with no card it raises. Beam search, word
+timestamps, speculative decoding and mesh serving are later slices of the
+port: asking for them raises.
 """
 
 from __future__ import annotations
@@ -22,22 +27,25 @@ import dataclasses
 import json
 import os
 import sys
+from typing import Optional
 
 
-def _load_engine(model, dtype: str, device: str, audio_ctx: int = 0):
+def _load_engine(model: Optional[str], dtype: str, device: str,
+                 audio_ctx: int = 0):
     import torch
 
     from .api import WhisperEngine
+    from .serve.config import load_config
+    from .serve.models import model_path
 
+    model = model or load_config().selected_model
     if model is None:
-        print("no model selected; pass --model PATH.bin", file=sys.stderr)
+        print("no model selected; pass --model or set config",
+              file=sys.stderr)
         sys.exit(2)
-    if not model.endswith(".bin"):
-        raise NotImplementedError(
-            f"model id {model!r}: the model registry is not ported yet "
-            "(ROADMAP.md queue 1, item 8); pass a GGML .bin path")
+    path = model if model.endswith(".bin") else str(model_path(model))
     dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    engine = WhisperEngine.from_ggml(model, dtype=dt, device=device)
+    engine = WhisperEngine.from_ggml(path, dtype=dt, device=device)
     if audio_ctx:
         engine = engine.with_audio_ctx(audio_ctx)
     return engine
@@ -127,6 +135,139 @@ def cmd_transcribe(args):
             print(result.text)
 
 
+def _default_batch(model: Optional[str]) -> int:
+    """Default ``serve --batch`` by model: the JAX package's per-model
+    throughput knees, measured on its TPU and kept for behaviour parity;
+    none of them was measured on the card. Distil/quantized variants take
+    their parent architecture's value; unknown ids take the turbo value.
+    Only the basename is matched, never directory components
+    (``/data/smallville/ggml-large-v3.bin`` is large-v3, not small)."""
+    name = os.path.basename((model or "").lower())
+    for key, knee in (("tiny", 192), ("base", 96), ("small", 48),
+                      ("medium", 32), ("turbo", 40),
+                      ("distil-large", 40), ("large", 24)):
+        if key in name:
+            return knee
+    return 40
+
+
+def cmd_serve(args):
+    from .core.device import resolve_device
+    from .serve.config import ConfigManager
+    from .serve.server import serve
+
+    # the card unless --device cpu: with no card this raises here, before
+    # anything is served
+    resolve_device(args.device)
+    if args.mesh:
+        raise NotImplementedError(
+            "mesh serving is not ported yet (ROADMAP.md queue 1, item 11)")
+    if args.speculative or args.draft_model:
+        raise NotImplementedError(
+            "speculative decoding is not ported yet (ROADMAP.md queue 1, "
+            "item 9)")
+    cm = ConfigManager()
+    explicit_batch = args.batch       # 0 = auto (per-model default)
+
+    def build_engine(model_id, warmup=False):
+        """model id/path -> ready serving engine on ``--device``, with the
+        startup's quantization, audio_ctx and batching. Also the /config
+        hot-swap factory: a selected_model change rebuilds through here,
+        with the new model's default batch when --batch was auto."""
+        engine = _load_engine(model_id, args.dtype, args.device,
+                              audio_ctx=args.audio_ctx)
+        if args.quant == "int8":
+            # serving default: int8 decoder weights + dynamic-int8 encoder
+            engine = engine.quantize()
+        batch = explicit_batch or _default_batch(
+            model_id or cm.config.selected_model)
+        if batch > 1:
+            from .decode.rules import DecodeOptions
+            from .pipeline.batched_engine import BatchedEngine
+            # decode strategy from the persisted config; sessions can
+            # still override it per request. A beam strategy raises in
+            # the batcher (ROADMAP.md queue 1, item 9).
+            app = cm.config
+            okw = {}
+            if args.sample_len:
+                # decode-length cap per window (operator knob; also what
+                # bounds random-weight checkpoints, which never emit EOT)
+                okw["sample_len"] = args.sample_len
+            if args.temperature_increment is not None:
+                okw["temperature_increment"] = args.temperature_increment
+            opts = DecodeOptions(
+                beam_size=app.beam_size if app.beam_size > 1 else None,
+                best_of=max(app.best_of, 1),
+                temperature=float(app.temperature),
+                task=str(app.task or "transcribe"), **okw)
+            engine = BatchedEngine(engine, opts=opts, max_batch=batch)
+            if warmup:
+                import time
+                t0 = time.perf_counter()
+                print("warming the batcher (one batch of each size)…",
+                      file=sys.stderr)
+                sizes = engine.warmup()
+                print(f"warmup done: sizes {sizes} in "
+                      f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
+        elif warmup:
+            print("--warmup applies to batched serving (--batch > 1); "
+                  "ignoring", file=sys.stderr)
+        return engine
+
+    # startup-only warmup: a hot-swapped model warms lazily instead of
+    # blocking the /config POST
+    if args.model or cm.config.selected_model:
+        engine = build_engine(args.model, warmup=args.warmup)
+    else:
+        # model-less first launch: serve /, /models, downloads and /config
+        # with no engine; the first selection builds one through the
+        # hot-swap factory, and transcription verbs answer 409 until then
+        print("no model selected; serving in setup mode — pick a model "
+              "in the web UI or POST /config {\"selected_model\": ...}",
+              file=sys.stderr)
+        engine = None
+    serve(engine, host=args.host, port=args.port, config_manager=cm,
+          engine_factory=build_engine,
+          rss_watermark_mb=args.rss_watermark_mb)
+
+
+def cmd_models(args):
+    from .serve import models as m
+
+    if args.action == "list":
+        for info in m.list_models():
+            mark = {"downloaded": "*", "downloading": "~"}.get(info.status,
+                                                               " ")
+            print(f"[{mark}] {info.id:20s} {info.category:15s} "
+                  f"{info.description}")
+    elif args.action == "download":
+        path = m.download_model(args.id)
+        print(f"downloaded to {path}")
+    elif args.action == "delete":
+        print("deleted" if m.delete_model(args.id) else "not present")
+
+
+def cmd_config(args):
+    from .serve.config import ConfigManager
+
+    mgr = ConfigManager()
+    if args.action == "get":
+        print(json.dumps(mgr.config.to_dict(), indent=2))
+    else:
+        changes = {}
+        for kv in args.pairs:
+            k, _, v = kv.partition("=")
+            cur = getattr(mgr.config, k)  # raises for unknown keys
+            if isinstance(cur, bool):
+                changes[k] = v.lower() in ("1", "true", "yes")
+            elif isinstance(cur, int):
+                changes[k] = int(v)
+            else:
+                changes[k] = v
+        mgr.update(**changes)
+        print(json.dumps(mgr.config.to_dict(), indent=2))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="nobs-whisper-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -138,7 +279,9 @@ def main(argv=None):
     t.add_argument("--batch", type=int, default=1,
                    help="transcribe up to N files concurrently through "
                         "one shared window batcher (1 = sequential)")
-    t.add_argument("--model", default=None, help="GGML .bin path")
+    t.add_argument("--model", default=None,
+                   help="model id or GGML .bin path (default: the "
+                        "configured selected_model)")
     t.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     t.add_argument("--language", default=None)
     t.add_argument("--vocabulary", default=None)
@@ -168,6 +311,54 @@ def main(argv=None):
                         "(windows become N*0.02 s); 0 = full context")
     t.add_argument("--json", action="store_true")
     t.set_defaults(fn=cmd_transcribe)
+
+    s = sub.add_parser("serve", help="run the session API server")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8777)
+    s.add_argument("--model", default=None,
+                   help="model id or GGML .bin path (default: the "
+                        "configured selected_model; none = setup mode)")
+    s.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    s.add_argument("--dtype", choices=["bfloat16", "float32"],
+                   default="bfloat16")
+    s.add_argument("--batch", type=int, default=0,
+                   help="max cross-session window batch (1 = sequential; "
+                        "0 = the model's default, e.g. 40 for "
+                        "large-v3-turbo)")
+    s.add_argument("--quant", choices=["int8", "none"], default="int8",
+                   help="int8 serving path (default; 'none' = raw dtype)")
+    s.add_argument("--mesh", default=None, metavar="DPxTP",
+                   help="not ported yet (raises)")
+    s.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="not ported yet (raises)")
+    s.add_argument("--draft-model", default=None, metavar="ID|PATH",
+                   help="not ported yet (raises)")
+    s.add_argument("--audio-ctx", type=int, default=0, metavar="N",
+                   help="truncate the encoder context to N positions for "
+                        "every session/window; 0 = full context")
+    s.add_argument("--warmup", action="store_true",
+                   help="run one batch of each size before accepting "
+                        "traffic")
+    s.add_argument("--sample-len", type=int, default=0,
+                   help="cap decoded tokens per 30 s window (0 = model "
+                        "default n_text_ctx/2)")
+    s.add_argument("--temperature-increment", type=float, default=None,
+                   help="fallback-ladder step (0 disables retries; "
+                        "default: DecodeOptions' 0.2)")
+    s.add_argument("--rss-watermark-mb", type=float, default=0.0,
+                   help="self-drain when host RSS exceeds this (MB): new "
+                        "sessions 503 and /stats reports draining; 0 = off")
+    s.set_defaults(fn=cmd_serve)
+
+    mdl = sub.add_parser("models", help="manage model files")
+    mdl.add_argument("action", choices=["list", "download", "delete"])
+    mdl.add_argument("id", nargs="?")
+    mdl.set_defaults(fn=cmd_models)
+
+    c = sub.add_parser("config", help="show or change config")
+    c.add_argument("action", choices=["get", "set"])
+    c.add_argument("pairs", nargs="*", help="key=value")
+    c.set_defaults(fn=cmd_config)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -7,6 +7,7 @@ window through the same batcher."""
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -41,6 +42,14 @@ class BatchedEngine:
                              f"device {engine.device}")
         self.engine = engine
         self.opts = opts or DecodeOptions()
+        # observability (/stats): single-window chunks served, the extra
+        # rungs of the temperature-fallback ladder they took (each a full
+        # batched window decode), and the tokens they emitted. Multi-window
+        # files route through transcribe_mel and are not counted here.
+        self._stats_lock = threading.Lock()
+        self.chunk_count = 0
+        self.fallback_retries = 0
+        self.tokens_emitted = 0
         if speculative:
             self.opts = dataclasses.replace(self.opts,
                                             speculative=speculative)
@@ -58,8 +67,22 @@ class BatchedEngine:
     def tokenizer(self):
         return self.engine.tokenizer
 
+    @property
+    def loaded(self):
+        return self.engine.loaded
+
+    @property
+    def model_path(self):
+        # /health reports the serving model
+        return getattr(self.engine, "model_path", None)
+
     def close(self):
         self.batcher.close()
+
+    def warmup(self, **kw):
+        """Run one batch of each size through the batcher before traffic
+        (see ``WindowBatcher.warmup``)."""
+        return self.batcher.warmup(**kw)
 
     def _transcribe_longform_batched(self, audio: np.ndarray,
                                      language: Optional[str],
@@ -137,7 +160,9 @@ class BatchedEngine:
                      if lang is None and cfg.multilingual else None)
 
         result, text = None, ""
+        attempts = 0
         for temp in _temperature_ladder(self.opts):
+            attempts += 1
             result = self.batcher.submit(
                 None, prompt, temperature=temp, lang_slot=lang_slot,
                 frames=frames).result(timeout=_submit_timeout())
@@ -151,6 +176,11 @@ class BatchedEngine:
                                   len(result.tokens), self.opts, text=text,
                                   no_speech_prob=result.no_speech_prob):
                 break
+
+        with self._stats_lock:
+            self.chunk_count += 1
+            self.fallback_retries += attempts - 1
+            self.tokens_emitted += len(result.tokens)
 
         final_lang = lang or result.language or "en"
         if is_no_speech(result.no_speech_prob, result.avg_logprob,

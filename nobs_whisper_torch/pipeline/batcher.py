@@ -82,6 +82,9 @@ class WindowBatcher:
                 os.environ.get("NWT_BATCH_DEADLINE_S", 900.0))
         self.batch_deadline_s = batch_deadline_s
         self.watchdog_trips = 0             # observability
+        # host->device payload bytes (frames / mel rows) since start:
+        # /stats observability
+        self.transferred_bytes: int = 0
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._running = True
         self.batch_sizes: List[int] = []    # observability
@@ -107,6 +110,49 @@ class WindowBatcher:
             frames=(None if frames is None
                     else np.asarray(frames, np.float32))))
         return fut
+
+    def warmup(self, auto_language: bool = True,
+               timeout_s: float = 3600.0) -> List[int]:
+        """Push one silent 30 s window batch of each size {1, 2, 4, ...,
+        max_batch} through the production ``submit`` path before live
+        traffic. PyTorch compiles nothing, so where the reference warms
+        one compiled program per padded size and frame bucket, this builds
+        the card's kernels and the encoder's K-major weight copies on the
+        first batch, and runs each size's allocations once.
+        ``auto_language`` also sends one batch of the largest size through
+        the language-detection path (a multilingual model's default).
+        Returns the sizes warmed."""
+        if self.tokenizer is None:
+            raise ValueError("warmup needs the batcher's tokenizer")
+        cfg = self.cfg
+        from ..audio.mel import frame_window_np
+        wf = 2 * cfg.n_audio_ctx
+        frames = frame_window_np(np.zeros(wf * 160, np.float32),
+                                 n_frames=wf)
+        sizes, k = [], 1
+        while k < self.max_batch:
+            sizes.append(k)
+            k *= 2
+        sizes.append(self.max_batch)
+        lang = "en" if cfg.multilingual else None
+        prompt = self.tokenizer.sot_sequence(language=lang,
+                                             task=self.opts.task)
+        runs = [(n, None) for n in sizes]
+        if auto_language and cfg.multilingual:
+            runs.append((self.max_batch, 1))   # lang token after <|sot|>
+        # the collector can wake mid-submission and split a group into
+        # two smaller batches: retry a size it never ran, once
+        for attempt in range(2):
+            todo = runs if attempt == 0 else [
+                (n, slot) for n, slot in runs if slot is None
+                and n not in self.batch_sizes]
+            for n, slot in todo:
+                futs = [self.submit(None, prompt, lang_slot=slot,
+                                    frames=frames) for _ in range(n)]
+                for f in futs:
+                    f.result(timeout=timeout_s)
+        log.info("batcher warmup ran sizes %s", sizes)
+        return sizes
 
     def close(self):
         self._running = False
@@ -202,9 +248,13 @@ class WindowBatcher:
                                                    f.shape[1]), np.float32)])
                       if f.shape[0] < n else f for f in framed]
         if len(framed) == len(batch):
-            return torch.from_numpy(np.stack(framed)).to(dev), None
+            stacked = np.stack(framed)
+            self.transferred_bytes += stacked.nbytes
+            return torch.from_numpy(stacked).to(dev), None
         # mixed framed and mel requests: framed rows get their mel here
         from ..audio.mel import log_mel_from_frames
+        self.transferred_bytes += sum(f.nbytes for f in framed) + sum(
+            r.mel.nbytes for r in batch if r.frames is None)
         mels = iter(log_mel_from_frames(
             torch.from_numpy(np.stack(framed)).to(dev), n_mels=cfg.n_mels,
             n_frames=wf) if framed else [])

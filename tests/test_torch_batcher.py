@@ -133,3 +133,26 @@ def test_batch_deadline_resolution(engines, monkeypatch, arg, env, want):
         assert batcher.watchdog_trips == 0
     finally:
         batcher.close()
+
+
+def test_warmup_runs_each_size_and_counts_bytes(engines):
+    """``warmup`` pushes one silent window batch of each size {1, 2, 4}
+    through ``submit`` and one batch of the largest size through language
+    detection (the reference's sizes, its auto-language variant); every
+    batch's host-to-device frames are counted in ``transferred_bytes``."""
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.pipeline.batcher import WindowBatcher
+    _, eng = engines
+    cfg = eng.cfg
+    b = WindowBatcher(eng.params, cfg, eng.tokenizer,
+                      DecodeOptions(sample_len=4), max_batch=4,
+                      max_wait_ms=50, device="cpu")
+    try:
+        assert b.warmup() == [1, 2, 4]
+        assert sorted(b.batch_sizes) == [1, 2, 4, 4]
+        frame_bytes = 2 * cfg.n_audio_ctx * 400 * 4    # (rows, N_FFT) f32
+        assert b.transferred_bytes == 11 * frame_bytes
+        assert b.warmup(auto_language=False) == [1, 2, 4]
+        assert sorted(b.batch_sizes) == [1, 1, 2, 2, 4, 4, 4]
+    finally:
+        b.close()

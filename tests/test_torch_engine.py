@@ -185,25 +185,25 @@ def test_transcribe_chunked_matches_reference(engines):
 
 
 def test_transcribe_chunked_without_tiktoken_raises(tiny_ckpt, monkeypatch):
-    """Without ``tiktoken`` a rolling context or a vocabulary cannot be
-    encoded: ``transcribe_chunked`` raises before the first chunk and names
-    the ROADMAP item, where per-chunk isolation would have skipped every
-    chunk after the first. One chunk with no vocabulary encodes nothing
-    and runs."""
+    """The port's text encoder needs no ``tiktoken``: with the import made
+    to fail, ``transcribe_chunked`` with a vocabulary and a rolling context
+    over two chunks raises nothing and gives the text it gives with
+    ``tiktoken`` importable (each chunk's prompt is encoded by the port's
+    own BPE encoder either way)."""
     from nobs_whisper_torch.api import WhisperEngine
     from nobs_whisper_torch.utils.testing import speech_like_audio
-    monkeypatch.setitem(sys.modules, "tiktoken", None)   # import fails
     eng = WhisperEngine.from_ggml(tiny_ckpt, dtype=torch.float32,
                                   device="cpu")
     to = _greedy()[1]
     chunks = [speech_like_audio(0.6, seed=1), speech_like_audio(0.9, seed=2)]
-    for kw in (dict(chunks=chunks),
-               dict(chunks=chunks[:1], vocabulary="pallas")):
-        with pytest.raises(ImportError, match="ROADMAP.md queue 1, item 14"):
-            eng.transcribe_chunked(language="en", opts=to, **kw)
-    one = eng.transcribe_chunked(chunks[:1], language="en", opts=to)
-    assert one and one == eng.transcribe(chunks[0], language="en",
-                                         opts=to).text
+    want = eng.transcribe_chunked(chunks, language="en", vocabulary="pallas",
+                                  opts=to)
+    monkeypatch.setitem(sys.modules, "tiktoken", None)   # import fails
+    eng = WhisperEngine.from_ggml(tiny_ckpt, dtype=torch.float32,
+                                  device="cpu")
+    got = eng.transcribe_chunked(chunks, language="en", vocabulary="pallas",
+                                 opts=to)
+    assert got and got == want
 
 
 def _cli(module, args, home):
@@ -218,7 +218,9 @@ def _cli(module, args, home):
 def test_cli_transcribe_matches_reference(tiny_ckpt, tmp_path):
     """``transcribe --json`` of the port (``--device cpu``) and of the JAX
     package on the same WAV and checkpoint: same text and segments. A
-    registry model id raises on the port and names the ROADMAP item."""
+    registry model id that is not downloaded resolves, in both packages,
+    to the registry's file under the home directory, and both fail on
+    that missing file."""
     from nobs_whisper_torch.audio.io import write_wav
     from nobs_whisper_torch.utils.testing import speech_like_audio
     wav = str(tmp_path / "a.wav")
@@ -237,11 +239,13 @@ def test_cli_transcribe_matches_reference(tiny_ckpt, tmp_path):
     assert [s["tokens"] for s in g["segments"]] == \
         [s["tokens"] for s in w["segments"]]
 
-    bad = _cli("nobs_whisper_torch.cli",
-               ["transcribe", wav, "--model", "large-v3-turbo",
-                "--device", "cpu"], str(tmp_path))
-    assert bad.returncode != 0
-    assert "ROADMAP.md queue 1, item 8" in bad.stderr
+    missing = str(tmp_path / "models" / "ggml-large-v3-turbo.bin")
+    for module, extra in (("nobs_whisper_torch.cli", ["--device", "cpu"]),
+                          ("nobs_whisper_tpu.cli", [])):
+        bad = _cli(module, ["transcribe", wav, "--model", "large-v3-turbo",
+                            *extra], str(tmp_path))
+        assert bad.returncode != 0
+        assert "FileNotFoundError" in bad.stderr and missing in bad.stderr
 
 
 @pytest.mark.parametrize("flag", [["--beam-size", "5"], ["--word-timestamps"],
