@@ -86,7 +86,26 @@ arguments). Phases; any failure exits non-zero before the result line:
    12 s WAV one-shot whose tokens must equal the direct call's; K1 = K2 =
    32 x encoder batches and no other kernel; ``tiktoken`` never loaded;
    then the ``serve`` verb in a subprocess, stopped by SIGINT;
-11. one ``kernels`` JSON line, then the result line.
+11. beam search (``phase_beam``): the int8 turbo engine in
+   ``BatchedEngine(max_batch=8)`` with ``beam_size=5`` (B x 5 rows over B
+   shared packed cross-KV sets), a wave of five fixed-language windows
+   and one auto-language window, then a 45 s long-form request: K1 = K2 =
+   32 x encoder batches, no K4, K5 or K6, one language-detect forward;
+   one request under ``torch.profiler``; ms per step of beam and greedy;
+   the unquantized ``transcribe`` at beam 5 (K3); one beam batch under
+   ``NWT_XATTN_KERNEL`` (K4 = 0 on grouped forwards) and under
+   ``NWT_Q8_KERNEL_MIN_BYTES`` at B=1 and B=8 (K6 as predicted);
+   ``NWT_BEAM_ANCESTRY`` against the permuted run. Phase 3 also holds
+   beam on the golden model (``beam_tokens``, with and without
+   ``NWT_BEAM_ANCESTRY``) and a dh=64 int8 model's beam tokens on the
+   card to the CPU's;
+12. the router (``phase_router``): the ``route`` verb in a subprocess
+   over two managed ``serve --device cuda`` backends on the tiny
+   checkpoint: aggregated ``/health``, least-loaded sessions, a ``/ws``
+   tunnel, round-robin one-shots (one at ``?beam_size=3``), one rolling
+   restart survived by a live session, SIGINT exit 0 with no backend
+   left;
+13. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 (B=8, B=1 and B=16) and K5 (B=8 and B=1) at
 H=20, Dh=64, Tp=1536, t_real=1500 (two calls bit for bit; timed back to
@@ -1568,7 +1587,62 @@ def phase_reference():
     with knobs(DECODE_KNOBS):
         dec_ok = reference_decoder(dev)
     return (xa_ok and tok_ok and enc_ok and k3_ok and f32_ok and slice_ok
-            and var_ok and dec_ok)
+            and var_ok and dec_ok and reference_beam(dev))
+
+
+BEAM_GOLDEN_TOL = dict(rel=1e-3, abs=1e-3)   # tests/test_goldens.py's bound
+
+
+def reference_beam(dev):
+    """Beam search on small models on the card: the tiny f32 golden model
+    gives the golden ``beam_tokens`` (beam 5, 40 steps) and its
+    ``beam_sum_logprob`` within 1e-3 relative + 1e-3 absolute, with and
+    without ``NWT_BEAM_ANCESTRY``; a d=128 dh=64 int8 model at f32 gives
+    the CPU's beam tokens on three windows."""
+    import numpy as np
+    import torch
+    from nobs_whisper_torch.decode.beam import beam_decode_window
+    from nobs_whisper_torch.decode.rules import DecodeOptions, build_rule_tables
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops.quant import quantize_decoder_params
+    from nobs_whisper_torch.utils.testing import tiny_test_config
+    z, params, cfg = _load_goldens(dev)
+    tables = build_rule_tables(cfg, DecodeOptions(suppress_blank=True))
+    want = z["beam_tokens"].tolist()
+    want_sum = float(z["beam_sum_logprob"])
+    ok = True
+    for anc in (False, True):
+        with knobs(("NWT_BEAM_ANCESTRY",) if anc else ()):
+            res = beam_decode_window(params, torch.from_numpy(z["xa"]).to(dev),
+                                     [z["prompt"].tolist()], cfg, tables,
+                                     beam_size=5, sample_len=40)[0]
+        err = abs(res.sum_logprob - want_sum)
+        this = res.tokens == want and err <= (
+            BEAM_GOLDEN_TOL["abs"] + BEAM_GOLDEN_TOL["rel"] * abs(want_sum))
+        log(f"[reference] beam 5 on the f32 golden model"
+            f"{' under NWT_BEAM_ANCESTRY=1' if anc else ''}: tokens "
+            f"{len(res.tokens)} equal the golden's {res.tokens == want}, "
+            f"sum_logprob {res.sum_logprob:.5f} vs {want_sum:.5f} (|diff| "
+            f"{err:.2e}, {BEAM_GOLDEN_TOL}) -> {'PASS' if this else 'FAIL'}")
+        ok &= this
+
+    cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=160, n_text_ctx=64)
+    params = quantize_decoder_params(mw.init_params(DEC_SEED, cfg))
+    to_dev = lambda t: ({k: to_dev(v) for k, v in t.items()}
+                        if isinstance(t, dict) else t.to(dev))
+    xa = torch.from_numpy(np.random.RandomState(6).randn(
+        3, cfg.n_audio_ctx, cfg.n_audio_state).astype(np.float32))
+    prompts = [[cfg.sot, cfg.lang_base + i, cfg.transcribe]
+               for i in range(3)]
+    tables = build_rule_tables(cfg, DecodeOptions())
+    got = beam_decode_window(to_dev(params), xa.to(dev), prompts, cfg,
+                             tables, beam_size=5)
+    ref = beam_decode_window(params, xa, prompts, cfg, tables, beam_size=5)
+    same = [r.tokens for r in got] == [r.tokens for r in ref]
+    log(f"[reference] beam 5 on a d=128 dh=64 int8 model at f32, three "
+        f"windows, card vs CPU: tokens {[len(r.tokens) for r in got]} equal "
+        f"{same} -> {'PASS' if same else 'FAIL'}")
+    return ok and same
 
 
 def reference_knob_slice(dev, cfg, mel, to_dev):
@@ -1828,11 +1902,16 @@ def phase_serving(card, eng):
         ok &= counts_ok
         # one request of wave 1 again, the same one the int8 cross-KV
         # phase profiles, so that the two profiles compare request for
-        # request
-        profile_wave(be, [wave1[1]], card)
+        # request; its wall is the greedy rung that [beam] sets beside
+        # its own
+        GREEDY_RUNG["wall"] = profile_wave(be, [wave1[1]], card)
     finally:
         be.close()
     return ok, launches
+
+
+# the profiled greedy rung of [serve] (one 12 s window, 224 steps at B=1)
+GREEDY_RUNG = {}
 
 
 # the hand-written kernels an encoder batch launches (K1, K2 and every
@@ -1853,7 +1932,8 @@ def profile_wave(be, wave, card):
     greedy rung per window (224 decode steps; random weights never emit
     eot, so the six-rung ladder would repeat them six times, and the
     trace's processing takes minutes per rung). Outside the counted run;
-    a profiler failure is reported, not fatal."""
+    a profiler failure is reported, not fatal. Returns the wave's wall
+    (None if not measured)."""
     import dataclasses
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1877,7 +1957,7 @@ def profile_wave(be, wave, card):
         busy_s = sum(getattr(e, attr) for e in ka) / 1e6
     except Exception as e:
         log(f"[profile] not measured: {e!r}")
-        return
+        return None
     finally:
         one.close()
     copy_ms = sum(getattr(e, attr) for e in ka if "copy" in e.key) / 1e3
@@ -1898,6 +1978,7 @@ def profile_wave(be, wave, card):
         if t <= 0:
             break
         log(f"[profile]   {t / 1e3:10.2f} ms  {e.count:7d}x  {e.key[:90]}")
+    return wall
 
 
 def reset_counts():
@@ -2552,13 +2633,14 @@ def phase_cli(card):
 SERVER_VOCAB = "Kubernetes, pallas, GitHub, PyTorch, Hopper"
 
 
-def _session_run(base, name, audio, rate, out):
-    """One push-to-talk session through the port's client: SSE read in a
-    thread of its own (first-partial time), 0.5 s raw f32 bodies, stop
-    (final latency from the stop request), then the stream to ``done``."""
+def _session_run(base, name, audio, rate, out, session=None):
+    """One push-to-talk session through the port's client (``session``, or
+    a new one): SSE read in a thread of its own (first-partial time), 0.5 s
+    raw f32 bodies, stop (final latency from the stop request), then the
+    stream to ``done``."""
     from nobs_whisper_torch.client import Client
-    c = Client(base, timeout=600)
-    s = c.session(language="en", sample_rate=rate)
+    s = session or Client(base, timeout=600).session(language="en",
+                                                      sample_rate=rate)
     evs = s.events(timeout=600)
     got = []
 
@@ -2869,6 +2951,542 @@ def serve_verb(card, home):
     return v_ok
 
 
+BEAM_K = 5
+
+
+def _beam_wave():
+    """Five fixed-language window requests (5-25 s) and one auto-language
+    request, sent at once."""
+    wave1, wave2 = _request_audio()
+    return wave1 + wave2[:1]
+
+
+def _beam_check(res, sample_len):
+    """A beam window result is well formed: at most ``sample_len`` tokens,
+    a finite sum, no-speech probability in [0, 1], temperature 0."""
+    import math
+    return (len(res.tokens) <= sample_len and math.isfinite(res.sum_logprob)
+            and 0.0 <= res.no_speech_prob <= 1.0 and res.temperature == 0.0)
+
+
+def _windows_xa(eng, n, seed):
+    """Encoder states of ``n`` speech-like 30 s windows (one batch)."""
+    import numpy as np
+    import torch
+    from nobs_whisper_torch.audio.mel import frame_window_np
+    from nobs_whisper_torch.decode.greedy import frames_encode_impl
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    cfg = eng.cfg
+    frames = np.stack([frame_window_np(speech_like_audio(
+        20.0, seed=seed + i), n_frames=2 * cfg.n_audio_ctx)
+        for i in range(n)])
+    return frames_encode_impl(eng.params, torch.from_numpy(frames).cuda(),
+                              cfg, eng.compute_dtype)
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def beam_parts_ms(cfg, b, p_max=8, sample_len=224):
+    """Device ms of one step's beam-only parts at B elements x BEAM_K rows
+    at turbo's shapes, each alone in a CUDA graph: the cache reorder
+    (``index_select`` of the bf16 self-KV cache of every layer into the
+    second buffer), the grouped cross-attention of every layer (f32 copies
+    of the packed cross-KV, as the beam loop holds them) and
+    ``beam_step`` (the stable sorts of the top-k)."""
+    import torch
+    from nobs_whisper_torch.decode.beam import beam_step
+    from nobs_whisper_torch.models.whisper import init_kv_cache
+    from nobs_whisper_torch.ops import attention_pallas as ap
+    from nobs_whisper_torch.utils.profiling import graph_ms
+    dev, k = torch.device("cuda"), BEAM_K
+    bk, h, dh = b * k, cfg.n_text_head, cfg.head_dim
+    t = min(-(-(p_max + sample_len) // 8) * 8, cfg.n_text_ctx)
+    cache = init_kv_cache(cfg, bk, dtype=torch.bfloat16, t_ctx=t, device=dev)
+    spare = tuple(torch.empty_like(c) for c in cache)
+    src = torch.randint(0, bk, (bk,), device=dev)
+    tp = -(-cfg.n_audio_ctx // 128) * 128
+    kT = torch.randn(b, h, dh, tp, device=dev)
+    v = torch.randn(b, h, tp, dh, device=dev)
+    q = torch.randn(b, k, h, 1, dh, device=dev, dtype=torch.bfloat16)
+    lp = torch.log_softmax(torch.randn(b, k, cfg.n_vocab, device=dev), -1)
+    cum = torch.randn(b, k, device=dev)
+    fin = torch.zeros(b, k, dtype=torch.bool, device=dev)
+
+    def reorder():
+        for c, s_ in zip(cache, spare):
+            torch.index_select(c, 1, src, out=s_)
+
+    def xattn():
+        for _ in range(cfg.n_text_layer):
+            ap.cross_attention_kt_xla_grouped(q, {"kT": kT, "v": v},
+                                              cfg.n_audio_ctx)
+
+    out = []
+    for name, fn in (("reorder", reorder), ("grouped cross-attention", xattn),
+                     ("beam_step (top-k)",
+                      lambda: beam_step(cum, lp, fin, cfg.eot, False))):
+        try:
+            out.append(f"{name} {graph_ms(fn):.4f} ms")
+        except Exception as e:      # reported, not fatal: a measurement
+            out.append(f"{name} not measured ({e!r})")
+    return ", ".join(out)
+
+
+def phase_beam(card, qeng, eng):
+    """Beam search on the card at large-v3-turbo's width, random weights
+    from seed 0; counts set to 0 just before each path and read just after
+    it.
+
+    * the beam serving path: ``BatchedEngine(qeng, opts=DecodeOptions(
+      beam_size=5, temperature_increment=0), max_batch=8)``, one wave of
+      five fixed-language window requests and one auto-language request,
+      then a 45 s long-form request: K1 = K2 = 32 x encoder batches, K4 =
+      K5 = K6 = 0, one language-detect forward (the auto-language row's
+      batch; the detect forward is the only one on the plain cross-KV),
+      every window result well formed; then one request again under
+      ``torch.profiler`` (device busy, idle share, the largest rows), ms
+      per step of beam and greedy on the same encoder states at B=1 and
+      B=8, and the reorder, the grouped cross-attention and the top-k of
+      one step each alone at B=8 (``beam_parts_ms``);
+    * the unquantized bf16 ``eng.transcribe`` of a 12 s clip at beam 5:
+      K3 = 32 x encoder batches, no other attention kernel;
+    * under ``NWT_XATTN_KERNEL=1``, one beam batch: every forward grouped,
+      K4 = 0; under ``NWT_Q8_KERNEL_MIN_BYTES=1``, one beam batch at B=1
+      and one at B=8: K6's decode-kernel and prefill-kernel launches as
+      the gates predict from the forwards run;
+    * ``NWT_BEAM_ANCESTRY=1`` on one B=8 batch: the share of rows whose
+      tokens equal the permuted run's (printed)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nobs_whisper_torch.decode.beam import beam_decode_window
+    from nobs_whisper_torch.decode.greedy import decode_window
+    from nobs_whisper_torch.decode.rules import DecodeOptions, build_rule_tables
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+
+    cfg = qeng.cfg
+    n_enc, n_dec = cfg.n_audio_layer, cfg.n_text_layer
+    sample_len = cfg.n_text_ctx // 2
+    opts = DecodeOptions(beam_size=BEAM_K, temperature_increment=0.0)
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # --- the beam serving path --------------------------------------------
+    be = BatchedEngine(qeng, opts=opts, max_batch=8)
+    windows, batch_walls = [], []
+    run_batch, beam_results = be.batcher._run_batch, be.batcher._beam_results
+
+    def timed_batch(batch):
+        out, dt = _timed(lambda: run_batch(batch))
+        batch_walls.append((len(batch), dt))
+        return out
+
+    def seen_results(*a):
+        out = beam_results(*a)
+        windows.extend(out)
+        return out
+
+    be.batcher._run_batch = timed_batch
+    be.batcher._beam_results = seen_results
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        ok = _run_wave(be, _beam_wave(), card)
+        ok &= _run_wave(be, [("longform-45s", speech_like_audio(
+            45.0, seed=8), "en")], card)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+    finally:
+        be.close()
+    batches = c["batches"]
+    want = n_enc * batches
+    detect = sum(n for (lay, _, _), n in c["forwards"].items()
+                 if lay == "plain")
+    grouped = {k: n for k, n in c["forwards"].items() if k[0] == "grouped"}
+    forms_ok = bool(windows) and all(_beam_check(r, sample_len)
+                                     for r in windows)
+    counts_ok = (batches > 0 and c["K1"] == c["K2"] == want
+                 and c["K3"] == c["K9"] == c["K2-f32"] == 0
+                 and c["K4"] == c["K5"] == c["K6"] == 0
+                 and no_knob_kernels(c) and detect == 1 and bool(grouped))
+    log(f"[beam] {card}: serving wall {wall:.2f} s; batch sizes "
+        f"{be.batcher.batch_sizes}; encoder batches {batches}; window "
+        f"results {len(windows)} well formed {forms_ok} (tokens <= "
+        f"{sample_len}, finite sums, no-speech in [0, 1]); language-detect "
+        f"forwards {detect} (want 1); launches {_launch_summary(c)} (want "
+        f"K1 = K2 = {n_enc} x {batches} = {want}, K4 = K5 = K6 = 0) -> "
+        f"{'PASS' if counts_ok and forms_ok else 'FAIL'}")
+    ok &= counts_ok and forms_ok
+    launches.update(K1=c["K1"], K2=c["K2"])
+    rows = sorted({b for (_, b, s) in grouped if s == 1})
+    steps = sum(n for (_, _, s), n in grouped.items() if s == 1)
+
+    # --- one request under the profiler, one beam rung ----------------------
+    one = BatchedEngine(qeng, opts=opts, max_batch=8)
+    prof_line = "not measured"
+    idle = float("nan")
+    try:
+        req = _request_audio()[0][1]               # en-12s, as in [serve]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _run_wave(one, [req], card)
+            torch.cuda.synchronize()
+            p_wall = time.perf_counter() - t0
+        ka = prof.key_averages()
+        attr = ("self_device_time_total"
+                if hasattr(ka[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        busy = sum(getattr(e, attr) for e in ka) / 1e6
+        idle = max(0.0, 1 - busy / p_wall)
+        top = sorted(ka, key=lambda e: -getattr(e, attr))[:6]
+        prof_line = (f"wall {p_wall:.3f} s, device busy {busy:.3f} s, idle "
+                     f"share {idle:.3f}; largest device rows: " + "; ".join(
+                         f"{getattr(e, attr) / 1e3:.2f} ms {e.count}x "
+                         f"{e.key[:60]}" for e in top))
+    except Exception as e:          # reported, not fatal: a measurement
+        prof_line = f"not measured: {e!r}"
+    finally:
+        one.close()
+    log(f"[beam] {card}: profiled request (en-12s, one beam rung): "
+        f"{prof_line}")
+
+    # --- ms per step, beam and greedy on the same encoder states -----------
+    tables = build_rule_tables(cfg, opts, qeng.tokenizer, device="cuda")
+    prompt = qeng.tokenizer.sot_sequence(language="en")
+    xa8 = _windows_xa(qeng, 8, seed=40)
+    per_step, n_step = {}, 64
+    for b in (1, 8):
+        xa = xa8[:b]
+        _, t_beam = _timed(lambda: beam_decode_window(
+            qeng.params, xa, [prompt] * b, cfg, tables, beam_size=BEAM_K,
+            sample_len=n_step, compute_dtype=qeng.compute_dtype))
+        _, t_greedy = _timed(lambda: decode_window(
+            qeng.params, xa, [prompt] * b, cfg, tables, dataclasses.replace(
+                opts, beam_size=None, sample_len=n_step),
+            compute_dtype=qeng.compute_dtype))
+        per_step[b] = (t_beam * 1e3 / n_step, t_greedy * 1e3 / n_step)
+    rung = GREEDY_RUNG.get("wall")
+    log(f"[beam] {card}: ms per step over {n_step} steps (prefill and "
+        f"cross-KV projection included): beam {BEAM_K} at B=1 ({BEAM_K} "
+        f"rows) {per_step[1][0]:.2f}, greedy B=1 {per_step[1][1]:.2f}; beam "
+        f"at B=8 ({8 * BEAM_K} rows) {per_step[8][0]:.2f}, greedy B=8 "
+        f"{per_step[8][1]:.2f}; [serve]'s profiled greedy rung "
+        + (f"{rung * 1e3 / 224:.2f} ms per step (224 steps, encoder "
+           f"included)" if rung else "not measured"))
+
+    log(f"[beam] {card}: one step's parts alone at B=8 ({8 * BEAM_K} rows, "
+        f"CUDA graph): {beam_parts_ms(cfg, 8)}")
+
+    # --- the unquantized file path: K3 -------------------------------------
+    reset_counts()
+    ok &= _transcribe_one(eng, "en-12s beam 5", speech_like_audio(
+        12.0, seed=21), card, opts)
+    torch.cuda.synchronize()
+    c = read_counts()
+    want = n_enc * c["batches"]
+    k3_ok = (c["batches"] > 0 and c["K3"] == want and no_knob_kernels(c)
+             and c["K1"] == c["K9"] == c["K2"] == 0
+             and c["K4"] == c["K5"] == c["K6"] == 0
+             and any(k[0] == "grouped" for k in c["forwards"]))
+    log(f"[beam] {card}: unquantized bf16 transcribe at beam {BEAM_K}: "
+        f"launches {_launch_summary(c)} (want K3 = {n_enc} x {c['batches']} "
+        f"= {want}, no other attention kernel) -> "
+        f"{'PASS' if k3_ok else 'FAIL'}")
+    ok &= k3_ok
+    launches["K3"] = c["K3"]
+
+    # --- the decode knobs on beam batches ----------------------------------
+    def knob_batch(b, names, n=16):
+        reset_counts()
+        with knobs(names):
+            out = beam_decode_window(
+                qeng.params, xa8[:b], [prompt] * b, cfg, tables,
+                beam_size=BEAM_K, sample_len=n,
+                compute_dtype=qeng.compute_dtype)
+            torch.cuda.synchronize()
+        return out, read_counts()
+
+    out, c = knob_batch(2, ("NWT_XATTN_KERNEL",))
+    fw = c["forwards"]
+    x_ok = (c["K4"] == 0 and bool(fw) and {k[0] for k in fw} == {"grouped"}
+            and all(_beam_check(r, 16) for r in out))
+    log(f"[beam] {card}: NWT_XATTN_KERNEL=1, one beam batch at B=2: decoder "
+        f"forwards {fw}; K4 {c['K4']} (want 0: grouped forwards never take "
+        f"K4) -> {'PASS' if x_ok else 'FAIL'}")
+    ok &= x_ok
+    k6 = 0
+    for b in (1, 8):
+        out, c = knob_batch(b, ("NWT_Q8_KERNEL_MIN_BYTES",))
+        pred = predicted_decode_launches(c["forwards"], n_dec)
+        side = "K6-decode" if b == 1 else "K6"
+        this = (c["K6"] == pred["K6"] and c["K6-decode"] == pred["K6-decode"]
+                and c[side] - (c["K6-decode"] if b == 8 else 0) > 0
+                and c["K4"] == c["K5"] == 0
+                and all(_beam_check(r, 16) for r in out))
+        log(f"[beam] {card}: NWT_Q8_KERNEL_MIN_BYTES=1, one beam batch at "
+            f"B={b} ({b * BEAM_K} rows a step): decoder forwards "
+            f"{c['forwards']}; K6 {c['K6']} of which decode kernel "
+            f"{c['K6-decode']}, prefill kernel {c['K6'] - c['K6-decode']} "
+            f"(want {pred['K6']}, decode {pred['K6-decode']}) -> "
+            f"{'PASS' if this else 'FAIL'}")
+        ok &= this
+        k6 += c["K6"]
+    launches["K6"] = k6
+
+    # --- NWT_BEAM_ANCESTRY --------------------------------------------------
+    def run8():
+        return beam_decode_window(qeng.params, xa8, [prompt] * 8, cfg,
+                                  tables, beam_size=BEAM_K, sample_len=n_step,
+                                  compute_dtype=qeng.compute_dtype)
+    base, t_perm = _timed(run8)
+    with knobs(("NWT_BEAM_ANCESTRY",)):
+        anc, t_anc = _timed(run8)
+    share = np.mean([a.tokens == p.tokens for a, p in zip(anc, base)])
+    anc_ok = all(_beam_check(r, n_step) for r in anc)
+    log(f"[beam] {card}: NWT_BEAM_ANCESTRY=1 on one B=8 batch ({n_step} "
+        f"steps): {share:.3f} of the rows give the permuted run's tokens; "
+        f"{t_anc * 1e3 / n_step:.2f} ms per step vs {t_perm * 1e3 / n_step:.2f}"
+        f" permuted; results well formed -> {'PASS' if anc_ok else 'FAIL'}")
+    ok &= anc_ok
+    del xa8
+    torch.cuda.empty_cache()
+
+    walls = [f"{n}:{dt:.2f}" for n, dt in batch_walls]
+    log(f"[beam] {card}: beam {BEAM_K}, rows a step {rows} (B x K), steps "
+        f"{steps} over the serving path, ms per step {per_step[1][0]:.2f} "
+        f"(B=1) {per_step[8][0]:.2f} (B=8), wall per batch (rows:s) "
+        f"{walls}, idle share {idle:.3f}, launches {launches}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s -> {'PASS' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def _children(pid):
+    """PIDs whose parent is ``pid`` (Linux /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(d))
+    return out
+
+
+def _alive(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _http(base, path, data=None, timeout=120):
+    import json as _json
+    import urllib.request
+    req = urllib.request.Request(base + path, data=data,
+                                 method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, _json.loads(r.read())
+
+
+ROUTER_RESTART_S = 60.0
+
+
+def phase_router(card):
+    """``python -m nobs_whisper_torch.cli route`` in a subprocess over two
+    ``--manage`` backends, each ``python -m nobs_whisper_torch.cli serve
+    --device cuda`` on the CLI phase's tiny dh=64 checkpoint (``--batch 4
+    --warmup --sample-len 32 --temperature-increment 0``), with
+    ``--restart-interval-s`` 60: both backends fall due together, the
+    manager rolls the first, and the phase stops the router within the
+    manager's 5 s poll after that roll, so exactly one roll happens.
+
+    * ``/health`` aggregates both backends, loaded;
+    * two push-to-talk sessions through the router land on different
+      backends (least-loaded) and reach ``done``; a ``/ws`` session tunnels
+      to its owner and gets its stop reply and ``done``;
+    * two one-shot ``POST /transcribe`` round-robin over both backends
+      (each backend's ``/stats`` "mel" stage counts one), the second with
+      ``?beam_size=3``, both 200;
+    * a session created before the roll (on the first backend, which the
+      roll takes first) stays live while its backend drains, then stops
+      and reaches ``done``; the backend is respawned and rejoins, and
+      ``/backends`` shows ``restarts`` 1 on it and 0 on the other;
+    * SIGINT: the router exits 0 within 60 s and no backend process it
+      spawned (before or after the roll) is left.
+    Any failure fails the phase."""
+    import shutil
+    import signal
+    import tempfile
+    from nobs_whisper_torch.client import Client
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    root = os.path.dirname(os.path.abspath(__file__))
+    home = tempfile.mkdtemp(prefix="nwt-route-")
+    model = os.path.join(home, "ggml-tiny-dh64.bin")
+    write_cli_checkpoint(model)
+    ports = [_free_port() for _ in range(3)]
+    urls = [f"http://127.0.0.1:{p}" for p in ports[:2]]
+    base = f"http://127.0.0.1:{ports[2]}"
+    cmd = [sys.executable, "-m", "nobs_whisper_torch.cli", "route",
+           "--backends", ",".join(urls), "--port", str(ports[2]),
+           "--restart-interval-s", str(ROUTER_RESTART_S),
+           "--log-dir", os.path.join(home, "logs")]
+    for p in ports[:2]:
+        cmd += ["--manage", f"{sys.executable} -m nobs_whisper_torch.cli serve "
+                f"--device cuda --model {model} --batch 4 --warmup "
+                f"--sample-len 32 --temperature-increment 0 --port {p}"]
+    env = dict(os.environ, NOBS_WHISPER_TPU_HOME=home)
+    t_phase = time.perf_counter()
+    route_log = open(os.path.join(home, "route.log"), "w+")
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=route_log,
+                            stderr=subprocess.STDOUT)
+    spawned, ok, rc, gap, rolled = set(), False, None, float("nan"), None
+    placements = []
+    try:
+        deadline = time.monotonic() + 240
+        health = None
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                h = _http(base, "/health", timeout=10)[1]["backends"]
+                if len(h) == 2 and all(v.get("loaded") for v in h.values()):
+                    health = h
+                    break
+            except (OSError, ValueError, KeyError):
+                pass
+            time.sleep(0.5)
+        t_up = time.perf_counter() - t_phase
+        assert health is not None, "the cluster never got healthy"
+        spawned.update(_children(proc.pid))
+        assert len(spawned) == 2, spawned
+        log(f"[router] {card}: two backends healthy through the router "
+            f"{t_up:.1f} s after launch (each warmed): /health {health}")
+
+        # two push-to-talk sessions (least-loaded: one on each backend) and
+        # a WebSocket session
+        client = Client(base, timeout=600)
+        s1 = client.session(language="en", sample_rate=16000)
+        s2 = client.session(language="en", sample_rate=16000)
+        placements = [b["sessions"] for b in _http(base, "/backends")[1]]
+        assert placements == [1, 1], placements
+        out = {}
+        runs = [threading.Thread(target=_session_run, args=(
+            base, name, speech_like_audio(4.0, seed=31 + i), 16000, out),
+            kwargs=dict(session=s)) for i, (name, s) in
+            enumerate((("ptt-0", s1), ("ptt-1", s2)))]
+        runs.append(threading.Thread(target=_ws_run, args=(
+            base, "ws", speech_like_audio(3.0, seed=33), 16000, out)))
+        for th in runs:
+            th.start()
+        for th in runs:
+            th.join(timeout=300)
+        for name in ("ptt-0", "ptt-1", "ws"):
+            r = out[name]
+            states = [ev.state for _, ev in r["events"]]
+            assert states and states[-1] == "done", (name, states)
+            assert isinstance(r["final"], str), (name, r["final"])
+        assert out["ws"]["replies"]["stop"]["reply"] == "stop"
+        log(f"[router] {card}: sessions ptt-0, ptt-1 placed {placements} "
+            f"(one a backend), ws tunnelled; all reached done")
+
+        # two one-shots: round-robin, the second at beam 3
+        pcm = speech_like_audio(2.0, seed=34).astype("<f4").tobytes()
+
+        def mel_counts():
+            st = _http(base, "/stats")[1]["backends"]
+            return [st[u]["stages"].get("mel", {}).get("count", 0)
+                    for u in urls]
+        before = mel_counts()
+        for q in ("language=en", "language=en&beam_size=3"):
+            code, body = _http(base, "/transcribe?" + q, data=pcm)
+            assert code == 200 and isinstance(body["text"], str), (q, code)
+        spread = [a - b for a, b in zip(mel_counts(), before)]
+        assert spread == [1, 1], spread
+        log(f"[router] {card}: one-shots (greedy, then ?beam_size=3) both "
+            f"200, one on each backend {spread}")
+
+        # a session live across the roll
+        live = client.session(language="en", sample_rate=16000)
+        owner = [b["sessions"] for b in _http(base, "/backends")[1]]
+        assert owner == [1, 0], owner
+        events = live.events(timeout=600)
+        live.start()
+        got = []
+        reader = threading.Thread(target=lambda: got.extend(events),
+                                  daemon=True)
+        reader.start()
+        chunk = speech_like_audio(0.5, seed=35)
+        t_wait = time.monotonic() + ROUTER_RESTART_S + 60
+        draining = False
+        while time.monotonic() < t_wait and not draining:
+            live.push_audio(chunk)
+            time.sleep(0.5)
+            draining = _http(base, "/backends")[1][0]["draining"]
+        assert draining, "the roll never started"
+        t_drain = time.perf_counter()
+        live.push_audio(chunk)
+        final = live.stop()
+        reader.join(timeout=120)
+        assert got and got[-1].state == "done", [e.state for e in got]
+        live.delete()
+        t_done = time.perf_counter()
+        t_wait = time.monotonic() + 240
+        listing = None
+        while time.monotonic() < t_wait:
+            listing = _http(base, "/backends")[1]
+            if listing[0]["restarts"] >= 1 and not listing[0]["draining"]:
+                break
+            time.sleep(0.25)
+        rolled = time.perf_counter()
+        gap = rolled - t_done
+        assert [b["restarts"] for b in listing] == [1, 0], listing
+        spawned.update(_children(proc.pid))
+        assert len(spawned) == 3, spawned
+        log(f"[router] {card}: live session stopped while its backend drained"
+            f" ({time.perf_counter() - t_drain:.2f} s drain to rejoin), "
+            f"final transcript {len(final or '')} chars, states "
+            f"{[e.state for e in got][-3:]}; backend respawned and back in "
+            f"{gap:.2f} s; /backends restarts "
+            f"{[b['restarts'] for b in listing]}")
+
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        ok = rc == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        route_log.seek(0)
+        tail = route_log.read()[-3000:]
+        route_log.close()
+        left = [k for k in spawned if _alive(k)]
+        for k in left:
+            os.kill(k, signal.SIGKILL)
+        shutil.rmtree(home, ignore_errors=True)
+        if not ok:
+            log(f"[router] route output: {tail}")
+    ok = ok and not left
+    log(f"[router] {card}: backends 2, placements {placements}, roll gap "
+        f"{gap:.2f} s (session done to rejoin), exit {rc} on SIGINT, "
+        f"spawned {len(spawned)} backend processes, left {len(left)}; phase "
+        f"wall {time.perf_counter() - t_phase:.1f} s -> "
+        f"{'PASS' if ok else 'FAIL'}")
+    return ok
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2922,11 +3540,15 @@ def main():
     ok &= phase_ok
     launches.update(counts)
     took("ops")
-    phase_ok, counts = phase_server(card, qeng)
-    ok &= phase_ok
-    for key, n in counts.items():
-        launches[key] = launches.get(key, 0) + n
-    took("server")
+    for name, phase, args in (("server", phase_server, (card, qeng)),
+                              ("beam", phase_beam, (card, qeng, eng))):
+        phase_ok, counts = phase(*args)
+        ok &= phase_ok
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+        took(name)
+    ok &= phase_router(card)
+    took("router")
     entries = []
     for key, e in kern.items():
         e = dict(e)

@@ -8,16 +8,20 @@ Usage:
   python -m nobs_whisper_torch.cli serve [--host H] [--port P]
       [--model PATH|ID] [--batch N] [--quant int8|none] [--warmup]
       [--device cuda|cpu]
+  python -m nobs_whisper_torch.cli route --backends URL[,URL...]
+      [--manage CMD]... [--restart-interval-s S] [--rss-watermark-mb MB]
   python -m nobs_whisper_torch.cli models list|download|delete [ID]
   python -m nobs_whisper_torch.cli config get|set key=value [...]
 
-As the JAX package's verbs (its ``route`` verb is not ported yet: ROADMAP.md
-queue 1, item 8b). ``--model`` takes a GGML ``.bin`` path or an id of the
-registry (``serve/models.py``), and falls back to the configured
+As the JAX package's verbs. ``--model`` takes a GGML ``.bin`` path or an
+id of the registry (``serve/models.py``), and falls back to the configured
 ``selected_model``. Every verb that loads a model runs on the card unless
-``--device cpu`` is given; with no card it raises. Beam search, word
-timestamps, speculative decoding and mesh serving are later slices of the
-port: asking for them raises.
+``--device cpu`` is given; with no card it raises. ``transcribe
+--beam-size K`` and a configured ``beam_size`` decode by beam search.
+``route`` fronts N ``serve`` backends (one process each, one card each);
+with ``--manage`` it spawns and rolling-restarts them. Word timestamps,
+speculative decoding and mesh serving are later slices of the port:
+asking for them raises.
 """
 
 from __future__ import annotations
@@ -151,6 +155,17 @@ def _default_batch(model: Optional[str]) -> int:
     return 40
 
 
+def _default_beam_batch(model: Optional[str], beam_size: int) -> int:
+    """Default ``serve --batch`` under a beam strategy: the decode loop
+    scales with the flattened rows (batch x beam), so the batch is about
+    120 rows over the beam width, clamped to the greedy default (beam
+    never batches more windows than greedy), ``max(1, min(
+    _default_batch(model), 120 // beam_size))``. The 120-row budget is the
+    JAX package's, measured on its TPU and kept for behaviour parity; it
+    was not measured on the card."""
+    return max(1, min(_default_batch(model), 120 // max(beam_size, 1)))
+
+
 def cmd_serve(args):
     from .core.device import resolve_device
     from .serve.config import ConfigManager
@@ -179,14 +194,16 @@ def cmd_serve(args):
         if args.quant == "int8":
             # serving default: int8 decoder weights + dynamic-int8 encoder
             engine = engine.quantize()
-        batch = explicit_batch or _default_batch(
-            model_id or cm.config.selected_model)
+        mid = model_id or cm.config.selected_model
+        beam_k = cm.config.beam_size or 1
+        batch = explicit_batch or (
+            _default_beam_batch(mid, beam_k) if beam_k > 1
+            else _default_batch(mid))
         if batch > 1:
             from .decode.rules import DecodeOptions
             from .pipeline.batched_engine import BatchedEngine
             # decode strategy from the persisted config; sessions can
-            # still override it per request. A beam strategy raises in
-            # the batcher (ROADMAP.md queue 1, item 9).
+            # still override it per request
             app = cm.config
             okw = {}
             if args.sample_len:
@@ -229,6 +246,34 @@ def cmd_serve(args):
     serve(engine, host=args.host, port=args.port, config_manager=cm,
           engine_factory=build_engine,
           rss_watermark_mb=args.rss_watermark_mb)
+
+
+def cmd_route(args):
+    from .serve.router import ManagedBackend, serve_router
+
+    urls = [b for b in args.backends.split(",") if b]
+    if args.manage and len(args.manage) != len(urls):
+        raise SystemExit(f"--manage given {len(args.manage)} times for "
+                         f"{len(urls)} backends (must match, index-paired)")
+    backends = []
+    for i, url in enumerate(urls):
+        if args.manage:
+            import shlex
+            log_path = None
+            if args.log_dir:
+                os.makedirs(args.log_dir, exist_ok=True)
+                log_path = os.path.join(args.log_dir, f"backend-{i}.log")
+            backends.append(ManagedBackend(
+                url, shlex.split(args.manage[i]), log_path=log_path))
+        else:
+            backends.append(url)
+    kw = {}
+    if args.manage:
+        kw = dict(rss_watermark_mb=args.rss_watermark_mb,
+                  restart_interval_s=args.restart_interval_s,
+                  drain_timeout_s=args.drain_timeout_s,
+                  health_timeout_s=args.health_timeout_s)
+    serve_router(backends, host=args.host, port=args.port, **kw)
 
 
 def cmd_models(args):
@@ -349,6 +394,32 @@ def main(argv=None):
                    help="self-drain when host RSS exceeds this (MB): new "
                         "sessions 503 and /stats reports draining; 0 = off")
     s.set_defaults(fn=cmd_serve)
+
+    r = sub.add_parser("route", help="fan-out front end over N backend "
+                                     "servers (one process, one card each)")
+    r.add_argument("--backends", required=True,
+                   help="comma-separated backend base URLs, e.g. "
+                        "http://host1:8777,http://host2:8777")
+    r.add_argument("--host", default="127.0.0.1")
+    r.add_argument("--port", type=int, default=8700)
+    r.add_argument("--manage", action="append", default=[], metavar="CMD",
+                   help="spawn and rolling-restart the i-th backend with "
+                        "this command (repeat once per backend, index-"
+                        "paired; shell-split): drain, wait for its "
+                        "sessions, SIGTERM, respawn, rejoin, one backend "
+                        "at a time, with requests queued through the gap")
+    r.add_argument("--rss-watermark-mb", type=float, default=0.0,
+                   help="roll a managed backend when its /stats RSS gauge "
+                        "exceeds this (MB); 0 = off")
+    r.add_argument("--restart-interval-s", type=float, default=0.0,
+                   help="also roll each managed backend every N seconds "
+                        "(time-based rolling; 0 = off)")
+    r.add_argument("--drain-timeout-s", type=float, default=180.0)
+    r.add_argument("--health-timeout-s", type=float, default=900.0)
+    r.add_argument("--log-dir", default=None,
+                   help="write each managed backend's stdout/stderr to "
+                        "<log-dir>/backend-<i>.log")
+    r.set_defaults(fn=cmd_route)
 
     mdl = sub.add_parser("models", help="manage model files")
     mdl.add_argument("action", choices=["list", "download", "delete"])

@@ -281,14 +281,22 @@ def detect_language(params, xa: torch.Tensor, cfg: WhisperConfig,
     return torch.argmax(lang_probs, dim=-1), lang_probs
 
 
-def frames_encode_detect_impl(params, frames, cfg: WhisperConfig,
-                              compute_dtype=torch.float32):
-    """STFT frames -> mel -> encoder states + detected languages. Returns
-    (xa, lang_idx, lang_probs); xa feeds decode_window_dispatch."""
+def frames_encode_impl(params, frames, cfg: WhisperConfig,
+                       compute_dtype=torch.float32) -> torch.Tensor:
+    """STFT frames -> mel -> encoder states, without language detection:
+    the beam batcher's fixed-language batches need the encoder states but
+    no detect forward."""
     from ..audio.mel import log_mel_from_frames
     from ..models.whisper import encode
     mel = log_mel_from_frames(frames, n_mels=cfg.n_mels,
                               n_frames=2 * cfg.n_audio_ctx)
-    xa = encode(params, mel, cfg, compute_dtype=compute_dtype)
+    return encode(params, mel, cfg, compute_dtype=compute_dtype)
+
+
+def frames_encode_detect_impl(params, frames, cfg: WhisperConfig,
+                              compute_dtype=torch.float32):
+    """STFT frames -> mel -> encoder states + detected languages. Returns
+    (xa, lang_idx, lang_probs); xa feeds decode_window_dispatch."""
+    xa = frames_encode_impl(params, frames, cfg, compute_dtype)
     lang_idx, lang_probs = detect_language(params, xa, cfg, compute_dtype)
     return xa, lang_idx, lang_probs

@@ -20,10 +20,11 @@ NEG_INF = -1e30
 class DecodeOptions:
     """Sampling options (defaults = the reference's greedy configuration).
 
-    The port serves greedy and temperature sampling, with plain, packed
-    bf16 (``xattn_bf16``) or int8 (``q8_cross_kv``) cross-KV; beam,
-    speculative and word timestamps raise ``NotImplementedError`` where
-    they would be used (ROADMAP.md)."""
+    The port serves greedy, temperature sampling and beam search
+    (``beam_size`` > 1 at temperature 0), with plain, packed bf16
+    (``xattn_bf16``) or int8 (``q8_cross_kv``) cross-KV; speculative
+    decoding and word timestamps raise ``NotImplementedError`` where they
+    would be used (ROADMAP.md)."""
 
     task: str = "transcribe"
     language: Optional[str] = None          # None = auto-detect
@@ -49,10 +50,7 @@ class DecodeOptions:
 
 
 def check_supported(opts: DecodeOptions) -> None:
-    """Raise for the options this slice of the port does not implement."""
-    if opts.beam_size and opts.beam_size > 1:
-        raise NotImplementedError(
-            "beam search is not ported yet (ROADMAP.md queue 1, item 9)")
+    """Raise for the options the port does not implement yet."""
     if opts.speculative:
         raise NotImplementedError(
             "speculative decoding is not ported yet (ROADMAP.md queue 1, "

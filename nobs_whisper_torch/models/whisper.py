@@ -144,6 +144,38 @@ def _attention_kt(q, kT, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return _softmax_pv(scores, v, mask)
 
 
+def _attention_kt_ancestry(q, kT, v, mask, ancestry: torch.Tensor,
+                           beam_k: int) -> torch.Tensor:
+    """Beam self-attention through ancestry pointers (``NWT_BEAM_ANCESTRY``):
+    the cache is never permuted; ``ancestry[i, t]`` names the beam row of
+    i's element whose KV at position t belongs to row i's history. Scores
+    and PV are contractions over the K source rows with a one-hot ancestry
+    mask, whose other terms are exact zeros: the same values as the
+    permuted path up to f32 reassociation.
+
+    q (BK, H, 1, Dh); kT (BK, H, Dh, T); v (BK, H, T, Dh);
+    mask (BK, 1, 1, T); ancestry (BK, T) int in [0, beam_k)."""
+    bk, h, s, dh = q.shape
+    if s != 1:
+        raise ValueError("ancestry attention is the single-token step path")
+    b = bk // beam_k
+    t = kT.shape[-1]
+    scale = _const(dh ** -0.25, q)
+    qg = (q * scale).reshape(b, beam_k, h, dh).float()
+    kg = (kT * scale).reshape(b, beam_k, h, dh, t).float()
+    vg = v.reshape(b, beam_k, h, t, dh)
+    hot = F.one_hot(ancestry.reshape(b, beam_k, t).long(),
+                    beam_k).float()                      # (B, Kq, T, Ks)
+    s_all = torch.einsum("bqhd,bkhdt->bqkht", qg, kg)
+    scores = torch.einsum("bqkht,bqtk->bqht", s_all, hot)
+    if mask is not None:
+        scores = scores.masked_fill(~mask.reshape(b, beam_k, 1, t), -1e9)
+    probs = torch.softmax(scores, dim=-1)
+    psel = torch.einsum("bqht,bqtk->bqkht", probs.to(v.dtype).float(), hot)
+    out = torch.einsum("bqkht,bkhtd->bqhd", psel, vg.float()).to(v.dtype)
+    return out.reshape(bk, h, 1, dh)
+
+
 # ---------------------------------------------------------------------------
 # decode-kernel gates: the reference's knobs (whisper.py:715-721, :799-804,
 # :814-815) with the card in the TPU's place, read at each call; on the CPU
@@ -494,29 +526,40 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, dtype=torch.float32,
             torch.zeros((l, batch, h, t, dh), dtype=dtype, device=device))
 
 
-# decoder forwards run, by (cross-KV layout: "plain", "packed" or "q8",
-# batch, tokens): with the gates above, what the decode kernels should
-# launch
+# decoder forwards run, by (cross-KV layout: "plain", "packed", "grouped"
+# (beam rows over a packed cross-KV of fewer rows) or "q8", batch rows,
+# tokens): with the gates above, what the decode kernels should launch
 decoder_forward_calls: collections.Counter = collections.Counter()
 
 
-def _cross_layout(xk) -> str:
+def _cross_layout(xk, rows: int) -> str:
     if not isinstance(xk, dict):
         return "plain"
-    return "packed" if "kT" in xk else "q8"
+    if "kT" not in xk:
+        return "q8"
+    return "packed" if xk["kT"].shape[1] == rows else "grouped"
 
 
 @torch.inference_mode()
 def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
                     pad_lens: torch.Tensor, kv_cache, cross_kv,
-                    cfg: WhisperConfig, compute_dtype=torch.float32):
+                    cfg: WhisperConfig, compute_dtype=torch.float32,
+                    ancestry: Optional[torch.Tensor] = None,
+                    beam_k: int = 0):
     """One decoder pass over S tokens (S=1 in the sampling loop, S=prompt
     length for prefill). Returns f32 logits (B, S, V) and the KV cache,
     whose slices [cache_start, cache_start+S) are written in place.
 
     Ragged batches are LEFT-padded: element b's sequence starts at cache
     index pad_lens[b]; position embeddings use the element's own position
-    and self-attention masks the pad region."""
+    and self-attention masks the pad region.
+
+    Beam search (``decode/beam.py``) runs B x K rows: on a packed cross-KV
+    of B rows, K beams of an element share its cross-KV (the grouped
+    cross-attention, never K4). Its ancestry mode passes ``ancestry``
+    (B x K, T_cache) and ``beam_k``: rows never permute the cache, and
+    self-attention reads each position's KV from its ancestor row
+    (:func:`_attention_kt_ancestry`); S must be 1."""
     disable_tf32()
     dec = params["decoder"]
     n_head = cfg.n_text_head
@@ -525,7 +568,7 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
     xk, xv = cross_kv
     t_ctx = ck.shape[-1]
     dev = tokens.device
-    decoder_forward_calls[(_cross_layout(xk), b, s)] += 1
+    decoder_forward_calls[(_cross_layout(xk, b), b, s)] += 1
 
     cache_idx = cache_start + torch.arange(s, device=dev)            # (S,)
     pos_idx = torch.clamp(cache_idx[None, :] - pad_lens[:, None], 0,
@@ -552,7 +595,13 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
         q = _split_heads(_dense(h, p["xq_w"], p["xq_b"]), n_head)
         if isinstance(xk_l, dict) and "kT" in xk_l:
             packed = {"kT": xk_l["kT"], "v": xv_l["v"]}
-            if q.shape[-2] == 1 and xattn_kernel_enabled():
+            bq, bkv = q.shape[0], packed["kT"].shape[0]
+            if bq != bkv:
+                # beam search: G beams of an element share its cross-KV
+                a = ap.cross_attention_kt_xla_grouped(
+                    q.reshape(bkv, bq // bkv, *q.shape[1:]), packed,
+                    cfg.n_audio_ctx).reshape(q.shape)
+            elif q.shape[-2] == 1 and xattn_kernel_enabled():
                 a = ap.cross_attention_decode_bf16(q, packed, cfg.n_audio_ctx)
             else:
                 a = ap.cross_attention_kt_xla(q, packed, cfg.n_audio_ctx)
@@ -577,8 +626,13 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
         q, k, v = project_qkv(x, p)
         ck[layer, :, :, :, cache_start:end] = k.transpose(-1, -2).to(ck.dtype)
         cv[layer, :, :, cache_start:end, :] = v.to(cv.dtype)
-        a = _attention_kt(q, ck[layer].to(compute_dtype),
-                          cv[layer].to(compute_dtype), self_mask)
+        if ancestry is not None:
+            a = _attention_kt_ancestry(
+                q, ck[layer].to(compute_dtype), cv[layer].to(compute_dtype),
+                self_mask, ancestry, beam_k)
+        else:
+            a = _attention_kt(q, ck[layer].to(compute_dtype),
+                              cv[layer].to(compute_dtype), self_mask)
         x = x + _dense(_merge_heads(a), p["o_w"], p["o_b"])
         if isinstance(xk, dict):
             xk_l = {kk: vv[layer] for kk, vv in xk.items()}

@@ -235,6 +235,19 @@ def cross_attention_kt_xla(q: torch.Tensor, packed, t_real: int
     return probs.to(torch.bfloat16).float() @ v.float()
 
 
+def cross_attention_kt_xla_grouped(q: torch.Tensor, packed, t_real: int
+                                   ) -> torch.Tensor:
+    """Beam search's cross-attention: q (B, G, H, S, Dh), G beams of an
+    element sharing its one packed K/V (B, H, Dh, Tp), so the cross-KV is
+    read once an element, not once a beam. G is folded into the query
+    axis of :func:`cross_attention_kt_xla`, which is exact: the masking
+    and the softmax act per query row. Returns (B, G, H, S, Dh) f32."""
+    b, g, h, s, dh = q.shape
+    q4 = q.transpose(1, 2).reshape(b, h, g * s, dh)
+    out = cross_attention_kt_xla(q4, packed, t_real)
+    return out.reshape(b, h, g, s, dh).transpose(1, 2)
+
+
 def cross_attention_bf16_reference(q: torch.Tensor, packed, t_real: int
                                    ) -> torch.Tensor:
     """The packed layout's f32 reference: K/V sliced to the real positions,

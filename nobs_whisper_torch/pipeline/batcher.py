@@ -11,9 +11,16 @@ longest row of the batch (there is no compile cache to bound), and a batch
 runs to completion before the next is collected (the decode loop syncs
 with the card for its early exit, so there is no asynchronous dispatch to
 overlap). For the same reason the batch watchdog runs the whole batch,
-not only its finalize step, in the sacrificial thread. Greedy and
-temperature sampling only; no mesh, no speculative decoding, no beam
-strategy in this slice.
+not only its finalize step, in the sacrificial thread. No mesh and no
+speculative decoding yet.
+
+With ``opts.beam_size`` > 1 the batcher takes the beam strategy, as the
+reference: the batch is encoded (with one language-detect forward only if
+a row asks for auto language), then its rows at temperature 0 decode by
+beam search and its rows above 0 (ladder retries) by sampling, two calls
+for a mixed batch. Where the reference pads each subset to its bounded
+batch sizes (a new size compiles a new program), each subset here runs at
+its own size, as every batch of this batcher does.
 """
 
 from __future__ import annotations
@@ -264,9 +271,7 @@ class WindowBatcher:
 
     def _run_batch(self, batch: List[_Request]):
         from ..core.tokenizer import LANGUAGES
-        from ..decode.greedy import (decode_window_dispatch,
-                                     decode_window_finalize,
-                                     frames_encode_detect_impl)
+        from ..decode import greedy
         from ..models.whisper import encode
 
         self.batch_sizes.append(len(batch))
@@ -274,35 +279,77 @@ class WindowBatcher:
         prompts = [list(r.prompt) for r in batch]
         temps = np.asarray([r.temperature for r in batch], np.float32)
         langs: List[Optional[str]] = [None] * len(batch)
-        common = dict(temperature=temps, generator=self.generator,
-                      compute_dtype=self.compute_dtype)
-        if any(r.lang_slot is not None for r in batch):
+        need_lang = any(r.lang_slot is not None for r in batch)
+        use_beam = (self.opts.beam_size or 0) > 1
+        if need_lang or use_beam:
             # auto-language rows: one batched forward from <|sot|> detects
-            # the languages, then each row's language token is patched
-            if frames is not None:
-                xa, lang_idx, _ = frames_encode_detect_impl(
+            # the languages, then each row's language token is patched; a
+            # fixed-language beam batch needs the encoder states only
+            if frames is not None and need_lang:
+                xa, lang_idx, _ = greedy.frames_encode_detect_impl(
                     self.params, frames, self.cfg, self.compute_dtype)
+            elif frames is not None:
+                xa = greedy.frames_encode_impl(self.params, frames, self.cfg,
+                                               self.compute_dtype)
             else:
-                from ..decode.greedy import detect_language
                 xa = encode(self.params, mel, self.cfg, self.compute_dtype)
-                lang_idx, _ = detect_language(self.params, xa, self.cfg,
-                                              self.compute_dtype)
-            lang_idx = lang_idx.cpu().numpy()
-            for i, r in enumerate(batch):
-                if r.lang_slot is not None:
-                    prompts[i][r.lang_slot] = (self.cfg.lang_base
-                                               + int(lang_idx[i]))
-                    langs[i] = LANGUAGES[int(lang_idx[i])]
-            handle = decode_window_dispatch(
-                self.params, xa, prompts, self.cfg, self.tables, self.opts,
-                **common)
+                if need_lang:
+                    lang_idx, _ = greedy.detect_language(
+                        self.params, xa, self.cfg, self.compute_dtype)
+            if need_lang:
+                lang_idx = lang_idx.cpu().numpy()
+                for i, r in enumerate(batch):
+                    if r.lang_slot is not None:
+                        prompts[i][r.lang_slot] = (self.cfg.lang_base
+                                                   + int(lang_idx[i]))
+                        langs[i] = LANGUAGES[int(lang_idx[i])]
+            if use_beam:
+                results = self._beam_results(xa, prompts, temps)
+            else:
+                results = greedy.decode_window_finalize(
+                    greedy.decode_window_dispatch(
+                        self.params, xa, prompts, self.cfg, self.tables,
+                        self.opts, temperature=temps,
+                        generator=self.generator,
+                        compute_dtype=self.compute_dtype))
         else:
             # fixed-language main path: frames -> mel -> encode -> decode
-            handle = decode_window_dispatch(
-                self.params, None, prompts, self.cfg, self.tables,
-                self.opts, mel=mel, frames=frames, **common)
-        for r, res, lang in zip(batch, decode_window_finalize(handle),
-                                langs):
+            results = greedy.decode_window_finalize(
+                greedy.decode_window_dispatch(
+                    self.params, None, prompts, self.cfg, self.tables,
+                    self.opts, temperature=temps, generator=self.generator,
+                    compute_dtype=self.compute_dtype, mel=mel,
+                    frames=frames))
+        for r, res, lang in zip(batch, results, langs):
             res.language = lang
             if not r.future.done():
                 r.future.set_result(res)
+
+    def _beam_results(self, xa: torch.Tensor, prompts: List[List[int]],
+                      temps: np.ndarray) -> list:
+        """The beam strategy's decode of one encoded batch: rows at
+        temperature 0 by beam search, rows above it (ladder retries) by
+        sampling (openai/whisper.cpp: beam at zero temperature, sampling
+        above it); a mixed batch makes two calls, each subset at its own
+        size."""
+        from ..decode.beam import beam_decode_window
+        from ..decode.greedy import decode_window
+        results: list = [None] * len(prompts)
+        zero = [i for i, t in enumerate(temps) if t == 0]
+        hot = [i for i, t in enumerate(temps) if t != 0]
+        if zero:
+            sub = beam_decode_window(
+                self.params, xa[zero], [prompts[i] for i in zero], self.cfg,
+                self.tables, beam_size=self.opts.beam_size,
+                sample_len=self.opts.sample_len,
+                compute_dtype=self.compute_dtype)
+            for i, r in zip(zero, sub):
+                results[i] = r
+        if hot:
+            sub = decode_window(
+                self.params, xa[hot], [prompts[i] for i in hot], self.cfg,
+                self.tables, self.opts, temperature=temps[hot],
+                generator=self.generator, compute_dtype=self.compute_dtype)
+            for i, r in zip(hot, sub):
+                results[i] = r
+        return results

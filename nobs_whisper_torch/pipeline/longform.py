@@ -1,8 +1,10 @@
 """Long-form transcription: chained 30 s windows with rolling context
 (port of ``pipeline/longform.py``): window decode -> temperature fallback
 ladder -> no-speech gate -> timestamp-driven seek -> previous text as the
-next window's prompt. Word timestamps and beam search are later slices
-of the port and raise ``NotImplementedError``."""
+next window's prompt. With ``beam_size`` > 1 a window decodes by beam
+search at temperature 0 and samples on the ladder's rungs above it. Word
+timestamps are a later slice of the port and raise
+``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from ..core.config import HOP_LENGTH, SAMPLE_RATE, WhisperConfig
+from ..decode.beam import beam_decode_window
 from ..decode.greedy import WindowResult, decode_window, detect_language
 from ..decode.rules import (DecodeOptions, build_rule_tables, check_supported,
                             is_no_speech, needs_fallback, token_entropy)
@@ -64,13 +67,20 @@ def decode_with_fallback(params, xa, prompt: Sequence[int],
                          tokenizer=None) -> WindowResult:
     """Temperature ladder: retry the window while the quality gates fail;
     a window flagged as silence breaks the ladder at the first rung. At
+    temperature 0 with beam_size > 1 the window decodes by beam search
+    (openai/whisper.cpp: beam at zero temperature, sampling above it). At
     temperature > 0 with best_of > 1 the candidates are one tiled batch
     and the highest sum/len wins."""
     if generator is None:
         generator = torch.Generator(device=xa.device).manual_seed(0)
     result = None
     for temp in _temperature_ladder(opts):
-        if temp > 0 and opts.best_of and opts.best_of > 1:
+        if temp == 0 and opts.beam_size and opts.beam_size > 1:
+            result = beam_decode_window(
+                params, xa, [prompt], cfg, tables,
+                beam_size=opts.beam_size, sample_len=opts.sample_len,
+                compute_dtype=compute_dtype)[0]
+        elif temp > 0 and opts.best_of and opts.best_of > 1:
             xa_rep = xa.repeat_interleave(opts.best_of, dim=0)
             cands = decode_window(params, xa_rep, [prompt] * opts.best_of,
                                   cfg, tables, opts, temperature=temp,

@@ -10,9 +10,10 @@ src-tauri/src/indicator.rs).
 
 Pure stdlib (ThreadingHTTPServer) — no web framework dependency. Port of
 the JAX package's ``serve/server.py``: the same routes, bodies and errors
-over the port's engines. A decode strategy the port lacks (beam search,
-word timestamps) raises ``NotImplementedError`` in the engine, which the
-routes answer with their 500 JSON error.
+over the port's engines. Beam search (``?beam_size=``, a session's
+``beam_size``, the configured ``beam_size``) is served; a decode strategy
+the port lacks (word timestamps) raises ``NotImplementedError`` in the
+engine, which the routes answer with their 500 JSON error.
 """
 
 from __future__ import annotations

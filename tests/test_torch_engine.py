@@ -248,11 +248,13 @@ def test_cli_transcribe_matches_reference(tiny_ckpt, tmp_path):
         assert "FileNotFoundError" in bad.stderr and missing in bad.stderr
 
 
-@pytest.mark.parametrize("flag", [["--beam-size", "5"], ["--word-timestamps"],
+@pytest.mark.parametrize("flag", [["--beam-size", "5", "--word-timestamps"],
+                                  ["--word-timestamps"],
                                   ["--speculative", "3"]])
 def test_cli_unported_decoders_raise(tiny_ckpt, tmp_path, flag):
-    """Beam, word timestamps and speculative decoding raise through
-    ``check_supported`` and name their ROADMAP item."""
+    """Word timestamps and speculative decoding raise through
+    ``check_supported`` and name their ROADMAP item, also beside a beam
+    strategy (beam itself is served: ``tests/test_torch_beam_paths.py``)."""
     from nobs_whisper_torch import cli
     from nobs_whisper_torch.audio.io import write_wav
     wav = str(tmp_path / "a.wav")

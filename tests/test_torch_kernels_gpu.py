@@ -1514,3 +1514,94 @@ def test_k7_kernel_is_deterministic(cuda, m, x_dtype):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(outs[0].float()).all())
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+# ---------------------------------------------------------------------------
+# beam search on the card
+# ---------------------------------------------------------------------------
+
+def _golden_model(dev):
+    """``tests/goldens/oracle_tiny.npz`` as a torch parameter tree on
+    ``dev`` (no JAX): params, mel, xa, prompt, tokens, config."""
+    import json
+    import os
+    import re
+    from nobs_whisper_torch.core.config import WhisperConfig
+    from nobs_whisper_torch.models.whisper import params_from_jax
+    z = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                             "oracle_tiny.npz"))
+    params = {}
+    for key in z.files:
+        if key.startswith("params["):
+            path = re.findall(r"\['([^']+)'\]", key)
+            node = params
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = z[key]
+    cfg = WhisperConfig(name="goldens-tiny", force_multilingual=True,
+                        **json.loads(bytes(z["cfg_json"]).decode()))
+    return z, params_from_jax(params, device=dev), cfg
+
+
+@pytest.mark.parametrize("ancestry", [False, True])
+def test_beam_golden_tokens_on_card(cuda, monkeypatch, ancestry):
+    """Beam 5 over 40 steps on the tiny f32 golden model on the card: the
+    golden ``beam_tokens``, and ``beam_sum_logprob`` within the golden
+    test's 1e-3 relative + 1e-3 absolute; the same under
+    ``NWT_BEAM_ANCESTRY=1``."""
+    from nobs_whisper_torch.decode.beam import beam_decode_window
+    from nobs_whisper_torch.decode.rules import (DecodeOptions,
+                                                 build_rule_tables)
+    if ancestry:
+        monkeypatch.setenv("NWT_BEAM_ANCESTRY", "1")
+    z, params, cfg = _golden_model(cuda)
+    tables = build_rule_tables(cfg, DecodeOptions(suppress_blank=True))
+    res = beam_decode_window(params, torch.from_numpy(z["xa"]).to(cuda),
+                             [z["prompt"].tolist()], cfg, tables,
+                             beam_size=5, sample_len=40)[0]
+    assert res.tokens == z["beam_tokens"].tolist()
+    assert res.sum_logprob == pytest.approx(float(z["beam_sum_logprob"]),
+                                            rel=1e-3, abs=1e-3)
+
+
+def test_int8_beam_on_card_matches_cpu(cuda, monkeypatch):
+    """A d=128 dh=64 int8 model at f32: beam 5 over three windows on the
+    card gives the CPU's beam tokens. With the decode knobs on and the
+    packed cross-KV forced (``NWT_FORCE_KT``), every forward is grouped:
+    K4 never launches, and K6 launches on every int8 weight of the
+    forwards of at most 256 rows."""
+    from nobs_whisper_torch.decode.beam import beam_decode_window
+    from nobs_whisper_torch.decode.rules import (DecodeOptions,
+                                                 build_rule_tables)
+    from nobs_whisper_torch.models import whisper as tw
+    from nobs_whisper_torch.ops.quant import quantize_decoder_params
+    from nobs_whisper_torch.utils.testing import tiny_test_config
+    cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=160, n_text_ctx=64)
+    params = quantize_decoder_params(tw.init_params(6, cfg))
+    to_dev = lambda t: ({k: to_dev(v) for k, v in t.items()}
+                        if isinstance(t, dict) else t.to(cuda))
+    xa = torch.from_numpy(np.random.RandomState(6).randn(
+        3, cfg.n_audio_ctx, cfg.n_audio_state).astype(np.float32))
+    prompts = [[cfg.sot, cfg.lang_base + i, cfg.transcribe]
+               for i in range(3)]
+    tables = build_rule_tables(cfg, DecodeOptions())
+    got = beam_decode_window(to_dev(params), xa.to(cuda), prompts, cfg,
+                             tables, beam_size=5)
+    ref = beam_decode_window(params, xa, prompts, cfg, tables, beam_size=5)
+    assert [r.tokens for r in got] == [r.tokens for r in ref]
+
+    for knob in ("NWT_XATTN_KERNEL", "NWT_Q8_KERNEL_MIN_BYTES",
+                 "NWT_FORCE_KT"):
+        monkeypatch.setenv(knob, "1")
+    k4, k6 = ap.k4_launch_count, qt.k6_launch_count
+    tw.decoder_forward_calls.clear()
+    out = beam_decode_window(to_dev(params), xa.to(cuda), prompts, cfg,
+                             tables, beam_size=5, sample_len=16)
+    torch.cuda.synchronize()
+    calls = dict(tw.decoder_forward_calls)
+    assert {lay for lay, _, _ in calls} == {"grouped"}
+    assert ap.k4_launch_count == k4
+    assert qt.k6_launch_count - k6 == (8 * cfg.n_text_layer + 1) * sum(
+        c for (_, b, s), c in calls.items() if b * s <= 256)
+    assert all(np.isfinite(r.sum_logprob) and len(r.tokens) <= 16
+               for r in out)

@@ -242,21 +242,25 @@ def test_web_client_served_and_drives_full_cycle(server):
 def test_beam_reachable_through_serving_surface(server):
     """Beam decoding is selectable from the serving layer as in the
     reference (one-shot ?beam_size= and a per-session beam_size), and it
-    reaches the engine, which in the port raises naming its ROADMAP item:
-    the one-shot answers the 500 JSON error at once, and the session's
-    chunk fails, is skipped, and the session still finishes (empty
-    transcript, idle) instead of hanging."""
+    is served: the one-shot answers 200 with the tokens of the engine's
+    own beam call on the same audio (with the configured vocabulary, as
+    the server prompts), and the session's transcript is that call's
+    text."""
     from nobs_whisper_torch.decode.rules import DecodeOptions
 
     base, httpd = server
     audio = (np.random.RandomState(7).randn(16000) * 0.2).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        httpd.state.engine.transcribe(
-            audio, language="en", opts=DecodeOptions(beam_size=3))
+    vocab = _get(base, "/config")["custom_vocabulary"] or None
+    direct = httpd.state.engine.transcribe(
+        audio, language="en", vocabulary=vocab,
+        opts=DecodeOptions(beam_size=3))
 
     code, body = _status_of(base, "/transcribe?language=en&beam_size=3",
                             data=audio.tobytes())
-    assert code == 500 and "item 9" in body["error"]
+    assert code == 200
+    assert [s["tokens"] for s in body["segments"]] == \
+        [s.tokens for s in direct.segments]
+    assert body["text"] == direct.text
 
     sid = _post(base, "/sessions", json.dumps(
         {"language": "en", "sample_rate": 16000,
@@ -264,7 +268,7 @@ def test_beam_reachable_through_serving_surface(server):
     _post(base, f"/sessions/{sid}/start")
     _post(base, f"/sessions/{sid}/audio", audio.tobytes())
     out = _post(base, f"/sessions/{sid}/stop")
-    assert out == {"transcript": "", "state": "idle"}
+    assert out == {"transcript": direct.text, "state": "idle"}
 
 
 def test_translate_and_word_timestamps_reachable(server):

@@ -352,10 +352,12 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
 
 
 @pytest.mark.parametrize("opts", [
-    dict(beam_size=5), dict(speculative=3), dict(word_timestamps=True)])
+    dict(beam_size=5, speculative=3), dict(speculative=3),
+    dict(word_timestamps=True)])
 def test_unported_options_raise(opts):
-    """Beam, speculative and word timestamps are later slices: they raise
-    and name the ROADMAP item, never take another path quietly."""
+    """Speculative decoding and word timestamps are later slices: they
+    raise and name the ROADMAP item, never take another path quietly, also
+    under a beam strategy (beam itself is served)."""
     from nobs_whisper_torch.api import WhisperEngine
     from nobs_whisper_torch.decode.rules import DecodeOptions
     from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
