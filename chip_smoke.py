@@ -105,7 +105,34 @@ arguments). Phases; any failure exits non-zero before the result line:
    tunnel, round-robin one-shots (one at ``?beam_size=3``), one rolling
    restart survived by a live session, SIGINT exit 0 with no backend
    left;
-13. one ``kernels`` JSON line, then the result line.
+13. exact speculative greedy (``phase_speculative``): the int8 turbo
+   engine in ``BatchedEngine(max_batch=8, speculative=3)``, self-draft
+   over 4x pooled cross-KV, ladder off: a wave of five fixed-language
+   windows and one auto-language window, then a 45 s long-form request,
+   each row's tokens equal to the non-speculative ``BatchedEngine``'s or
+   differing by a near-tie (``near_tie``: the sequential run's gap
+   between the two tokens within the largest logit difference measured
+   between the two runs' forwards on the same prefix); K1 = K2 = 32 x
+   encoder batches, K4 = K5 = K6 = 0, ``emitted_per_pass`` as ``/stats``
+   computes it; K6 under ``NWT_Q8_KERNEL_MIN_BYTES`` at B=1 and B=8 as
+   the gates predict from the draft, verify and tail forwards; a
+   second-model draft (``from_random("distil-large-v3")``, int8) held by
+   the near-tie rule, and with it K4 (``NWT_XATTN_KERNEL``) and K5
+   (``NWT_Q8_KV_PALLAS`` on int8 cross-KV) once a layer in each tail
+   forward only; ``distil-small.en`` refused; a perfect self-draft's pass
+   count; ms per emitted token against greedy at B=1 and B=8; one request
+   under ``torch.profiler``. Phase 3 also holds the golden model's
+   speculative tokens (K = 1 and 3, pool 1 and 2) to its greedy goldens
+   and a dh=64 int8 model's speculative tokens on the card to the CPU's,
+   at f32;
+14. word timestamps (``phase_words``): ``transcribe`` of a 12 s clip with
+   ``word_timestamps=True`` on the unquantized bf16 engine (K3) and on the
+   int8 engine (K1, K2): words in order, each inside its segment, each
+   window's words' tokens its text tokens; the golden model's alignment
+   scores on the card within 1e-4 of the CPU's at f32, every token's
+   boundaries equal; one ``POST /transcribe?word_timestamps=1`` on the
+   int8 serving engine answers 200 with words;
+15. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 (B=8, B=1 and B=16) and K5 (B=8 and B=1) at
 H=20, Dh=64, Tp=1536, t_real=1500 (two calls bit for bit; timed back to
@@ -1587,7 +1614,8 @@ def phase_reference():
     with knobs(DECODE_KNOBS):
         dec_ok = reference_decoder(dev)
     return (xa_ok and tok_ok and enc_ok and k3_ok and f32_ok and slice_ok
-            and var_ok and dec_ok and reference_beam(dev))
+            and var_ok and dec_ok and reference_beam(dev)
+            and reference_speculative(dev))
 
 
 BEAM_GOLDEN_TOL = dict(rel=1e-3, abs=1e-3)   # tests/test_goldens.py's bound
@@ -3487,6 +3515,655 @@ def phase_router(card):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# [speculative] and [words]
+# ---------------------------------------------------------------------------
+
+SPEC_K, SPEC_POOL = 3, 4
+DRAFT_MODEL = "distil-large-v3"   # shares turbo's width and vocabulary
+SPEC_WAIT_MS = 250     # one wave, one batch: both engines batch alike
+WORD_TOL = 1e-4        # golden alignment scores, card vs CPU, f32
+
+
+class LogitTap:
+    """Keeps the logits (on the card) of every TARGET decoder forward that
+    the greedy and speculative loops run while it is installed: the calls
+    on a packed or int8 cross-KV (a dict), which at bf16 are all the
+    target's; the draft's forwards (plain, pooled cross-KV) and the
+    language-detect forward (plain) are left out. A record: (tokens
+    (B, S), pos_base or None, pad_lens, logits (B, S, V) f32)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from nobs_whisper_torch.decode import greedy, speculative
+        self.saved = [(m, m.decoder_forward) for m in (greedy, speculative)]
+        for m, fn in self.saved:
+            m.decoder_forward = self._wrap(fn)
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in self.saved:
+            m.decoder_forward = fn
+
+    def _wrap(self, fn):
+        def tapped(params, tokens, cache_start, pad_lens, kv_cache, cross_kv,
+                   *a, **kw):
+            out = fn(params, tokens, cache_start, pad_lens, kv_cache,
+                     cross_kv, *a, **kw)
+            if isinstance(cross_kv[0], dict):
+                self.calls.append((tokens, kw.get("pos_base"), pad_lens,
+                                   out[0]))
+            return out
+        return tapped
+
+    def segments(self):
+        """The records split by decode (one a batch): a decode starts at
+        its prefill, a multi-token forward without ``pos_base``."""
+        segs = []
+        for rec in self.calls:
+            if rec[1] is None and rec[0].shape[1] > 1:
+                segs.append([])
+            segs[-1].append(rec)
+        return segs
+
+
+def _emitted(res, eot, sample_len):
+    """A window result's emitted tokens, its stop token included."""
+    return res.tokens + ([eot] if len(res.tokens) < sample_len else [])
+
+
+def near_tie(plain, spec, eot, sample_len):
+    """Hold one row of a speculative decode against the same row of the
+    sequential one. ``plain``/``spec``: (result, tap segment, row).
+
+    D is the largest |logit difference| between the two runs' target
+    forwards at every emission position where both consumed the same
+    prefix (for the speculative run: the verify or tail position whose
+    consumed drafts are the emitted tokens), up to and including the first
+    position where the tokens differ. There, the sequential run's gap
+    between its token and the speculative run's token (>= its top-2 gap)
+    must lie within D. Returns (equal, first difference, gap, D)."""
+    import torch
+    (pr, pseg, prow), (sr, sseg, srow) = plain, spec
+    g, s = _emitted(pr, eot, sample_len), _emitted(sr, eot, sample_len)
+    first = next((i for i, (a, b) in enumerate(zip(g, s)) if a != b), None)
+    limit = first if first is not None else len(g) - 1
+    pe = [pseg[0][3][prow, -1]] + [rec[3][prow, 0] for rec in pseg[1:]]
+    p_max = sseg[0][0].shape[1]
+    diffs = [(sseg[0][3][srow, -1] - pe[0]).abs().amax()]
+    for toks, pos_base, pad, logits in sseg[1:]:
+        n = int(pos_base[srow]) - p_max + int(pad[srow]) + 1
+        t = toks[srow].tolist()
+        for j in range(toks.shape[1]):
+            e = n + j
+            if e > limit or t[1:j + 1] != s[n:e]:
+                break
+            diffs.append((logits[srow, j] - pe[e]).abs().amax())
+    d = float(torch.stack(diffs).max())
+    if first is None:
+        return True, None, None, d
+    lg = pe[first]
+    return False, first, float(lg[g[first]] - lg[s[first]]), d
+
+
+def _batch_log(batcher):
+    """Wrap the batcher's ``_run_batch``: record each batch's rows (a hash
+    of the row's frames or mel and its prompt) and results, in order."""
+    import hashlib
+    run = batcher._run_batch
+    seen = []
+
+    def recorded(batch):
+        keys = [hashlib.sha1((r.frames if r.frames is not None else r.mel)
+                             .tobytes() + bytes(str(r.prompt), "ascii"))
+                .hexdigest() for r in batch]
+        run(batch)
+        seen.append((keys, [r.future.result() for r in batch]))
+
+    batcher._run_batch = recorded
+    return seen
+
+
+def compare_runs(plain, spec, eot, sample_len, n_text_ctx):
+    """Hold every row of the speculative run's batches against the same
+    row (same audio and prompt) of the sequential run's. ``plain``/
+    ``spec``: (batch log, tap segments); a batch decodes at most
+    ``sample_len`` tokens and no more than its prompt width leaves of
+    ``n_text_ctx``. Returns (equal rows, near-ties [(row, first
+    difference, gap, D)], rows not comparable, failures, largest D)."""
+    (pbatches, psegs), (sbatches, ssegs) = plain, spec
+    where = {k: (bi, ri) for bi, (keys, _) in enumerate(pbatches)
+             for ri, k in enumerate(keys)}
+    equal, ties, apart, bad, d_max = 0, [], 0, [], 0.0
+    for bi, (keys, results) in enumerate(sbatches):
+        for ri, k in enumerate(keys):
+            if k not in where:       # its prompt follows an earlier tie
+                apart += 1
+                continue
+            pbi, pri = where[k]
+            p_max = ssegs[bi][0][0].shape[1]
+            same, first, gap, d = near_tie(
+                (pbatches[pbi][1][pri], psegs[pbi], pri),
+                (results[ri], ssegs[bi], ri), eot,
+                min(sample_len, n_text_ctx - p_max))
+            d_max = max(d_max, d)
+            if same:
+                equal += 1
+            elif gap <= d:
+                ties.append((f"{bi}.{ri}", first, gap, d))
+            else:
+                bad.append((f"{bi}.{ri}", first, gap, d))
+    return equal, ties, apart, bad, d_max
+
+
+def _tie_line(equal, ties, apart, bad, d_max):
+    ok = not bad and equal + len(ties) > 0
+    return ok, (f"rows equal {equal}, near-ties {len(ties)} "
+                + "".join(f"[row {r} from token {e}: gap {g:.4f} <= D "
+                          f"{d:.4f}] " for r, e, g, d in ties)
+                + f"not comparable {apart}, failing {len(bad)} "
+                + "".join(f"[row {r} from token {e}: gap {g:.4f} > D "
+                          f"{d:.4f}] " for r, e, g, d in bad)
+                + f"(largest D {d_max:.4f})")
+
+
+def _direct_pair(qeng, xa, prompts, tables, opts, **spec):
+    """The sequential and the speculative decode of one batch of encoder
+    states, both tapped: ((batch log, segments), ...) as compare_runs
+    takes them, and the speculative handle's pass count."""
+    import hashlib
+    from nobs_whisper_torch.decode import greedy
+    keys = [hashlib.sha1(bytes(str(i), "ascii")).hexdigest()
+            for i in range(len(prompts))]
+    out = []
+    for kw in ({}, spec):
+        with LogitTap() as tap:
+            h = greedy.decode_window_dispatch(
+                qeng.params, xa, prompts, qeng.cfg, tables, opts,
+                compute_dtype=qeng.compute_dtype, **kw)
+            res = greedy.decode_window_finalize(h)
+        out.append(([(keys, res)], tap.segments()))
+    return out[0], out[1], h[5]
+
+
+def reference_speculative(dev):
+    """Speculative greedy on small models on the card, f32 with TF32 off:
+    the golden model's tokens (K = 1 and 3, pool 1 and 2) equal its golden
+    greedy ``tokens``; a d=128 dh=64 int8 model's speculative tokens and
+    pass counts on the card equal its CPU run's (three windows)."""
+    import numpy as np
+    import torch
+    from nobs_whisper_torch.decode.rules import DecodeOptions, build_rule_tables
+    from nobs_whisper_torch.decode.speculative import decode_window_speculative
+    from nobs_whisper_torch.models import whisper as mw
+    from nobs_whisper_torch.ops.quant import quantize_decoder_params
+    from nobs_whisper_torch.utils.testing import tiny_test_config
+    z, params, cfg = _load_goldens(dev)
+    tables = build_rule_tables(cfg, DecodeOptions(suppress_blank=True))
+    xa = torch.from_numpy(z["xa"]).to(dev)
+    want = z["greedy_tokens"].tolist()
+    ok = True
+    for k, pool in ((1, 1), (1, 2), (3, 1), (3, 2)):
+        res, passes = decode_window_speculative(
+            params, xa, [z["prompt"].tolist()], cfg, tables, k_draft=k,
+            draft_pool=pool, return_passes=True)
+        this = res[0].tokens == want
+        log(f"[reference] speculative K={k} pool {pool} on the f32 golden "
+            f"model: tokens {len(res[0].tokens)} equal the golden greedy "
+            f"tokens {this}, passes {passes} -> {'PASS' if this else 'FAIL'}")
+        ok &= this
+
+    cfg = tiny_test_config(d=128, heads=2, n_audio_ctx=160, n_text_ctx=64)
+    params = quantize_decoder_params(mw.init_params(DEC_SEED, cfg))
+    to_dev = lambda t: ({k: to_dev(v) for k, v in t.items()}
+                        if isinstance(t, dict) else t.to(dev))
+    xa = torch.from_numpy(np.random.RandomState(6).randn(
+        3, cfg.n_audio_ctx, cfg.n_audio_state).astype(np.float32))
+    prompts = [[cfg.sot, cfg.lang_base + i, cfg.transcribe]
+               for i in range(3)]
+    tables = build_rule_tables(cfg, DecodeOptions())
+    got, p_got = decode_window_speculative(
+        to_dev(params), xa.to(dev), prompts, cfg, tables, k_draft=3,
+        draft_pool=4, return_passes=True)
+    ref, p_ref = decode_window_speculative(
+        params, xa, prompts, cfg, tables, k_draft=3, draft_pool=4,
+        return_passes=True)
+    same = [r.tokens for r in got] == [r.tokens for r in ref] \
+        and p_got == p_ref
+    log(f"[reference] speculative K=3 pool 4 on a d=128 dh=64 int8 model at "
+        f"f32, three windows, card vs CPU: tokens {[len(r.tokens) for r in got]}"
+        f" equal {same}, passes {p_got} vs {p_ref} -> "
+        f"{'PASS' if same else 'FAIL'}")
+    return ok and same
+
+
+def phase_speculative(card, qeng, eng):
+    """Exact speculative greedy on the card at large-v3-turbo's width, the
+    int8 engine ``qeng``, self-draft over 4x pooled cross-KV, K=3, ladder
+    off; counts set to 0 just before each path and read just after it.
+
+    * the serving path: ``BatchedEngine(qeng, max_batch=8,
+      speculative=3)``, one wave of five fixed-language windows and one
+      auto-language window, then a 45 s long-form request; the same
+      requests through the non-speculative ``BatchedEngine`` (both collect
+      for 250 ms, so that a wave is one batch in each). Every row's tokens
+      equal the sequential run's or differ by a near-tie
+      (:func:`near_tie`). K1 = K2 = 32 x encoder batches, K4 = K5 = K6 =
+      0; ``emitted_per_pass`` by ``/stats``'s formula;
+    * under ``NWT_Q8_KERNEL_MIN_BYTES=1`` one batch at B=1 and one at B=8:
+      K6's decode-kernel and prefill-kernel launches as the gates predict
+      from the draft, verify and tail forwards run;
+    * a second-model draft, ``from_random("distil-large-v3")`` quantized:
+      one batch at B=4 held by the near-tie rule; then one batch under
+      ``NWT_XATTN_KERNEL=1`` (K4 once a layer in each tail forward, none
+      on draft or verify forwards) and one on int8 cross-KV under
+      ``NWT_Q8_KV_PALLAS=1`` (K5 the same way), both with this draft,
+      whose low acceptance runs the tail; ``distil-small.en`` is refused
+      (``draft model incompatible``);
+    * a perfect self-draft (pool 1): the pass count;
+    * ms per emitted token, speculative and greedy on the same encoder
+      states, at B=1 and B=8 (96 tokens);
+    * one request under ``torch.profiler`` (64 tokens): the idle share."""
+    import types
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nobs_whisper_torch.api import WhisperEngine
+    from nobs_whisper_torch.core.config import get_config
+    from nobs_whisper_torch.decode import greedy
+    from nobs_whisper_torch.decode.rules import DecodeOptions, build_rule_tables
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+
+    cfg = qeng.cfg
+    n_enc, n_dec = cfg.n_audio_layer, cfg.n_text_layer
+    sample_len = cfg.n_text_ctx // 2
+    eot = cfg.eot
+    opts = DecodeOptions(temperature_increment=0.0)
+    t_phase = time.perf_counter()
+    launches = {}
+    wave = _beam_wave() + [("longform-45s", speech_like_audio(45.0, seed=8),
+                            "en")]
+
+    # --- the serving path, speculative and sequential -----------------------
+    runs = {}
+    for name, kw in (("speculative", dict(speculative=SPEC_K,
+                                          draft_pool=SPEC_POOL)),
+                     ("sequential", {})):
+        be = BatchedEngine(qeng, opts=opts, max_batch=8,
+                           max_wait_ms=SPEC_WAIT_MS, **kw)
+        batches = _batch_log(be.batcher)
+        try:
+            reset_counts()
+            with LogitTap() as tap:
+                t0 = time.perf_counter()
+                ok_w = _run_wave(be, wave[:-1], card)
+                ok_w &= _run_wave(be, wave[-1:], card)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            c = read_counts()
+        finally:
+            be.close()
+        runs[name] = (batches, tap.segments(), c, wall, ok_w,
+                      list(be.batcher.spec_stats), be.batcher.batch_sizes)
+    sb, ss, c, wall, ok, stats, sizes = runs["speculative"]
+    pb, ps, _, p_wall, p_ok, _, p_sizes = runs["sequential"]
+    ok &= p_ok
+    aligned = len(ss) == len(sb) and len(ps) == len(pb)
+    tie_ok, tie_line = _tie_line(*compare_runs(
+        (pb, ps), (sb, ss), eot, sample_len, cfg.n_text_ctx))
+    del runs, ss, ps
+    torch.cuda.empty_cache()
+    batches_n = c["batches"]
+    want = n_enc * batches_n
+    counts_ok = (batches_n > 0 and c["K1"] == c["K2"] == want
+                 and c["K3"] == c["K9"] == c["K2-f32"] == 0
+                 and c["K4"] == c["K5"] == c["K6"] == 0
+                 and no_knob_kernels(c))
+    emitted = sum(e for _, _, e in stats)
+    pass_rows = sum(p * r for p, r, _ in stats)
+    epp = emitted / max(pass_rows, 1)
+    log(f"[speculative] {card}: serving wall {wall:.2f} s (sequential "
+        f"{p_wall:.2f} s); batch sizes {sizes} (sequential {p_sizes}); "
+        f"encoder batches {batches_n}; launches {_launch_summary(c)} (want "
+        f"K1 = K2 = {n_enc} x {batches_n} = {want}, K4 = K5 = K6 = 0); "
+        f"spec_stats (passes, rows, emitted) {stats}: emitted_per_pass "
+        f"{epp:.3f} -> {'PASS' if counts_ok and ok else 'FAIL'}")
+    log(f"[speculative] {card}: served rows against the sequential run: "
+        f"{tie_line}; taps aligned {aligned} -> "
+        f"{'PASS' if tie_ok and aligned else 'FAIL'}")
+    ok &= counts_ok and tie_ok and aligned and bool(stats)
+    launches.update(K1=c["K1"], K2=c["K2"])
+
+    # --- direct batches ----------------------------------------------------
+    prompt = qeng.tokenizer.sot_sequence(language="en")
+    tables = build_rule_tables(cfg, opts, qeng.tokenizer, device=qeng.device)
+    xa8 = _windows_xa(qeng, 8, seed=60)
+
+    def batch(b, n, names=(), q8=False, **kw):
+        o = DecodeOptions(sample_len=n, temperature_increment=0.0,
+                          q8_cross_kv=q8)
+        reset_counts()
+        with knobs(names):
+            h = greedy.decode_window_dispatch(
+                qeng.params, xa8[:b], [prompt] * b, cfg, tables, o,
+                compute_dtype=qeng.compute_dtype, speculative=SPEC_K, **kw)
+            res = greedy.decode_window_finalize(h)
+            torch.cuda.synchronize()
+        return res, h[5], read_counts()
+
+    def phases(fw):
+        return {k: sum(n for key, n in fw.items() if pred(*key))
+                for k, pred in (
+                    ("draft", lambda lay, b, s: lay == "plain" and s == 1),
+                    ("verify", lambda lay, b, s: lay != "plain"
+                     and s == SPEC_K + 1),
+                    ("tail", lambda lay, b, s: lay != "plain" and s == 1))}
+
+    k6 = 0
+    for b in (1, 8):
+        _, passes, c = batch(b, 32, ("NWT_Q8_KERNEL_MIN_BYTES",))
+        pred = predicted_decode_launches(c["forwards"], n_dec)
+        this = (c["K6"] == pred["K6"] and c["K6-decode"] == pred["K6-decode"]
+                and c["K6"] > 0 and c["K4"] == c["K5"] == 0)
+        log(f"[speculative] {card}: NWT_Q8_KERNEL_MIN_BYTES=1, one batch at "
+            f"B={b} (32 tokens, {passes} passes): forwards {phases(c['forwards'])}"
+            f" {c['forwards']}; K6 {c['K6']} of which decode kernel "
+            f"{c['K6-decode']}, prefill kernel {c['K6'] - c['K6-decode']} "
+            f"(want {pred['K6']}, decode {pred['K6-decode']}) -> "
+            f"{'PASS' if this else 'FAIL'}")
+        ok &= this
+        k6 += c["K6"]
+    launches["K6"] = k6
+
+    # the second-model draft: distil-large-v3's width and vocabulary
+    t0 = time.perf_counter()
+    distil = WhisperEngine.from_random(DRAFT_MODEL, seed=1,
+                                       device=qeng.device).quantize()
+    torch.cuda.synchronize()
+    dr = (distil.params, distil.cfg)
+    log(f"[speculative] {card}: draft {DRAFT_MODEL} (d="
+        f"{distil.cfg.n_text_state}, {distil.cfg.n_text_layer} decoder "
+        f"layers, vocab {distil.cfg.n_vocab}), random weights from seed 1, "
+        f"int8: built in {time.perf_counter() - t0:.1f} s")
+    d_opts = DecodeOptions(sample_len=64, temperature_increment=0.0)
+    seq, spec, passes = _direct_pair(qeng, xa8[:4], [prompt] * 4, tables,
+                                     d_opts, speculative=SPEC_K, draft=dr)
+    d_ok, d_line = _tie_line(*compare_runs(seq, spec, eot, 64,
+                                           cfg.n_text_ctx))
+    emitted = sum(len(_emitted(r, eot, 64)) for r in spec[0][0][1])
+    log(f"[speculative] {card}: distil-large-v3 drafting, one batch at B=4 "
+        f"(64 tokens): {passes} passes, emitted_per_pass "
+        f"{emitted / (passes * 4):.3f}; {d_line} -> "
+        f"{'PASS' if d_ok else 'FAIL'}")
+    ok &= d_ok
+    del seq, spec
+    for key, names, q8 in (("K4", ("NWT_XATTN_KERNEL",), False),
+                           ("K5", ("NWT_Q8_KV_PALLAS",), True)):
+        _, passes, c = batch(2, 32, names, q8=q8, draft=dr)
+        ph = phases(c["forwards"])
+        pred = predicted_decode_launches(c["forwards"], n_dec)
+        this = (c[key] == pred[key] == n_dec * ph["tail"] and ph["tail"] > 0
+                and c["K6"] == 0 and c["K4" if key == "K5" else "K5"] == 0)
+        log(f"[speculative] {card}: {names[0]}=1"
+            f"{' on int8 cross-KV' if q8 else ''}, distil draft, one batch "
+            f"at B=2 (32 tokens, {passes} passes): forwards {ph} "
+            f"{c['forwards']}; {key} {c[key]} (want {n_dec} x tail "
+            f"forwards {ph['tail']} = {n_dec * ph['tail']}, none on draft "
+            f"and verify forwards) -> {'PASS' if this else 'FAIL'}")
+        ok &= this
+        launches[key] = c[key]
+    del distil, dr
+    torch.cuda.empty_cache()
+    small = types.SimpleNamespace(params=None,
+                                  cfg=get_config("distil-small.en"))
+    try:
+        BatchedEngine(qeng, speculative=SPEC_K, draft_engine=small).close()
+        msg = "not refused"
+    except ValueError as e:
+        msg = str(e)
+    r_ok = msg.startswith("draft model incompatible")
+    log(f"[speculative] {card}: distil-small.en as the draft: {msg} -> "
+        f"{'PASS' if r_ok else 'FAIL'}")
+    ok &= r_ok
+
+    # --- a perfect self-draft, and ms per emitted token --------------------
+    res, passes, _ = batch(8, 96, draft_pool=1)
+    emitted = sum(len(_emitted(r, eot, 96)) for r in res)
+    log(f"[speculative] {card}: perfect self-draft (pool 1), B=8, 96 tokens: "
+        f"{passes} passes for {emitted} tokens, emitted_per_pass "
+        f"{emitted / (passes * 8):.3f}")
+    o96 = DecodeOptions(sample_len=96, temperature_increment=0.0)
+
+    def decode(b, **kw):
+        h = greedy.decode_window_dispatch(
+            qeng.params, xa8[:b], [prompt] * b, cfg, tables, o96,
+            compute_dtype=qeng.compute_dtype, **kw)
+        return greedy.decode_window_finalize(h), (h[5] if kw else None)
+
+    per_tok = {}
+    for b in (1, 8):
+        timed = {}
+        for name, kw in (("greedy", {}), ("speculative",
+                                          dict(speculative=SPEC_K,
+                                               draft_pool=SPEC_POOL))):
+            (res, n_pass), dt = _timed(lambda: decode(b, **kw))
+            # a row's emitted tokens: ms per token as one stream sees it
+            n_tok = sum(len(_emitted(r, eot, 96)) for r in res) / b
+            timed[name] = (dt * 1e3 / n_tok, n_pass)
+        per_tok[b] = timed
+    log(f"[speculative] {card}: ms per emitted token (a row's; 96 tokens, "
+        f"prefill and cross-KV included; speculative K={SPEC_K} pool "
+        f"{SPEC_POOL}): B=1 speculative {per_tok[1]['speculative'][0]:.2f} "
+        f"({per_tok[1]['speculative'][1]} passes) vs greedy "
+        f"{per_tok[1]['greedy'][0]:.2f}; B=8 speculative "
+        f"{per_tok[8]['speculative'][0]:.2f} "
+        f"({per_tok[8]['speculative'][1]} passes) vs greedy "
+        f"{per_tok[8]['greedy'][0]:.2f}")
+    del xa8
+    torch.cuda.empty_cache()
+
+    # --- one request under the profiler -------------------------------------
+    one = BatchedEngine(qeng, opts=DecodeOptions(
+        sample_len=64, temperature_increment=0.0), max_batch=8,
+        speculative=SPEC_K, draft_pool=SPEC_POOL)
+    idle = float("nan")
+    try:
+        req = _request_audio()[0][1]               # en-12s, as in [serve]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _run_wave(one, [req], card)
+            torch.cuda.synchronize()
+            p_wall = time.perf_counter() - t0
+        ka = prof.key_averages()
+        attr = ("self_device_time_total"
+                if hasattr(ka[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        busy = sum(getattr(e, attr) for e in ka) / 1e6
+        idle = max(0.0, 1 - busy / p_wall)
+        top = sorted(ka, key=lambda e: -getattr(e, attr))[:6]
+        prof_line = (f"wall {p_wall:.3f} s, device busy {busy:.3f} s, idle "
+                     f"share {idle:.3f}; passes {one.batcher.spec_stats}; "
+                     "largest device rows: " + "; ".join(
+                         f"{getattr(e, attr) / 1e3:.2f} ms {e.count}x "
+                         f"{e.key[:60]}" for e in top))
+    except Exception as e:          # reported, not fatal: a measurement
+        prof_line = f"not measured: {e!r}"
+    finally:
+        one.close()
+    log(f"[speculative] {card}: profiled request (en-12s, 64 tokens): "
+        f"{prof_line}")
+    log(f"[speculative] {card}: launches {launches}, emitted_per_pass "
+        f"{epp:.3f}, idle share {idle:.3f}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s -> "
+        f"{'PASS' if ok else 'FAIL'}")
+    return ok, launches
+
+
+class WordSpy:
+    """Records each window's text tokens and its words (the list that
+    ``transcribe_mel`` then merges and refines in place) while installed
+    over ``decode/timing.py::find_word_timings``."""
+
+    def __enter__(self):
+        from nobs_whisper_torch.decode import timing
+        self.mod, self.real, self.windows = timing, timing.find_word_timings, []
+
+        def spy(params, cfg, tokenizer, xa, text_tokens, *a, **kw):
+            words = self.real(params, cfg, tokenizer, xa, text_tokens, *a,
+                              **kw)
+            self.windows.append((list(text_tokens), words))
+            return words
+
+        timing.find_word_timings = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.find_word_timings = self.real
+
+
+def _words_check(r, windows, cfg):
+    """A word-timestamp result is well formed: each window's words' tokens
+    are its text tokens in order, the words start in order and end after
+    they start, every segment carries its words, and each lies inside its
+    segment. Returns (ok, words)."""
+    words = [w for _, ws in windows for w in ws]
+    concat = all([t for w in ws for t in w.tokens]
+                 == [t for t in toks if t < cfg.eot] for toks, ws in windows)
+    mono = all(b.start >= a.start - 1e-6 for a, b in zip(words, words[1:])) \
+        and all(w.start <= w.end + 1e-6 for w in words)
+    segs = r.segments
+    inside = all(s.words is not None for s in segs) and all(
+        s.start - 1e-6 <= w.start and w.end <= s.end + 1e-6
+        for s in segs for w in s.words)
+    return bool(words) and concat and mono and inside, words
+
+
+def reference_words(dev):
+    """The golden model on the card against the CPU at f32 (TF32 off): the
+    alignment scores of its greedy tokens within ``WORD_TOL``, and the
+    word boundaries equal. The goldens carry no tokenizer: a vocabulary in
+    which every piece starts with a space makes each token a word, so
+    every token's boundaries are compared."""
+    import torch
+    from nobs_whisper_torch.core.tokenizer import WhisperTokenizer
+    from nobs_whisper_torch.decode.timing import (alignment_scores,
+                                                  default_alignment_heads,
+                                                  find_word_timings)
+    cpu = torch.device("cpu")
+    (z, p_dev, cfg), (_, p_cpu, _) = _load_goldens(dev), _load_goldens(cpu)
+    tok = WhisperTokenizer([b" t%d" % i for i in range(cfg.eot)], cfg)
+    prompt = z["prompt"].tolist()
+    text = [t for t in z["greedy_tokens"].tolist() if t < cfg.eot]
+    toks = torch.tensor([prompt + text + [cfg.eot]])
+    heads = tuple(default_alignment_heads(cfg))
+    xa = torch.from_numpy(z["xa"])
+    got = alignment_scores(p_dev, toks.to(dev), xa.to(dev), cfg, heads)
+    ref = alignment_scores(p_cpu, toks, xa, cfg, heads)
+    err = (got.cpu() - ref).abs().max().item()
+    words = [[(w.word, w.tokens, w.start, w.end) for w in find_word_timings(
+        p, cfg, tok, x, text, prompt, num_frames=2 * cfg.n_audio_ctx)]
+        for p, x in ((p_dev, xa.to(dev)), (p_cpu, xa))]
+    ok = err <= WORD_TOL and words[0] == words[1] and bool(words[0])
+    log(f"[words] alignment scores of the f32 golden model ({len(heads)} "
+        f"heads x {toks.shape[1]} tokens x {cfg.n_audio_ctx}), card vs CPU: "
+        f"max_abs_err {err:.3e} (tol {WORD_TOL}); words {len(words[0])}, "
+        f"boundaries equal {words[0] == words[1]} -> "
+        f"{'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_words(card, qeng, eng):
+    """Word timestamps on the card at large-v3-turbo's width (ladder off):
+    ``transcribe`` of the 12 s clip with ``word_timestamps=True`` on the
+    unquantized bf16 engine (K3 = 32 x encoder batches) and on the int8
+    engine (K1 = K2 = 32 x encoder batches): words well formed
+    (:func:`_words_check`); the golden model's alignment on the card
+    against the CPU (:func:`reference_words`); one ``POST
+    /transcribe?word_timestamps=1`` on the int8 serving path answers 200
+    with words (its options are the server's defaults: the ladder runs)."""
+    import json as _json
+    import tempfile
+    import urllib.request
+    import torch
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    from nobs_whisper_torch.serve.server import serve
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+
+    t_phase = time.perf_counter()
+    cfg = eng.cfg
+    n_enc = cfg.n_audio_layer
+    clip = speech_like_audio(12.0, seed=21)
+    opts = DecodeOptions(word_timestamps=True, temperature_increment=0.0)
+    ok, launches = True, {}
+    for name, e, kern in (("unquantized bf16", eng, ("K3",)),
+                          ("int8", qeng, ("K1", "K2"))):
+        reset_counts()
+        t0 = time.perf_counter()
+        with WordSpy() as spy:
+            r = e.transcribe(clip, language="en", opts=opts)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = read_counts()
+        w_ok, words = _words_check(r, spy.windows, cfg)
+        want = n_enc * c["batches"]
+        others = {"K1", "K2", "K3", "K9"} - set(kern)
+        k_ok = (c["batches"] > 0 and all(c[k] == want for k in kern)
+                and not any(c[k] for k in others)
+                and c["K4"] == c["K5"] == c["K6"] == 0 and no_knob_kernels(c))
+        log(f"[words] {card}: {name} transcribe of a 12 s clip with "
+            f"word_timestamps: {dt:.2f} s, segments {len(r.segments)}, "
+            f"windows {len(spy.windows)}, words {len(words)} (the first "
+            f"three's bounds {[(w.start, w.end) for w in words[:3]]}), well "
+            f"formed {w_ok}; launches {_launch_summary(c)} (want "
+            f"{' = '.join(kern)} = {n_enc} x {c['batches']} = {want}) -> "
+            f"{'PASS' if w_ok and k_ok else 'FAIL'}")
+        ok &= w_ok and k_ok
+        for k in kern:
+            launches[k] = c[k]
+    ok &= reference_words(qeng.device)
+
+    tmp = tempfile.TemporaryDirectory(prefix="nwt-home-")
+    old_home = os.environ.get("NOBS_WHISPER_TPU_HOME")
+    os.environ["NOBS_WHISPER_TPU_HOME"] = tmp.name
+    be = BatchedEngine(qeng, opts=DecodeOptions(temperature_increment=0.0),
+                       max_batch=8)
+    port = _free_port()
+    httpd = serve(be, host="127.0.0.1", port=port, background=True)
+    try:
+        audio = speech_like_audio(5.0, seed=5)
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/transcribe?language=en"
+            "&word_timestamps=1", data=audio.tobytes(), method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            code, body = resp.status, _json.loads(resp.read())
+        dt = time.perf_counter() - t0
+        words = [w for s in body["segments"] for w in s["words"] or ()]
+        s_ok = code == 200 and bool(words) and all(
+            s["words"] is not None for s in body["segments"])
+        log(f"[words] {card}: POST /transcribe?word_timestamps=1 (5 s, int8 "
+            f"serving engine, the ladder on): {code} in {dt:.2f} s, segments "
+            f"{len(body['segments'])}, words {len(words)} -> "
+            f"{'PASS' if s_ok else 'FAIL'}")
+        ok &= s_ok
+    finally:
+        httpd.shutdown()
+        be.close()
+        if old_home is None:
+            os.environ.pop("NOBS_WHISPER_TPU_HOME", None)
+        else:
+            os.environ["NOBS_WHISPER_TPU_HOME"] = old_home
+        tmp.cleanup()
+    log(f"[words] {card}: launches {launches}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s -> "
+        f"{'PASS' if ok else 'FAIL'}")
+    return ok, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3549,6 +4226,13 @@ def main():
         took(name)
     ok &= phase_router(card)
     took("router")
+    for name, phase in (("speculative", phase_speculative),
+                        ("words", phase_words)):
+        phase_ok, counts = phase(card, qeng, eng)
+        ok &= phase_ok
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+        took(name)
     entries = []
     for key, e in kern.items():
         e = dict(e)

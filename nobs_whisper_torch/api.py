@@ -60,8 +60,7 @@ class WhisperEngine:
     model_path: Optional[str] = None
     # tuned (layer, head) word-timestamp alignment heads from checkpoint
     # metadata (HF generation_config.json, or a ``<model>.alignment_heads
-    # .json`` sidecar next to a GGML file); None = heuristic fallback.
-    # Carried for the word-timing slice (ROADMAP.md queue 1, item 10)
+    # .json`` sidecar next to a GGML file); None = heuristic fallback
     alignment_heads: Optional[List[tuple]] = None
     # the card unless the caller asks for the CPU (resolve_device raises
     # when there is no card)
@@ -230,7 +229,8 @@ class WhisperEngine:
             self.params, mel, content_frames, self.cfg, self.tokenizer,
             opts, initial_prompt_tokens=self.build_initial_prompt(
                 vocabulary, context),
-            compute_dtype=self.compute_dtype, device=self.device)
+            compute_dtype=self.compute_dtype, device=self.device,
+            alignment_heads=self.alignment_heads)
         return TranscribeResult(text=filter_hallucinations(result.text),
                                 segments=result.segments,
                                 language=result.language)

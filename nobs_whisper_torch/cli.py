@@ -4,10 +4,12 @@ Usage:
   python -m nobs_whisper_torch.cli transcribe FILE... [--model PATH|ID]
       [--dtype bfloat16|float32] [--language L] [--task transcribe|translate]
       [--batch N] [--json] [--output-format txt|srt|vtt|tsv|json]
-      [--output PATH] [--device cuda|cpu]
+      [--output PATH] [--device cuda|cpu] [--word-timestamps]
+      [--speculative K [--draft-pool P]]
   python -m nobs_whisper_torch.cli serve [--host H] [--port P]
       [--model PATH|ID] [--batch N] [--quant int8|none] [--warmup]
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--speculative K [--draft-pool P]
+      [--draft-model PATH|ID]]
   python -m nobs_whisper_torch.cli route --backends URL[,URL...]
       [--manage CMD]... [--restart-interval-s S] [--rss-watermark-mb MB]
   python -m nobs_whisper_torch.cli models list|download|delete [ID]
@@ -17,11 +19,13 @@ As the JAX package's verbs. ``--model`` takes a GGML ``.bin`` path or an
 id of the registry (``serve/models.py``), and falls back to the configured
 ``selected_model``. Every verb that loads a model runs on the card unless
 ``--device cpu`` is given; with no card it raises. ``transcribe
---beam-size K`` and a configured ``beam_size`` decode by beam search.
-``route`` fronts N ``serve`` backends (one process each, one card each);
-with ``--manage`` it spawns and rolling-restarts them. Word timestamps,
-speculative decoding and mesh serving are later slices of the port:
-asking for them raises.
+--beam-size K`` and a configured ``beam_size`` decode by beam search;
+``--speculative K`` decodes greedy batches by exact speculative greedy
+(the model drafting for itself over ``--draft-pool`` x pooled cross-KV,
+or ``serve --draft-model``). ``route`` fronts N ``serve`` backends (one
+process each, one card each); with ``--manage`` it spawns and
+rolling-restarts them. Mesh serving is a later slice of the port: asking
+for it raises.
 """
 
 from __future__ import annotations
@@ -73,9 +77,15 @@ def cmd_transcribe(args):
         compression_ratio_threshold=args.compression_ratio_threshold,
         timestamps=not args.no_timestamps,
         word_timestamps=args.word_timestamps,
-        speculative=max(args.speculative, 0))
+        speculative=max(args.speculative, 0),
+        draft_pool=(max(args.draft_pool, 1)
+                    if args.draft_pool is not None else 4))
     files = args.file
     batch = max(args.batch, 1)
+    if batch > 1 and args.word_timestamps:
+        print("--word-timestamps needs the sequential path; "
+              "ignoring --batch", file=sys.stderr)
+        batch = 1
     batched = None
     if batch > 1 and len(files) > 1:
         from .pipeline.batched_engine import BatchedEngine
@@ -177,10 +187,6 @@ def cmd_serve(args):
     if args.mesh:
         raise NotImplementedError(
             "mesh serving is not ported yet (ROADMAP.md queue 1, item 11)")
-    if args.speculative or args.draft_model:
-        raise NotImplementedError(
-            "speculative decoding is not ported yet (ROADMAP.md queue 1, "
-            "item 9)")
     cm = ConfigManager()
     explicit_batch = args.batch       # 0 = auto (per-model default)
 
@@ -217,7 +223,40 @@ def cmd_serve(args):
                 best_of=max(app.best_of, 1),
                 temperature=float(app.temperature),
                 task=str(app.task or "transcribe"), **okw)
-            engine = BatchedEngine(engine, opts=opts, max_batch=batch)
+            speculative = args.speculative
+            if speculative and beam_k > 1:
+                print("--speculative applies to greedy batches only; the "
+                      "configured beam strategy routes batches through "
+                      "the beam path — ignoring", file=sys.stderr)
+                speculative = 0
+            draft_engine = None
+            if speculative and args.draft_model:
+                # the draft scores the TARGET's encoder states: its
+                # vocabulary and encoder width must match (checked again
+                # on a /config hot-swap, which re-pairs the fixed draft)
+                draft_engine = _load_engine(args.draft_model, args.dtype,
+                                            args.device,
+                                            audio_ctx=args.audio_ctx)
+                tc, dc = engine.cfg, draft_engine.cfg
+                if (tc.n_vocab != dc.n_vocab
+                        or tc.n_audio_state != dc.n_audio_state):
+                    print(f"draft {args.draft_model} incompatible with "
+                          f"target {mid} (vocab {dc.n_vocab} vs "
+                          f"{tc.n_vocab}, width {dc.n_audio_state} vs "
+                          f"{tc.n_audio_state}); disabling speculative "
+                          "decode for this engine", file=sys.stderr)
+                    draft_engine = None
+                    speculative = 0
+                elif args.quant == "int8":
+                    draft_engine = draft_engine.quantize()
+            elif args.draft_model:
+                print("--draft-model needs --speculative; ignoring",
+                      file=sys.stderr)
+            engine = BatchedEngine(engine, opts=opts, max_batch=batch,
+                                   speculative=speculative,
+                                   draft_pool=getattr(args, "draft_pool",
+                                                      None),
+                                   draft_engine=draft_engine)
             if warmup:
                 import time
                 t0 = time.perf_counter()
@@ -226,8 +265,11 @@ def cmd_serve(args):
                 sizes = engine.warmup()
                 print(f"warmup done: sizes {sizes} in "
                       f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
-        elif warmup:
-            print("--warmup applies to batched serving (--batch > 1); "
+        elif warmup or args.speculative:
+            flags = " ".join(f for f, on in
+                             (("--warmup", warmup),
+                              ("--speculative", args.speculative)) if on)
+            print(f"{flags} applies to batched serving (--batch > 1); "
                   "ignoring", file=sys.stderr)
         return engine
 
@@ -344,7 +386,12 @@ def main(argv=None):
     t.add_argument("--no-speech-threshold", type=float, default=0.6)
     t.add_argument("--compression-ratio-threshold", type=float,
                    default=2.4)
-    t.add_argument("--speculative", type=int, default=0, metavar="K")
+    t.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="exact speculative greedy decode (K drafted "
+                        "tokens a pass, token-identical output; 0 = off)")
+    t.add_argument("--draft-pool", type=int, default=None, metavar="P",
+                   help="cross-KV time pooling of the self-draft "
+                        "(--speculative; default 4)")
     t.add_argument("--output-format",
                    choices=["txt", "srt", "vtt", "tsv", "json"],
                    default=None)
@@ -375,9 +422,18 @@ def main(argv=None):
     s.add_argument("--mesh", default=None, metavar="DPxTP",
                    help="not ported yet (raises)")
     s.add_argument("--speculative", type=int, default=0, metavar="K",
-                   help="not ported yet (raises)")
+                   help="exact speculative greedy decode with K drafted "
+                        "tokens a pass (token-identical output; 0 = off). "
+                        "Default draft: the model itself over 4x "
+                        "time-pooled cross-KV")
+    s.add_argument("--draft-pool", type=int, default=None, metavar="P",
+                   help="cross-KV time pooling of the self-draft "
+                        "(--speculative)")
     s.add_argument("--draft-model", default=None, metavar="ID|PATH",
-                   help="not ported yet (raises)")
+                   help="second-model draft for --speculative (e.g. "
+                        "distil-large-v3 drafting large-v3-turbo; must "
+                        "share the vocabulary and encoder width), "
+                        "quantized like the target")
     s.add_argument("--audio-ctx", type=int, default=0, metavar="N",
                    help="truncate the encoder context to N positions for "
                         "every session/window; 0 = full context")

@@ -23,9 +23,8 @@ from ..core.config import WhisperConfig
 from ..models.whisper import (decoder_forward, init_kv_cache,
                               precompute_cross_kv, precompute_cross_kv_q8,
                               xattn_kernel_enabled)
-from ..ops.attention_pallas import pack_cross_kv_bf16
-from .rules import (DecodeOptions, RuleTables, apply_logit_rules_scored,
-                    check_supported)
+from ..ops.attention_pallas import pack_cross_kv_bf16, quantize_cross_kv
+from .rules import DecodeOptions, RuleTables, apply_logit_rules_scored
 
 _EXIT_CHECK = 8
 
@@ -83,6 +82,27 @@ def _sample(masked: torch.Tensor, temperature: torch.Tensor,
     return torch.argmax(masked / temp - torch.log(-torch.log(u)), dim=-1)
 
 
+def window_cross_kv(params, xa: torch.Tensor, cfg: WhisperConfig,
+                    q8_kv: bool, xattn_bf16: bool, raw=None):
+    """The decode loop's cross-KV: int8 with ``q8_kv`` (projected and
+    quantized one layer at a time unless ``raw``, the projected K/V, is
+    given), else packed bf16 with ``xattn_bf16``, else plain."""
+    if q8_kv:
+        if raw is not None:
+            return quantize_cross_kv(raw)
+        return precompute_cross_kv_q8(params, xa, cfg)
+    if raw is None:
+        raw = precompute_cross_kv(params, xa, cfg)
+    if not xattn_bf16:
+        return raw
+    kT, v = pack_cross_kv_bf16(raw)
+    if not xattn_kernel_enabled():
+        # without K4 (which reads bf16) the scores/PV run on f32 copies of
+        # the bf16 values, made once per window instead of once per step
+        return {"kT": kT["kT"].float()}, {"v": v["v"].float()}
+    return kT, v
+
+
 @torch.inference_mode()
 def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
                        pad_lens: torch.Tensor, sot_idx: torch.Tensor,
@@ -92,23 +112,11 @@ def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
                        compute_dtype=torch.float32, q8_kv: bool = False,
                        xattn_bf16: bool = False, sampling: bool = True):
     """Returns (tokens (B, sample_len), n_sampled (B,), sum_logprob (B,),
-    no_speech_prob (B,)), all device tensors. Cross-KV layouts: int8 with
-    ``q8_kv`` (projected and quantized one layer at a time), else packed
-    bf16 with ``xattn_bf16``, else plain."""
+    no_speech_prob (B,)), all device tensors; the cross-KV layout is
+    :func:`window_cross_kv`'s."""
     b, p_max = prompt_tokens.shape
     dev = xa.device
-    if q8_kv:
-        cross_kv = precompute_cross_kv_q8(params, xa, cfg)
-    elif xattn_bf16:
-        kT, v = pack_cross_kv_bf16(precompute_cross_kv(params, xa, cfg))
-        cross_kv = (kT, v)
-        if not xattn_kernel_enabled():
-            # without K4 (which reads bf16) the scores/PV run on f32
-            # copies of the bf16 values, made once per window instead of
-            # once per step
-            cross_kv = ({"kT": kT["kT"].float()}, {"v": v["v"].float()})
-    else:
-        cross_kv = precompute_cross_kv(params, xa, cfg)
+    cross_kv = window_cross_kv(params, xa, cfg, q8_kv, xattn_bf16)
     t_cache = -(-(p_max + sample_len) // 8) * 8
     cache = init_kv_cache(cfg, b, dtype=compute_dtype,
                           t_ctx=min(t_cache, cfg.n_text_ctx), device=dev)
@@ -190,12 +198,24 @@ def decode_window_dispatch(
     compute_dtype=torch.float32,
     mel: Optional[torch.Tensor] = None,     # fuse encode
     frames: Optional[torch.Tensor] = None,  # fuse mel + encode
+    speculative: int = 0,        # K > 0: exact speculative greedy
+    draft_pool: int = 4,
+    draft=None,                  # (draft_params, draft_cfg); None = self
 ):
     """Pad prompts and run the window decode; returns the handle that
     :func:`decode_window_finalize` scores. Exactly one of ``xa``, ``mel``
-    and ``frames`` is given."""
-    check_supported(opts)
+    and ``frames`` is given.
+
+    With ``speculative`` K > 0 (or ``opts.speculative``; the explicit
+    argument wins, as does an explicit ``draft_pool`` other than 4) and
+    every row at temperature 0, the batch decodes by exact speculative
+    greedy (``decode/speculative.py``) and the handle gains a sixth
+    element, the pass count; rows above temperature 0 (ladder rungs) take
+    the sampling loop."""
     n = len(prompts)
+    speculative = speculative or opts.speculative
+    if draft_pool == 4 and opts.draft_pool != 4:
+        draft_pool = opts.draft_pool
     src = next(z for z in (frames, mel, xa) if z is not None)
     dev = src.device
     prompt_np, pad_np = pad_prompts(prompts, cfg.eot)
@@ -211,6 +231,25 @@ def decode_window_dispatch(
         generator = torch.Generator(device=dev).manual_seed(0)
     xattn_bf16 = (opts.xattn_bf16 or bool(os.environ.get("NWT_XATTN_BF16"))
                   or kt_xattn_default(compute_dtype))
+    if speculative > 0 and not sampling:
+        from . import speculative as sp
+        d_params, d_cfg = draft if draft is not None else (params, cfg)
+        common = (torch.as_tensor(prompt_np, dtype=torch.long, device=dev),
+                  torch.as_tensor(pad_np, dtype=torch.long, device=dev),
+                  torch.as_tensor(sot_np, device=dev), tables.to(dev), cfg,
+                  d_cfg, sample_len, speculative, draft_pool, compute_dtype,
+                  xattn_bf16, opts.q8_cross_kv, draft is None)
+        if frames is not None:
+            out = sp.frames_encode_decode_speculative_impl(
+                params, d_params, frames, *common)
+        elif mel is not None:
+            out = sp.encode_decode_speculative_impl(params, d_params, mel,
+                                                    *common)
+        else:
+            out = sp.decode_window_speculative_impl(params, d_params, xa,
+                                                    *common)
+        tokens, n_sampled, sum_lp, nsp, passes = out
+        return (tokens, n_sampled, sum_lp, nsp, temps, passes)
     args = (torch.as_tensor(prompt_np, dtype=torch.long, device=dev),
             torch.as_tensor(pad_np, dtype=torch.long, device=dev),
             torch.as_tensor(sot_np, device=dev), tables.to(dev),

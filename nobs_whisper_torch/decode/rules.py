@@ -20,11 +20,12 @@ NEG_INF = -1e30
 class DecodeOptions:
     """Sampling options (defaults = the reference's greedy configuration).
 
-    The port serves greedy, temperature sampling and beam search
-    (``beam_size`` > 1 at temperature 0), with plain, packed bf16
-    (``xattn_bf16``) or int8 (``q8_cross_kv``) cross-KV; speculative
-    decoding and word timestamps raise ``NotImplementedError`` where they
-    would be used (ROADMAP.md)."""
+    The port serves greedy, temperature sampling, beam search
+    (``beam_size`` > 1 at temperature 0) and exact speculative greedy
+    (``speculative`` K drafted tokens a pass over ``draft_pool`` x pooled
+    cross-KV; beam wins where both are set), with plain, packed bf16
+    (``xattn_bf16``) or int8 (``q8_cross_kv``) cross-KV, and word
+    timestamps (``decode/timing.py``)."""
 
     task: str = "transcribe"
     language: Optional[str] = None          # None = auto-detect
@@ -47,18 +48,6 @@ class DecodeOptions:
     word_timestamps: bool = False
     speculative: int = 0
     draft_pool: int = 4
-
-
-def check_supported(opts: DecodeOptions) -> None:
-    """Raise for the options the port does not implement yet."""
-    if opts.speculative:
-        raise NotImplementedError(
-            "speculative decoding is not ported yet (ROADMAP.md queue 1, "
-            "item 9)")
-    if opts.word_timestamps:
-        raise NotImplementedError(
-            "word timestamps are not ported yet (ROADMAP.md queue 1, "
-            "item 10)")
 
 
 @dataclasses.dataclass(frozen=True)

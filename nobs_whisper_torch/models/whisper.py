@@ -545,7 +545,9 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
                     pad_lens: torch.Tensor, kv_cache, cross_kv,
                     cfg: WhisperConfig, compute_dtype=torch.float32,
                     ancestry: Optional[torch.Tensor] = None,
-                    beam_k: int = 0):
+                    beam_k: int = 0,
+                    pos_base: Optional[torch.Tensor] = None,
+                    slot_mask: Optional[torch.Tensor] = None):
     """One decoder pass over S tokens (S=1 in the sampling loop, S=prompt
     length for prefill). Returns f32 logits (B, S, V) and the KV cache,
     whose slices [cache_start, cache_start+S) are written in place.
@@ -553,6 +555,13 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
     Ragged batches are LEFT-padded: element b's sequence starts at cache
     index pad_lens[b]; position embeddings use the element's own position
     and self-attention masks the pad region.
+
+    Speculative decoding (``decode/speculative.py``) keeps the uniform
+    cache writes and leaves rejected draft slots in place: ``pos_base``
+    (B,) replaces ``cache_idx - pad_lens`` as the position of the first
+    token (clipped to the position table), and ``slot_mask`` (B, T_cache)
+    bool masks the rejected slots out of self-attention. Both None: the
+    plain pass, bit for bit.
 
     Beam search (``decode/beam.py``) runs B x K rows: on a packed cross-KV
     of B rows, K beams of an element share its cross-KV (the grouped
@@ -571,14 +580,20 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
     decoder_forward_calls[(_cross_layout(xk, b), b, s)] += 1
 
     cache_idx = cache_start + torch.arange(s, device=dev)            # (S,)
-    pos_idx = torch.clamp(cache_idx[None, :] - pad_lens[:, None], 0,
-                          cfg.n_text_ctx - 1)                         # (B, S)
+    if pos_base is None:
+        pos_idx = torch.clamp(cache_idx[None, :] - pad_lens[:, None], 0,
+                              cfg.n_text_ctx - 1)                     # (B, S)
+    else:
+        pos_idx = torch.clamp(pos_base[:, None] + torch.arange(
+            s, device=dev)[None, :], 0, cfg.n_text_ctx - 1)
     x = (dec["tok_emb"][tokens] + dec["pos"][pos_idx]).to(compute_dtype)
 
     key_idx = torch.arange(t_ctx, device=dev)[None, None, :]
     q_idx = cache_idx[None, :, None]
     self_mask = ((key_idx <= q_idx)
                  & (key_idx >= pad_lens[:, None, None]))[:, None]    # (B,1,S,T)
+    if slot_mask is not None:
+        self_mask = self_mask & slot_mask[:, None, None, :]
 
     def project_qkv(x, p):
         h = _layer_norm(x, p["ln1_g"], p["ln1_b"])

@@ -27,12 +27,16 @@ class BatchedEngine:
     """Same surface as WhisperEngine.transcribe, batched across callers.
 
     Runs on the engine's device; ``device``, when given, must name that
-    device (the engine's own default is the card). ``mesh`` and
-    ``speculative`` are later slices of the port and raise."""
+    device (the engine's own default is the card). ``speculative``,
+    ``draft_pool`` and ``draft_engine`` go to the batcher (exact
+    speculative greedy; ``draft_engine`` a second-model draft, None = the
+    target drafting for itself). ``mesh`` is a later slice of the port
+    and raises."""
 
     def __init__(self, engine, opts: Optional[DecodeOptions] = None,
                  max_batch: int = 8, max_wait_ms: float = 5.0,
-                 device=None, mesh=None, speculative: int = 0):
+                 device=None, mesh=None, speculative: int = 0,
+                 draft_pool: Optional[int] = None, draft_engine=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported yet (ROADMAP.md queue 1, "
@@ -50,14 +54,13 @@ class BatchedEngine:
         self.chunk_count = 0
         self.fallback_retries = 0
         self.tokens_emitted = 0
-        if speculative:
-            self.opts = dataclasses.replace(self.opts,
-                                            speculative=speculative)
-        # the batcher refuses the options this slice does not support
         self.batcher = WindowBatcher(
             engine.params, engine.cfg, engine.tokenizer, self.opts,
             max_batch=max_batch, max_wait_ms=max_wait_ms,
-            compute_dtype=engine.compute_dtype, device=engine.device)
+            compute_dtype=engine.compute_dtype, device=engine.device,
+            speculative=speculative, draft_pool=draft_pool,
+            draft=(None if draft_engine is None
+                   else (draft_engine.params, draft_engine.cfg)))
 
     @property
     def cfg(self):
@@ -131,10 +134,12 @@ class BatchedEngine:
                 or (opts is not None and opts != self.opts) \
                 or (self.opts.best_of or 1) > 1:
             if content_frames > window_frames and eff == self.opts \
+                    and not eff.word_timestamps \
                     and (eff.best_of or 1) <= 1:
                 return self._transcribe_longform_batched(
                     audio, language, vocabulary, context)
-            # custom options or best_of sampling: sequential path
+            # custom options, word timestamps (they need the window's
+            # encoder states) or best_of sampling: sequential path
             return self.engine.transcribe(audio, language=language,
                                           vocabulary=vocabulary,
                                           context=context, opts=eff)

@@ -11,8 +11,13 @@ longest row of the batch (there is no compile cache to bound), and a batch
 runs to completion before the next is collected (the decode loop syncs
 with the card for its early exit, so there is no asynchronous dispatch to
 overlap). For the same reason the batch watchdog runs the whole batch,
-not only its finalize step, in the sacrificial thread. No mesh and no
-speculative decoding yet.
+not only its finalize step, in the sacrificial thread. No mesh yet.
+
+With ``speculative`` K > 0 (or ``NWT_SPECULATIVE``) every batch whose
+rows are all at temperature 0 decodes by exact speculative greedy, with
+the target drafting for itself over ``draft_pool`` x pooled cross-KV or
+with a second model (``draft``); ``spec_stats`` records each such batch
+for ``/stats``.
 
 With ``opts.beam_size`` > 1 the batcher takes the beam strategy, as the
 reference: the batch is encoded (with one language-detect forward only if
@@ -38,10 +43,17 @@ import numpy as np
 import torch
 
 from ..core.config import WhisperConfig
-from ..decode.rules import (DecodeOptions, RuleTables, build_rule_tables,
-                            check_supported)
+from ..decode.rules import DecodeOptions, RuleTables, build_rule_tables
 
 log = logging.getLogger(__name__)
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        log.warning("ignoring malformed %s=%r", name, os.environ.get(name))
+        return default
 
 
 def submit_timeout_s() -> float:
@@ -68,9 +80,29 @@ class WindowBatcher:
                  opts: Optional[DecodeOptions] = None, max_batch: int = 8,
                  max_wait_ms: float = 5.0, compute_dtype=torch.float32,
                  device="cuda", seed: int = 0,
-                 batch_deadline_s: Optional[float] = None):
+                 batch_deadline_s: Optional[float] = None,
+                 speculative: int = 0, draft_pool: Optional[int] = None,
+                 draft=None):
+        """``speculative``/``draft_pool``: an explicit value wins over
+        ``NWT_SPECULATIVE``/``NWT_DRAFT_POOL``, which only fill the
+        defaults; a malformed value is logged and ignored. ``draft``:
+        (draft_params, draft_cfg) of a second-model draft, which must
+        share the vocabulary and the encoder width (it reads the target's
+        encoder states)."""
         self.opts = opts or DecodeOptions()
-        check_supported(self.opts)
+        self.speculative = (speculative if speculative
+                            else _env_int("NWT_SPECULATIVE", 0))
+        self.draft_pool = (draft_pool if draft_pool is not None
+                           else _env_int("NWT_DRAFT_POOL", 4))
+        if draft is not None:
+            d_cfg = draft[1]
+            if (d_cfg.n_vocab != cfg.n_vocab
+                    or d_cfg.n_audio_state != cfg.n_audio_state):
+                raise ValueError(
+                    f"draft model incompatible: vocab {d_cfg.n_vocab} vs "
+                    f"{cfg.n_vocab}, encoder width {d_cfg.n_audio_state} "
+                    f"vs {cfg.n_audio_state}")
+        self.draft = draft
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -95,6 +127,7 @@ class WindowBatcher:
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._running = True
         self.batch_sizes: List[int] = []    # observability
+        self.spec_stats: List[tuple] = []   # (passes, rows, emitted)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="nwt-window-batcher")
         self._thread.start()
@@ -306,24 +339,37 @@ class WindowBatcher:
             if use_beam:
                 results = self._beam_results(xa, prompts, temps)
             else:
-                results = greedy.decode_window_finalize(
-                    greedy.decode_window_dispatch(
-                        self.params, xa, prompts, self.cfg, self.tables,
-                        self.opts, temperature=temps,
-                        generator=self.generator,
-                        compute_dtype=self.compute_dtype))
+                results = self._finalize(greedy.decode_window_dispatch(
+                    self.params, xa, prompts, self.cfg, self.tables,
+                    self.opts, temperature=temps, generator=self.generator,
+                    compute_dtype=self.compute_dtype, **self._spec_kw()))
         else:
             # fixed-language main path: frames -> mel -> encode -> decode
-            results = greedy.decode_window_finalize(
-                greedy.decode_window_dispatch(
-                    self.params, None, prompts, self.cfg, self.tables,
-                    self.opts, temperature=temps, generator=self.generator,
-                    compute_dtype=self.compute_dtype, mel=mel,
-                    frames=frames))
+            results = self._finalize(greedy.decode_window_dispatch(
+                self.params, None, prompts, self.cfg, self.tables,
+                self.opts, temperature=temps, generator=self.generator,
+                compute_dtype=self.compute_dtype, mel=mel, frames=frames,
+                **self._spec_kw()))
         for r, res, lang in zip(batch, results, langs):
             res.language = lang
             if not r.future.done():
                 r.future.set_result(res)
+
+    def _spec_kw(self) -> dict:
+        return dict(speculative=self.speculative,
+                    draft_pool=self.draft_pool, draft=self.draft)
+
+    def _finalize(self, handle) -> list:
+        """Score a decode handle; a speculative batch's (passes, rows,
+        emitted tokens incl. each row's stop token) goes to
+        ``spec_stats``."""
+        from ..decode.greedy import decode_window_finalize
+        results = decode_window_finalize(handle)
+        if len(handle) > 5:
+            emitted = sum(len(r.tokens) + 1 for r in results)
+            self.spec_stats.append((int(handle[5]), len(results), emitted))
+            del self.spec_stats[:-200]
+        return results
 
     def _beam_results(self, xa: torch.Tensor, prompts: List[List[int]],
                       temps: np.ndarray) -> list:

@@ -2,9 +2,10 @@
 (port of ``pipeline/longform.py``): window decode -> temperature fallback
 ladder -> no-speech gate -> timestamp-driven seek -> previous text as the
 next window's prompt. With ``beam_size`` > 1 a window decodes by beam
-search at temperature 0 and samples on the ladder's rungs above it. Word
-timestamps are a later slice of the port and raise
-``NotImplementedError``."""
+search at temperature 0 and samples on the ladder's rungs above it. With
+``word_timestamps`` each window's words are aligned by DTW
+(``decode/timing.py``), partitioned over its segments by token ordinal,
+and the segments' bounds snapped to their words."""
 
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ import torch
 from ..core.config import HOP_LENGTH, SAMPLE_RATE, WhisperConfig
 from ..decode.beam import beam_decode_window
 from ..decode.greedy import WindowResult, decode_window, detect_language
-from ..decode.rules import (DecodeOptions, build_rule_tables, check_supported,
-                            is_no_speech, needs_fallback, token_entropy)
+from ..decode.rules import (DecodeOptions, build_rule_tables, is_no_speech,
+                            needs_fallback, token_entropy)
 
 INPUT_STRIDE = 2            # mel frames per timestamp step
 TIME_PRECISION = 0.02
@@ -150,16 +151,22 @@ def transcribe_mel(
     device="cpu",
     generator: Optional[torch.Generator] = None,
     batcher=None,
+    alignment_heads: Optional[Sequence[Tuple[int, int]]] = None,
 ) -> TranscribeResult:
     """Sequential window loop over a precomputed long-form mel.
 
     ``batcher``: an optional WindowBatcher; each window's decode is then
     submitted to it, so windows of concurrent callers share one device
     batch (the chain stays sequential per call: window N+1's prompt needs
-    window N's text)."""
-    check_supported(opts)
-    if batcher is not None and (opts.best_of or 1) > 1:
-        raise ValueError("batched long-form does not support best_of>1; "
+    window N's text). Word timestamps need the window's encoder states,
+    which the batcher keeps: they take the sequential path.
+
+    ``alignment_heads``: the checkpoint's tuned (layer, head) list for the
+    word-timestamp DTW; None = the upper-half-layers default."""
+    if batcher is not None and (
+            opts.word_timestamps or (opts.best_of or 1) > 1):
+        raise ValueError("batched long-form supports neither "
+                         "word_timestamps nor best_of>1; "
                          "use the sequential path")
     from ..models.whisper import encode
     from ..utils.profiling import stage_timer
@@ -240,16 +247,58 @@ def transcribe_mel(
 
         raw_segments, advance = _split_segments(
             result.tokens, tb, segment_size, time_offset)
+
+        window_words = None
+        if opts.word_timestamps and result.tokens:
+            from ..decode.timing import (find_word_timings,
+                                         merge_punctuations,
+                                         refine_word_durations)
+            sot_seq = tokenizer.sot_sequence(
+                language=lang if cfg.multilingual else None,
+                task=opts.task, timestamps=opts.timestamps)
+            window_words = find_word_timings(
+                params, cfg, tokenizer, xa, result.tokens, sot_seq,
+                num_frames=segment_size, time_offset=time_offset,
+                alignment_heads=alignment_heads)
+            merge_punctuations(window_words)
+            refine_word_durations(window_words)
+
+        # words go to segments by TOKEN ordinal, never by time: a running
+        # clean-token cursor assigns each word to the segment its first
+        # token falls in
+        word_starts = None
+        if window_words is not None:
+            word_starts, c = [], 0
+            for w in window_words:
+                word_starts.append(c)
+                c += len(w.tokens)
+
+        n_before = len(segments)
+        seg_tok_cursor = 0
         for rs in raw_segments:
             text = tokenizer.decode(rs["tokens"]).strip()
+            seg_lo = seg_tok_cursor
+            seg_tok_cursor += sum(1 for t in rs["tokens"] if t < cfg.eot)
             if not text:
                 continue
+            words = None
+            if window_words is not None:
+                words = [w for w, s in zip(window_words, word_starts)
+                         if seg_lo <= s < seg_tok_cursor]
             segments.append(Segment(
                 id=len(segments), seek=seek,
                 start=rs["start"], end=rs["end"], text=text,
                 tokens=rs["tokens"], temperature=result.temperature,
                 avg_logprob=result.avg_logprob,
-                no_speech_prob=result.no_speech_prob))
+                no_speech_prob=result.no_speech_prob, words=words))
+
+        if window_words is not None:
+            # snap this window's segment bounds to their word anchors
+            from ..decode.timing import refine_segments_with_words
+            refine_segments_with_words(
+                segments[n_before:], window_words,
+                window_end=time_offset
+                + segment_size * HOP_LENGTH / SAMPLE_RATE)
 
         # rolling context: text tokens only
         all_tokens.extend(t for t in result.tokens if t < cfg.eot)

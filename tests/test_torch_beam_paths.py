@@ -298,17 +298,40 @@ def test_cmd_serve_uses_beam_batch(tmp_path, monkeypatch):
 
 
 def test_beam_options_still_refuse_unported(engines):
-    """Beam runs; beside it, speculative decoding and word timestamps
-    still raise naming their ROADMAP items."""
+    """Beside beam, speculative decoding and word timestamps, once refused,
+    are served: beam wins over ``speculative`` (the reference batcher
+    takes ``use_beam`` first), so the text and tokens are beam's, through
+    ``BatchedEngine`` and ``transcribe``; word timestamps keep beam's text
+    and add words. Both held to the JAX package's beam text."""
     from nobs_whisper_torch.decode.rules import DecodeOptions
     from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
-    _, eng = engines
-    BatchedEngine(eng, opts=DecodeOptions(beam_size=5)).close()
-    for kw, item in ((dict(speculative=2), "item 9"),
-                     (dict(word_timestamps=True), "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            BatchedEngine(eng, opts=DecodeOptions(beam_size=5, **kw))
-        with pytest.raises(NotImplementedError, match=item):
-            eng.transcribe(np.zeros(8000, np.float32), language="en",
-                           opts=dataclasses.replace(
-                               DecodeOptions(beam_size=5), **kw))
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    ref, eng = engines
+    audio = speech_like_audio(0.5, seed=5)
+    ref_opts, beam = _no_fallback(beam_size=5)
+    want = ref.transcribe(audio, language="en", opts=ref_opts)
+
+    def batched(opts):
+        be = BatchedEngine(eng, opts=opts, max_batch=2)
+        try:
+            return be.transcribe(audio, language="en")
+        finally:
+            be.close()
+
+    want_b = batched(beam)
+    for kw in (dict(speculative=2), dict(word_timestamps=True)):
+        opts = dataclasses.replace(beam, **kw)
+        got_b = batched(opts)
+        got = eng.transcribe(audio, language="en", opts=opts)
+        assert got_b.text == want_b.text and got.text == want.text
+        assert [s.tokens for s in got.segments] == \
+            [s.tokens for s in want.segments]
+        assert [s.tokens for s in got_b.segments] == \
+            [s.tokens for s in want_b.segments]
+        if "word_timestamps" in kw:
+            # words partition the text tokens over the segments
+            assert all(s.words is not None for s in got.segments)
+            eot = eng.cfg.eot
+            assert [t for s in got.segments for w in s.words
+                    for t in w.tokens] == [t for s in got.segments
+                                           for t in s.tokens if t < eot]

@@ -83,11 +83,15 @@ def test_transcribe_wav_path(client, tmp_path):
         w.writeframes(pcm16.tobytes())
     out = client.transcribe(str(p), language="en")
     assert out["segments"] and out["text"]
-    # word timestamps reach the engine, which in the port raises naming
-    # its ROADMAP item: the SDK surfaces the server's 500 JSON error
-    with pytest.raises(ClientError) as e:
-        client.transcribe(str(p), language="en", word_timestamps=True)
-    assert e.value.status == 500 and "item 10" in str(e.value)
+    # word timestamps reach the engine: every segment carries its words,
+    # which partition its text tokens' words in order
+    out = client.transcribe(str(p), language="en", word_timestamps=True)
+    assert out["segments"] and all(
+        s["words"] is not None for s in out["segments"])
+    assert any(s["words"] for s in out["segments"])
+    for s in out["segments"]:
+        assert all(s["start"] - 1e-6 <= w["start"] <= w["end"]
+                   for w in s["words"])
 
 
 def test_transcribe_srt_format(client):

@@ -251,17 +251,39 @@ def test_cli_transcribe_matches_reference(tiny_ckpt, tmp_path):
 @pytest.mark.parametrize("flag", [["--beam-size", "5", "--word-timestamps"],
                                   ["--word-timestamps"],
                                   ["--speculative", "3"]])
-def test_cli_unported_decoders_raise(tiny_ckpt, tmp_path, flag):
-    """Word timestamps and speculative decoding raise through
-    ``check_supported`` and name their ROADMAP item, also beside a beam
-    strategy (beam itself is served: ``tests/test_torch_beam_paths.py``)."""
+def test_cli_unported_decoders_raise(tiny_ckpt, engines, tmp_path, capsys,
+                                     flag):
+    """Word timestamps and speculative decoding, once refused, run through
+    the ``transcribe`` verb, also beside a beam strategy: its JSON equals
+    the JAX package's ``transcribe`` with the same options on the same
+    WAV (text, segment tokens, and each word's text, tokens and bounds)."""
+    from nobs_whisper_tpu.decode.rules import DecodeOptions as JaxOptions
     from nobs_whisper_torch import cli
-    from nobs_whisper_torch.audio.io import write_wav
+    from nobs_whisper_torch.audio.io import load_audio, write_wav
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    ref, _ = engines
     wav = str(tmp_path / "a.wav")
-    write_wav(wav, np.zeros(8000, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["transcribe", wav, "--model", tiny_ckpt, "--device", "cpu",
-                  "--dtype", "float32", "--language", "en", *flag])
+    write_wav(wav, speech_like_audio(1.7, seed=4))
+    cli.main(["transcribe", wav, "--model", tiny_ckpt, "--device", "cpu",
+              "--dtype", "float32", "--language", "en",
+              "--temperature-increment", "0", "--json", *flag])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    words = "--word-timestamps" in flag
+    want = ref.transcribe(load_audio(wav)[0], language="en", opts=JaxOptions(
+        temperature_increment=0.0, word_timestamps=words,
+        beam_size=5 if "--beam-size" in flag else None,
+        speculative=3 if "--speculative" in flag else 0))
+    assert got["text"] == want.text and got["segments"]
+    assert [s["tokens"] for s in got["segments"]] == \
+        [s.tokens for s in want.segments]
+    assert not words or any(s["words"] for s in got["segments"])
+    for g, w in zip(got["segments"], want.segments):
+        assert (g["words"] is not None) == words
+        assert [(x["word"], x["tokens"]) for x in g["words"] or ()] == \
+            [(x.word, x.tokens) for x in w.words or ()]
+        np.testing.assert_allclose(
+            [(x["start"], x["end"]) for x in g["words"] or ()],
+            [(x.start, x.end) for x in w.words or ()], atol=1e-6)
 
 
 def test_cli_writes_output_formats(tiny_ckpt, tmp_path, capsys):

@@ -147,22 +147,28 @@ def test_transcription_verbose_json(server):
 
 
 def test_transcription_word_granularity(server):
-    """The "word" granularity reaches the engine's word timestamps, which
-    in the port raise naming their ROADMAP item: a 500 error, at once;
-    "segment" alone is served."""
-    code, out = _post_err(server, "/v1/audio/transcriptions",
-                          [("file", "a.wav", _wav_bytes()),
-                           ("language", None, "en"),
-                           ("response_format", None, "verbose_json"),
-                           ("timestamp_granularities[]", None, "word"),
-                           ("timestamp_granularities[]", None, "segment")])
-    assert code == 500 and "item 10" in json.dumps(out)
+    """The "word" granularity reaches the engine's word timestamps: the
+    verbose_json answer carries a non-empty ``words`` list, each word
+    inside the clip and in order, beside the same segments as "segment"
+    alone, which carries no ``words``."""
+    words = _post(server, "/v1/audio/transcriptions",
+                  [("file", "a.wav", _wav_bytes()),
+                   ("language", None, "en"),
+                   ("response_format", None, "verbose_json"),
+                   ("timestamp_granularities[]", None, "word"),
+                   ("timestamp_granularities[]", None, "segment")])
+    assert words["words"]
+    starts = [w["start"] for w in words["words"]]
+    assert starts == sorted(starts)
+    assert all(0.0 <= w["start"] <= w["end"] <= words["duration"] + 1e-3
+               for w in words["words"])
     out = _post(server, "/v1/audio/transcriptions",
                 [("file", "a.wav", _wav_bytes()),
                  ("language", None, "en"),
                  ("response_format", None, "verbose_json"),
                  ("timestamp_granularities[]", None, "segment")])
     assert "segments" in out and "words" not in out
+    assert out["text"] == words["text"]
 
 
 def test_translation_endpoint(server):

@@ -274,8 +274,8 @@ def test_beam_reachable_through_serving_surface(server):
 def test_translate_and_word_timestamps_reachable(server):
     """task=translate and word_timestamps are reachable from the serving
     layer, not just the CLI: translate gives the engine's own result on
-    the one-shot and the session paths; word timestamps reach the engine,
-    which in the port raises naming its ROADMAP item (500 JSON error)."""
+    the one-shot and the session paths; word timestamps reach the engine
+    and the one-shot answers 200 with the engine's own words."""
     from nobs_whisper_torch.decode.rules import DecodeOptions
 
     base, httpd = server
@@ -293,7 +293,14 @@ def test_translate_and_word_timestamps_reachable(server):
     code, body = _status_of(
         base, "/transcribe?language=en&task=translate&word_timestamps=1",
         data=audio.tobytes())
-    assert code == 500 and "item 10" in body["error"]
+    direct_w = httpd.state.engine.transcribe(
+        audio, language="en", vocabulary=vocab,
+        opts=DecodeOptions(task="translate", word_timestamps=True))
+    assert code == 200 and body["text"] == direct_w.text == direct.text
+    got = [(w["word"], w["tokens"], w["start"], w["end"])
+           for s in body["segments"] for w in s["words"]]
+    assert got and got == [(w.word, w.tokens, w.start, w.end)
+                           for s in direct_w.segments for w in s.words]
 
     # per-session translate routes through SessionConfig.decode_opts
     sid = _post(base, "/sessions", json.dumps(

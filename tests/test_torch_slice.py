@@ -355,28 +355,48 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
     dict(beam_size=5, speculative=3), dict(speculative=3),
     dict(word_timestamps=True)])
 def test_unported_options_raise(opts):
-    """Speculative decoding and word timestamps are later slices: they
-    raise and name the ROADMAP item, never take another path quietly, also
-    under a beam strategy (beam itself is served)."""
+    """Speculative decoding and word timestamps, once refused, are served
+    (ROADMAP items 9b and 10): ``BatchedEngine`` takes them, and
+    ``transcribe`` gives the text of the plain decode (speculative greedy
+    is exact; beam wins where beam and speculative are both set; words
+    leave the text as it is) with words on every segment only when they
+    are asked for."""
     from nobs_whisper_torch.api import WhisperEngine
     from nobs_whisper_torch.decode.rules import DecodeOptions
     from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    from nobs_whisper_torch.utils.testing import speech_like_audio
     eng = WhisperEngine.from_random("tiny-test", dtype=torch.float32,
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedEngine(eng, opts=DecodeOptions(**opts))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.transcribe(np.zeros(8000, np.float32), language="en",
-                       opts=DecodeOptions(**opts))
+    BatchedEngine(eng, opts=DecodeOptions(**opts)).close()
+    audio = speech_like_audio(0.5, seed=3)
+    plain = {k: v for k, v in opts.items()
+             if k not in ("speculative", "word_timestamps")}
+    got = eng.transcribe(audio, language="en", opts=DecodeOptions(**opts))
+    want = eng.transcribe(audio, language="en", opts=DecodeOptions(**plain))
+    assert got.text == want.text and got.segments
+    assert [s.tokens for s in got.segments] == \
+        [s.tokens for s in want.segments]
+    words = opts.get("word_timestamps", False)
+    assert all((s.words is not None) == words for s in got.segments)
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(speculative=3)])
 def test_batched_engine_unported_modes_raise(kw):
+    """``mesh`` still raises naming its ROADMAP item (11); ``speculative``
+    is served and reaches the batcher."""
     from nobs_whisper_torch.api import WhisperEngine
     from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
     eng = WhisperEngine.from_random("tiny-test", dtype=torch.float32,
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedEngine(eng, **kw)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="item 11"):
+            BatchedEngine(eng, **kw)
+    else:
+        be = BatchedEngine(eng, **kw)
+        try:
+            assert be.batcher.speculative == kw["speculative"]
+            assert be.batcher.draft_pool == 4 and be.batcher.draft is None
+        finally:
+            be.close()
     with pytest.raises(ValueError, match="device"):
         BatchedEngine(eng, device="meta")
