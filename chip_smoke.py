@@ -132,7 +132,19 @@ arguments). Phases; any failure exits non-zero before the result line:
    scores on the card within 1e-4 of the CPU's at f32, every token's
    boundaries equal; one ``POST /transcribe?word_timestamps=1`` on the
    int8 serving engine answers 200 with words;
-15. one ``kernels`` JSON line, then the result line.
+15. the dp x tp mesh (``phase_mesh``): the int8 turbo engine through
+   ``BatchedEngine(max_batch=8)`` on a dp=2 mesh (two cards if there are,
+   else ``cuda:0`` twice), eight framed requests in one batch, every row
+   held to the unsharded engine's by the near-tie rule and K1 = K2 = 2
+   shards x 32 x batches; one window encoded and decoded on a dp=1 x tp=2
+   mesh (states within ``TP_TOL`` of the unsharded plain path, K1 = K2 =
+   0); ``serve --mesh 1x1`` in a subprocess;
+16. native snapshots (``phase_native``): ``save_native``/``from_native``
+   of the int8 turbo engine on the card (size, load time, parameters and
+   a transcription's tokens equal), ``params_to_ggml_tensors`` ->
+   ``write_ggml`` -> ``from_ggml`` at turbo width, ``resample_torch`` on
+   the card against the CPU;
+17. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 (B=8, B=1 and B=16) and K5 (B=8 and B=1) at
 H=20, Dh=64, Tp=1536, t_real=1500 (two calls bit for bit; timed back to
@@ -2918,11 +2930,12 @@ def phase_server(card, qeng):
     return ok, launches
 
 
-def serve_verb(card, home):
+def serve_verb(card, home, extra=(), tag="server"):
     """``python -m nobs_whisper_torch.cli serve`` in a subprocess on the
     card (defaults: cuda, bf16, int8) on the CLI phase's tiny checkpoint
-    with ``--batch 4 --warmup``: ``/health`` within a deadline, one
-    ``POST /transcribe``, then SIGINT, and exit 0 within a deadline."""
+    with ``--batch 4 --warmup`` and ``extra``: ``/health`` within a
+    deadline, one ``POST /transcribe``, then SIGINT, and exit 0 within a
+    deadline."""
     import json as _json
     import signal
     import urllib.request
@@ -2936,7 +2949,7 @@ def serve_verb(card, home):
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "nobs_whisper_torch.cli", "serve", "--model",
-         model, "--batch", "4", "--warmup", "--port", str(port)],
+         model, "--batch", "4", "--warmup", "--port", str(port), *extra],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
         env=env)
     health, err, rc, one, one_s, t_up = None, "", None, {}, 0.0, 0.0
@@ -2970,12 +2983,12 @@ def serve_verb(card, home):
     v_ok = (health is not None and health.get("loaded") is True
             and rc == 0 and isinstance(one.get("text"), str))
     warm = [ln for ln in err.splitlines() if "warmup done" in ln]
-    log(f"[server] {card}: serve verb subprocess: /health {health} "
-        f"{t_up:.1f} s after launch ({warm[-1] if warm else 'no warmup'}), "
-        f"one-shot {one_s:.2f} s, exit {rc} on SIGINT -> "
-        f"{'PASS' if v_ok else 'FAIL'}")
+    log(f"[{tag}] {card}: serve verb subprocess {' '.join(extra)}: "
+        f"/health {health} {t_up:.1f} s after launch "
+        f"({warm[-1] if warm else 'no warmup'}), one-shot {one_s:.2f} s, "
+        f"exit {rc} on SIGINT -> {'PASS' if v_ok else 'FAIL'}")
     if not v_ok:
-        log(f"[server] serve verb stderr: {err[-3000:]}")
+        log(f"[{tag}] serve verb stderr: {err[-3000:]}")
     return v_ok
 
 
@@ -4164,6 +4177,369 @@ def phase_words(card, qeng, eng):
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# [mesh] and [native]: the dp x tp mesh and the native snapshots
+# ---------------------------------------------------------------------------
+
+class MeshTap:
+    """The last-position logits of every target decoder forward of the
+    greedy loop (the calls on a packed or int8 cross-KV; the language
+    detect forward is left out), by host thread: a mesh's shards decode
+    in threads of their own (``parallel/spmd.py``, thread
+    ``nwt-shard-<dp>-<tp>``), an unsharded batch in the batcher's."""
+
+    def __init__(self):
+        self.calls = {}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from nobs_whisper_torch.decode import greedy
+        self.saved = greedy.decoder_forward
+        greedy.decoder_forward = self._wrap(self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        from nobs_whisper_torch.decode import greedy
+        greedy.decoder_forward = self.saved
+
+    def _wrap(self, fn):
+        def tapped(params, tokens, cache_start, pad_lens, kv_cache, cross_kv,
+                   *a, **kw):
+            out = fn(params, tokens, cache_start, pad_lens, kv_cache,
+                     cross_kv, *a, **kw)
+            if isinstance(cross_kv[0], dict):
+                with self._lock:
+                    self.calls.setdefault(
+                        threading.current_thread().name, []).append(
+                            out[0][:, -1].float())
+            return out
+        return tapped
+
+
+def greedy_near_tie(p_logits, s_logits, g, s):
+    """Hold one row of a greedy decode against the same row of another
+    greedy decode: ``p_logits``/``s_logits`` the row's logits at each
+    emission, ``g``/``s`` the emitted tokens (stop token included). D is
+    the largest |logit difference| of the two runs at every emission up to
+    and including the first where the tokens differ; there, the first
+    run's gap between its token and the other's must lie within D (the
+    rule of ``near_tie``, for two sequential loops). Returns (equal, first
+    difference, gap, D)."""
+    first = next((i for i, (a, b) in enumerate(zip(g, s)) if a != b), None)
+    if first is None and len(g) != len(s):
+        first = min(len(g), len(s))
+    limit = min(first if first is not None else len(g) - 1,
+                len(p_logits) - 1, len(s_logits) - 1)
+    d = max(float((s_logits[e].to(p_logits[e].device)
+                   - p_logits[e]).abs().amax()) for e in range(limit + 1))
+    if first is None:
+        return True, None, None, d
+    if first >= len(p_logits) or first >= len(g) or first >= len(s):
+        return False, first, float("inf"), d
+    lg = p_logits[first]
+    return False, first, float(lg[g[first]] - lg[s[first]]), d
+
+
+def _mesh_wave():
+    """Eight fixed-language single-window requests of 5-28 s, sent at
+    once (the batch of eight fills at once)."""
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    return [(f"en-{d}s", speech_like_audio(float(d), seed=60 + i), "en")
+            for i, d in enumerate((5, 8, 12, 15, 18, 21, 25, 28))]
+
+
+def _mesh_run(qeng, mesh, wave, opts):
+    """One wave through ``BatchedEngine(qeng, max_batch=8, mesh=mesh)``,
+    its batches logged and its decoder forwards tapped. Returns (batch
+    log, tap, counts, wall s, batch sizes, ok)."""
+    import torch
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    be = BatchedEngine(qeng, opts=opts, max_batch=8, max_wait_ms=3000,
+                       mesh=mesh)
+    try:
+        batches = _batch_log(be.batcher)
+        errors = []
+
+        def one(name, audio, lang):
+            try:
+                be.transcribe(audio, language=lang)
+            except Exception as e:   # reported below, fails the phase
+                errors.append((name, repr(e)))
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with MeshTap() as tap:
+            threads = [threading.Thread(target=one, args=w) for w in wave]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        for name, err in errors:
+            log(f"[mesh] {name}: FAILED {err}")
+        return batches, tap, c, wall, list(be.batcher.batch_sizes), \
+            not errors
+    finally:
+        be.close()
+
+
+def phase_mesh(card, qeng):
+    """The dp x tp mesh on the card (``parallel/``), on the int8
+    large-v3-turbo engine (random weights from seed 0, full width, bf16):
+
+    * dp=2 through ``BatchedEngine(mesh=...)``: two cards when there are,
+      else ``cuda:0`` twice (each shard in a host thread of its own under
+      its device's context). A wave of eight framed requests (ladder off)
+      fills one batch; every row's tokens equal the unsharded
+      ``BatchedEngine``'s on the same requests under the near-tie rule
+      (``greedy_near_tie``: each shard decodes 4 rows where the unsharded
+      batch decodes 8, so matmul shapes and their bf16 roundings differ),
+      and K1 and K2 launch shards x layers x batches times.
+    * dp=1 x tp=2: one 30 s window encoded and decoded with each layer's
+      heads and FFN columns split over two ranks (kernels off, as the
+      reference's gates are under GSPMD): the encoder states within
+      ``TP_TOL`` of the unsharded plain path (every gate off) and K1 = K2
+      = 0; the decode (48 steps) held to the unsharded plain decode under
+      the near-tie rule.
+    * ``serve --mesh 1x1`` in a subprocess: up, one ``POST /transcribe``,
+      exit 0 on SIGINT."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from nobs_whisper_torch.audio.mel import log_mel_longform
+    from nobs_whisper_torch.decode.greedy import (decode_window_dispatch,
+                                                  decode_window_finalize)
+    from nobs_whisper_torch.decode.rules import DecodeOptions, build_rule_tables
+    from nobs_whisper_torch.models.whisper import encode
+    from nobs_whisper_torch.parallel.mesh import make_mesh
+    from nobs_whisper_torch.parallel.spmd import encode_spmd
+    from nobs_whisper_torch.parallel.tp import ShardContext, shard_context
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+
+    cfg = qeng.cfg
+    n_cards = torch.cuda.device_count()
+    pair = (["cuda:0", "cuda:1"] if n_cards >= 2 else ["cuda:0", "cuda:0"])
+    where = ("two cards, cuda:0 and cuda:1" if n_cards >= 2
+             else "one card, cuda:0 twice")
+    eot = cfg.eot
+    opts = DecodeOptions(temperature_increment=0.0)
+    sample_len = cfg.n_text_ctx // 2
+    wave = _mesh_wave()
+    ok = True
+
+    plain = _mesh_run(qeng, None, wave, opts)
+    dp2 = make_mesh(dp=2, devices=pair)
+    mesh = _mesh_run(qeng, dp2, wave, opts)
+    ok &= plain[5] and mesh[5]
+    (pb, ptap, _, pwall, psizes, _), (mb, mtap, c, mwall, msizes, _) = \
+        plain, mesh
+    one_batch = len(pb) == 1 and len(mb) == 1
+    equal, ties, bad, d_max = 0, [], [], 0.0
+    if one_batch:
+        pkeys, pres = pb[0]
+        mkeys, mres = mb[0]
+        prow = {k: i for i, k in enumerate(pkeys)}
+        plog = ptap.calls.get("nwt-batch-run", [])
+        half = -(-len(mkeys) // 2)        # rows a shard (the batch pads)
+        for mi, k in enumerate(mkeys):
+            pi = prow[k]
+            slog = mtap.calls.get(f"nwt-shard-{mi // half}-0", [])
+            same, first, gap, d = greedy_near_tie(
+                [z[pi] for z in plog], [z[mi % half] for z in slog],
+                _emitted(pres[pi], eot, sample_len),
+                _emitted(mres[mi], eot, sample_len))
+            d_max = max(d_max, d)
+            if same:
+                equal += 1
+            elif gap <= d:
+                ties.append((str(mi), first, gap, d))
+            else:
+                bad.append((str(mi), first, gap, d))
+    tie_ok, line = _tie_line(equal, ties, 0, bad, d_max)
+    tie_ok &= one_batch and equal + len(ties) == len(wave)
+    shards_run = c["batches"]
+    want = cfg.n_audio_layer * shards_run
+    counts_ok = (shards_run == 2 * len(mb) and c["K1"] == want
+                 and c["K2"] == want and c["K3"] == c["K9"] == 0
+                 and c["K4"] == c["K5"] == c["K6"] == 0
+                 and no_knob_kernels(c))
+    log(f"[mesh] {card}: dp=2 on {where}: eight 5-28 s requests, batch "
+        f"sizes unsharded {psizes} ({pwall:.2f} s) and dp=2 {msizes} "
+        f"({mwall:.2f} s), ladder off; rows against the unsharded batch: "
+        f"{line} -> {'PASS' if tie_ok else 'FAIL'}")
+    log(f"[mesh] {card}: dp=2 launches K1 {c['K1']} K2 {c['K2']} (want "
+        f"2 shards x {cfg.n_audio_layer} layers x {len(mb)} batches = "
+        f"{want}; shard encodes {shards_run}) -> "
+        f"{'PASS' if counts_ok else 'FAIL'}")
+    ok &= tie_ok and counts_ok
+    launches = {"K1": c["K1"], "K2": c["K2"]}
+
+    # dp=1 x tp=2: one window, encoded and decoded over two ranks
+    tp2 = make_mesh(dp=1, tp=2, devices=pair)
+    audio = speech_like_audio(30.0, seed=71)
+    mel = torch.from_numpy(log_mel_longform(
+        audio, n_mels=cfg.n_mels, device="cuda")[:, :2 * cfg.n_audio_ctx]
+    ).to("cuda")[None]
+    reset_counts()
+    t0 = time.perf_counter()
+    xa_tp = encode_spmd(qeng.params, mel, tp2, cfg, qeng.compute_dtype)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    c = read_counts()
+    with shard_context(ShardContext(None, plain=True)):
+        xa_plain = encode(qeng.params, mel, cfg, qeng.compute_dtype)
+    err = float((xa_tp.float() - xa_plain.float()).abs().max()
+                / xa_plain.float().abs().max())
+    finite = bool(torch.isfinite(xa_tp.float()).all())
+    enc_ok = (finite and xa_tp.shape == (1, cfg.n_audio_ctx,
+                                         cfg.n_audio_state)
+              and err <= TP_TOL and c["K1"] == c["K2"] == 0)
+    log(f"[mesh] {card}: dp=1 x tp=2 on {where}: encoder states "
+        f"{tuple(xa_tp.shape)} in {enc_s:.2f} s, max |tp - unsharded plain|"
+        f" / max |plain| = {err:.3e} (TP_TOL {TP_TOL:.0e}), finite "
+        f"{finite}; K1 {c['K1']} K2 {c['K2']} (want 0: the kernels stay off"
+        f" under tp) -> {'PASS' if enc_ok else 'FAIL'}")
+    ok &= enc_ok
+
+    dopts = dataclasses.replace(opts, sample_len=48)
+    tables = build_rule_tables(cfg, dopts, qeng.tokenizer, device="cuda")
+    prompts = [qeng.tokenizer.sot_sequence(language="en")]
+    with MeshTap() as tap:
+        t0 = time.perf_counter()
+        got = decode_window_finalize(decode_window_dispatch(
+            qeng.params, xa_tp, prompts, cfg, tables, dopts,
+            compute_dtype=qeng.compute_dtype, mesh=tp2))
+        dec_s = time.perf_counter() - t0
+        with shard_context(ShardContext(None, plain=True)):
+            want_res = decode_window_finalize(decode_window_dispatch(
+                qeng.params, xa_tp, prompts, cfg, tables, dopts,
+                compute_dtype=qeng.compute_dtype))
+    same, first, gap, d = greedy_near_tie(
+        [z[0] for z in tap.calls.get(threading.current_thread().name, [])],
+        [z[0] for z in tap.calls.get("nwt-shard-0-0", [])],
+        _emitted(want_res[0], eot, 48), _emitted(got[0], eot, 48))
+    dec_ok = same or gap <= d
+    log(f"[mesh] {card}: dp=1 x tp=2 decode, 48 steps: {len(got[0].tokens)}"
+        f" tokens in {dec_s:.2f} s, against the unsharded plain decode: "
+        + ("equal" if same else f"near-tie from token {first}: gap "
+           f"{gap:.4f} {'<=' if dec_ok else '>'} D {d:.4f}")
+        + f" (largest D {d:.4f}) -> {'PASS' if dec_ok else 'FAIL'}")
+    ok &= dec_ok
+
+    home = tempfile.mkdtemp(prefix="nwt-mesh-home-")
+    try:
+        ok &= serve_verb(card, home, extra=("--mesh", "1x1"), tag="mesh")
+    finally:
+        import shutil
+        shutil.rmtree(home, ignore_errors=True)
+    return ok, launches
+
+
+# the tp window's encoder states against the unsharded plain path, relative
+# to their largest magnitude: the tolerance for bf16 (at int8 the tp path is
+# the same function bit for bit, tests/test_torch_parallel.py)
+TP_TOL = 2e-2
+
+
+def phase_native(card, qeng):
+    """Native snapshots and the GGML writer on the card:
+
+    * ``save_native`` then ``from_native`` of the int8 large-v3-turbo
+      engine: the snapshot's size and the load time, every parameter equal
+      bit for bit, and a 12 s transcription's tokens equal (ladder off);
+    * ``params_to_ggml_tensors`` -> ``write_ggml`` -> ``from_ggml`` at
+      turbo width (2 + 2 layers: the file is f32, 0.5 GB at this depth):
+      every parameter back bit for bit;
+    * ``resample_torch`` on the card against its CPU run (48 kHz and 44.1
+      kHz to 16 kHz, 10 s): the same length and within 1e-5."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from nobs_whisper_torch.api import WhisperEngine
+    from nobs_whisper_torch.audio.resample import resample_torch
+    from nobs_whisper_torch.core import ggml
+    from nobs_whisper_torch.core.native_ckpt import flatten
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.models.whisper import (init_params,
+                                                   params_to_ggml_tensors)
+    from nobs_whisper_torch.audio.mel import mel_filter_bank
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+
+    ok = True
+    tmp = tempfile.mkdtemp(prefix="nwt-native-")
+    try:
+        snap = os.path.join(tmp, "snapshot")
+        t0 = time.perf_counter()
+        qeng.save_native(snap)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(snap, f))
+                   for f in os.listdir(snap))
+        t0 = time.perf_counter()
+        back = WhisperEngine.from_native(snap, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        a, b = flatten(qeng.params), flatten(back.params)
+        same = (a.keys() == b.keys() and all(
+            a[k].dtype == b[k].dtype and b[k].is_cuda
+            and torch.equal(a[k], b[k]) for k in a))
+        opts = DecodeOptions(temperature_increment=0.0)
+        audio = speech_like_audio(12.0, seed=81)
+        r1 = qeng.transcribe(audio, language="en", opts=opts)
+        r2 = back.transcribe(audio, language="en", opts=opts)
+        toks = [s.tokens for s in r1.segments]
+        tok_ok = toks == [s.tokens for s in r2.segments] and bool(toks)
+        n_ok = same and tok_ok and back.compute_dtype == qeng.compute_dtype
+        log(f"[native] {card}: int8 large-v3-turbo snapshot {size / 1e6:.1f}"
+            f" MB ({len(b)} tensors) saved in {save_s:.2f} s, loaded to the"
+            f" card in {load_s:.2f} s; parameters equal {same}, 12 s "
+            f"transcription tokens ({sum(map(len, toks))}) equal {tok_ok} -> "
+            f"{'PASS' if n_ok else 'FAIL'}")
+        ok &= n_ok
+        del back
+
+        cfg = dataclasses.replace(qeng.cfg, n_audio_layer=2, n_text_layer=2)
+        params = init_params(5, cfg, dtype=torch.bfloat16, device="cuda")
+        path = os.path.join(tmp, "turbo-2-2.bin")
+        t0 = time.perf_counter()
+        ggml.write_ggml(path, cfg, mel_filter_bank(cfg.n_mels),
+                        qeng.tokenizer._vocab,
+                        params_to_ggml_tensors(params, cfg))
+        g = WhisperEngine.from_ggml(path, dtype=torch.bfloat16,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        a, b = flatten(params), flatten(g.params)
+        g_ok = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                            for k in a)
+        log(f"[native] {card}: params_to_ggml_tensors -> write_ggml -> "
+            f"from_ggml at turbo width, 2 + 2 layers, bf16 "
+            f"({os.path.getsize(path) / 1e6:.1f} MB file, {g_s:.2f} s): "
+            f"{len(a)} parameters equal {g_ok} -> "
+            f"{'PASS' if g_ok else 'FAIL'}")
+        ok &= g_ok
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for rate in (48000, 44100):
+        x = torch.from_numpy(speech_like_audio(10.0, seed=82,
+                                               sample_rate=rate))
+        on_card = resample_torch(x.cuda(), rate)
+        on_cpu = resample_torch(x, rate)
+        diff = float((on_card.cpu() - on_cpu).abs().max())
+        r_ok = (on_card.is_cuda and on_card.shape == on_cpu.shape
+                and diff <= 1e-5)
+        log(f"[native] {card}: resample_torch {rate} -> 16000 Hz, 10 s: "
+            f"{on_card.shape[0]} samples on the card, max |card - CPU| "
+            f"{diff:.3e} (tolerance 1e-5) -> {'PASS' if r_ok else 'FAIL'}")
+        ok &= r_ok
+    return ok, {}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4229,6 +4605,12 @@ def main():
     for name, phase in (("speculative", phase_speculative),
                         ("words", phase_words)):
         phase_ok, counts = phase(card, qeng, eng)
+        ok &= phase_ok
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+        took(name)
+    for name, phase in (("mesh", phase_mesh), ("native", phase_native)):
+        phase_ok, counts = phase(card, qeng)
         ok &= phase_ok
         for key, n in counts.items():
             launches[key] = launches.get(key, 0) + n

@@ -136,6 +136,35 @@ class WhisperEngine:
                    alignment_heads=heads, device=dev)
 
     @classmethod
+    def from_native(cls, path: str, device="cuda") -> "WhisperEngine":
+        """Load a snapshot written by :meth:`save_native`, its parameters
+        straight to ``device`` (the card unless the caller asks for the
+        CPU), quantized leaves as saved. The compute dtype follows the
+        tree's first leaf in sorted key order, as the reference's."""
+        from .core.native_ckpt import flatten, load_native
+
+        dev = resolve_device(device)
+        t0 = time.perf_counter()
+        params, cfg, vocab = load_native(path, device=dev)
+        flat = flatten(params)
+        first = flat[min(flat)] if flat else None
+        dtype = (torch.bfloat16 if first is not None
+                 and first.dtype == torch.bfloat16 else torch.float32)
+        log.info("loaded native snapshot %s in %.2fs", path,
+                 time.perf_counter() - t0)
+        return cls(params=params, cfg=cfg,
+                   tokenizer=WhisperTokenizer(vocab, cfg),
+                   compute_dtype=dtype, model_path=path, device=dev)
+
+    def save_native(self, path: str) -> None:
+        """Snapshot the ready-to-run engine state (quantized tensors
+        included) for fast serving restarts (``core/native_ckpt.py``)."""
+        from .core.native_ckpt import save_native
+
+        self._require_model()
+        save_native(path, self.params, self.cfg, self.tokenizer._vocab)
+
+    @classmethod
     def from_random(cls, model: str = "tiny", dtype=torch.bfloat16,
                     seed: int = 0, device="cuda") -> "WhisperEngine":
         """Random weights from ``seed`` (tests and benchmarks). Unlike the

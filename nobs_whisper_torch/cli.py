@@ -24,8 +24,8 @@ id of the registry (``serve/models.py``), and falls back to the configured
 (the model drafting for itself over ``--draft-pool`` x pooled cross-KV,
 or ``serve --draft-model``). ``route`` fronts N ``serve`` backends (one
 process each, one card each); with ``--manage`` it spawns and
-rolling-restarts them. Mesh serving is a later slice of the port: asking
-for it raises.
+rolling-restarts them. ``serve --mesh DPxTP`` serves on a dp x tp device
+mesh (``parallel/``).
 """
 
 from __future__ import annotations
@@ -176,6 +176,33 @@ def _default_beam_batch(model: Optional[str], beam_size: int) -> int:
     return max(1, min(_default_batch(model), 120 // max(beam_size, 1)))
 
 
+def _parse_mesh(spec: str, device: str):
+    """``--mesh DPxTP`` -> a mesh over the first dp*tp visible cards
+    (``--device cpu``: the CPU named dp*tp times); fewer cards than that
+    raise. pp and sp (a third factor) are the last slice of the port and
+    raise."""
+    import torch
+
+    from .parallel.mesh import make_mesh
+    parts = spec.lower().split("x")
+    if len(parts) > 2:
+        raise NotImplementedError(
+            f"--mesh {spec}: pipeline (pp) and sequence (sp) parallelism "
+            "are not ported yet; they come with training in the last "
+            "slice of the port (ROADMAP.md queue 1)")
+    try:
+        dp, tp = int(parts[0]), int(parts[1]) if len(parts) > 1 else 1
+    except ValueError:
+        raise SystemExit(f"--mesh {spec}: expected DPxTP, e.g. 2x1")
+    if torch.device(device).type == "cpu":
+        return make_mesh(dp=dp, tp=tp, device="cpu")
+    n = torch.cuda.device_count()
+    if n < dp * tp:
+        raise ValueError(f"--mesh {spec} needs {dp * tp} cards, found {n}")
+    return make_mesh(dp=dp, tp=tp,
+                     devices=[torch.device("cuda", i) for i in range(dp * tp)])
+
+
 def cmd_serve(args):
     from .core.device import resolve_device
     from .serve.config import ConfigManager
@@ -184,11 +211,9 @@ def cmd_serve(args):
     # the card unless --device cpu: with no card this raises here, before
     # anything is served
     resolve_device(args.device)
-    if args.mesh:
-        raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP.md queue 1, item 11)")
     cm = ConfigManager()
     explicit_batch = args.batch       # 0 = auto (per-model default)
+    mesh = _parse_mesh(args.mesh, args.device) if args.mesh else None
 
     def build_engine(model_id, warmup=False):
         """model id/path -> ready serving engine on ``--device``, with the
@@ -205,6 +230,17 @@ def cmd_serve(args):
         batch = explicit_batch or (
             _default_beam_batch(mid, beam_k) if beam_k > 1
             else _default_batch(mid))
+        if mesh is not None:
+            # the batcher requires max_batch % dp == 0: round the (maybe
+            # default) batch down to a dp multiple rather than fail for a
+            # dp that does not divide it. batch <= 1 is the sequential
+            # mode (no BatchedEngine): left as is.
+            dp_n = mesh.shape["dp"]
+            if batch > 1 and batch % dp_n:
+                adj = max((batch // dp_n) * dp_n, dp_n)
+                print(f"rounding --batch {batch} -> {adj} "
+                      f"(must be divisible by dp={dp_n})", file=sys.stderr)
+                batch = adj
         if batch > 1:
             from .decode.rules import DecodeOptions
             from .pipeline.batched_engine import BatchedEngine
@@ -253,7 +289,7 @@ def cmd_serve(args):
                 print("--draft-model needs --speculative; ignoring",
                       file=sys.stderr)
             engine = BatchedEngine(engine, opts=opts, max_batch=batch,
-                                   speculative=speculative,
+                                   mesh=mesh, speculative=speculative,
                                    draft_pool=getattr(args, "draft_pool",
                                                       None),
                                    draft_engine=draft_engine)
@@ -420,7 +456,11 @@ def main(argv=None):
     s.add_argument("--quant", choices=["int8", "none"], default="int8",
                    help="int8 serving path (default; 'none' = raw dtype)")
     s.add_argument("--mesh", default=None, metavar="DPxTP",
-                   help="not ported yet (raises)")
+                   help="serve on a dp x tp mesh of the first dp*tp cards, "
+                        "e.g. 2x1 (each window batch split over 2 cards) "
+                        "or 1x2 (each layer's heads and FFN columns split "
+                        "over 2); --batch is rounded down to a multiple of "
+                        "dp")
     s.add_argument("--speculative", type=int, default=0, metavar="K",
                    help="exact speculative greedy decode with K drafted "
                         "tokens a pass (token-identical output; 0 = off). "

@@ -2,12 +2,14 @@
 ``core/hf.py``): a transformers-style state dict or safetensors file into
 the stacked parameter tree, as torch tensors. The safetensors reader is
 self-contained (header JSON + raw little-endian blobs): it needs no
-``safetensors`` package.
+``safetensors`` package. So is the writer beside it, with a reader that
+maps the file and loads each tensor straight to a device, which the
+port's native snapshots (``core/native_ckpt.py``) use.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -153,4 +155,80 @@ def load_safetensors(path: str) -> Dict[str, np.ndarray]:
         else:
             arr = np.frombuffer(raw, dtype=_DTYPES[dt])
         out[name] = arr.reshape(meta["shape"]).astype(np.float32)
+    return out
+
+
+# safetensors dtype names <-> torch dtypes (the ones a parameter tree holds)
+ST_DTYPES = {"F32": torch.float32, "BF16": torch.bfloat16,
+             "F16": torch.float16, "I8": torch.int8, "I32": torch.int32,
+             "I64": torch.int64, "U8": torch.uint8}
+_ST_NAMES = {v: k for k, v in ST_DTYPES.items()}
+
+
+def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor],
+                     metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write a safetensors file: an 8-byte little-endian header length,
+    the JSON header (padded with spaces to a multiple of 8), then the
+    blobs back to back with no holes. Tensors go in order of falling
+    element size and then name, so that each blob starts on a multiple of
+    its element size. Written to a temporary name, then renamed."""
+    import json
+    import os
+    import struct
+
+    items = sorted(tensors.items(),
+                   key=lambda kv: (-kv[1].element_size(), kv[0]))
+    header: Dict[str, Any] = {}
+    if metadata:
+        header["__metadata__"] = dict(metadata)
+    off = 0
+    for name, t in items:
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"{name}: no safetensors dtype for {t.dtype}")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype],
+                        "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for _, t in items:
+            c = t.detach().to("cpu").contiguous()
+            # bytes as stored (bf16 has no numpy dtype: view as int16)
+            f.write(c.view(torch.uint8).numpy().tobytes() if c.numel()
+                    else b"")
+    os.replace(tmp, path)
+
+
+def load_safetensors_to(path: str, device="cpu"
+                        ) -> Dict[str, torch.Tensor]:
+    """Read a safetensors file of the dtypes in :data:`ST_DTYPES` into
+    torch tensors on ``device``, in the stored dtypes. The file is mapped
+    (copy-on-write, never written) and each tensor copied from the map to
+    its device, so no host copy of the whole file is made."""
+    import json
+    import mmap
+    import struct
+
+    out: Dict[str, torch.Tensor] = {}
+    dev = torch.device(device)
+    with open(path, "rb") as f:
+        (hlen,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(hlen))
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    base = 8 + hlen
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = meta["data_offsets"]
+        dt = ST_DTYPES[meta["dtype"]]
+        n = (end - start) // torch.empty((), dtype=dt).element_size()
+        t = (torch.frombuffer(mm, dtype=dt, count=n, offset=base + start)
+             if n else torch.empty(0, dtype=dt)).reshape(meta["shape"])
+        # a CPU result must not keep the map alive: clone it there
+        out[name] = t.clone() if dev.type == "cpu" else t.to(dev)
     return out

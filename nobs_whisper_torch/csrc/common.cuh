@@ -27,9 +27,37 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace nwt {
 
 typedef __nv_bfloat16 bf16;
+
+// ---------------------------------------------------------------------------
+// once per device: a kernel's attributes (cudaFuncSetAttribute acts on the
+// kernel in the current device's context only, so each card needs its own
+// call) and the card's SM count, from any host thread
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_DEVICES = 64;
+
+inline int current_device() {
+  int dev = -1;
+  return cudaGetDevice(&dev) == cudaSuccess ? dev : -1;
+}
+
+// one bit a device; a device past MAX_DEVICES redoes the work every call
+struct DeviceFlags {
+  std::atomic<unsigned long long> bits{0};
+  bool done(int dev) const {
+    return dev >= 0 && dev < MAX_DEVICES &&
+           ((bits.load(std::memory_order_acquire) >> dev) & 1ull);
+  }
+  void mark(int dev) {
+    if (dev >= 0 && dev < MAX_DEVICES)
+      bits.fetch_or(1ull << dev, std::memory_order_release);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // LayerNorm + per-row int8 quantization (ln_quant_kernel below)

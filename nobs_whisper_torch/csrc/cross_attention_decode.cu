@@ -804,17 +804,23 @@ namespace {
 
 using namespace nwt;
 
-// set once per process, and per library (internal linkage)
-int g_sms = 0;
+// the current card's SM count, read once a device (per library: internal
+// linkage)
+std::atomic<int> g_sms[MAX_DEVICES];
 
 int sm_count() {
-  if (g_sms == 0) {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    g_sms = n > 0 ? n : 132;
+  const int dev = current_device();
+  int n = dev >= 0 && dev < MAX_DEVICES
+              ? g_sms[dev].load(std::memory_order_relaxed) : 0;
+  if (n == 0) {
+    if (dev < 0 || cudaDeviceGetAttribute(
+            &n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        n <= 0)
+      n = 132;
+    if (dev >= 0 && dev < MAX_DEVICES)
+      g_sms[dev].store(n, std::memory_order_relaxed);
   }
-  return g_sms;
+  return n;
 }
 
 // K5's cluster size C (0 if no slice of at most 16 fits a block's shared
@@ -907,17 +913,18 @@ bool k5_map(CUtensorMap* out, const int8_t* k, int tp, int rows, int bw,
 // a grid of (c, BH) blocks in clusters of c along x, with `smem` bytes of
 // dynamic shared memory; the kernel's attributes set at its first launch
 template <typename... P, typename... A>
-cudaError_t launch_clusters(void (*kernel)(P...), bool& ready, int c, int BH,
-                            int threads, size_t smem, cudaStream_t st,
+cudaError_t launch_clusters(void (*kernel)(P...), DeviceFlags& ready, int c,
+                            int BH, int threads, size_t smem, cudaStream_t st,
                             const A&... args) {
-  if (!ready) {
+  const int dev = current_device();
+  if (!ready.done(dev)) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K4_SMEM_MAX);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
-    ready = true;
+    ready.mark(dev);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c, BH);
@@ -937,7 +944,7 @@ cudaError_t launch_clusters(void (*kernel)(P...), bool& ready, int c, int BH,
 
 template <int DH>
 cudaError_t launch_k5(const K5Args& a, int BH, cudaStream_t st) {
-  static bool ready = false;   // the kernel's attributes, once per process
+  static DeviceFlags ready;    // the kernel's attributes, once a device
   K5Args args = a;
   const int c = k5_plan(BH, a.Tp, DH, sm_count(), args.S);
   if (c == 0 || BH > 65535 || (long long)BH * DH > INT32_MAX)
@@ -953,7 +960,7 @@ cudaError_t launch_k5(const K5Args& a, int BH, cudaStream_t st) {
 
 template <int DH>
 cudaError_t launch_k4(const K4Args& a, int BH, cudaStream_t st) {
-  static bool ready = false;   // the kernel's attributes, once per process
+  static DeviceFlags ready;    // the kernel's attributes, once a device
   K4Args args = a;
   const int c = k4_plan(BH, a.Tp, sm_count(), args.S);
   if (c == 0 || BH > 65535) return cudaErrorInvalidValue;

@@ -306,16 +306,18 @@ inline int proj_bn(bool res, int M, int d) {
   return d % bn == 0 && (bn == 128 || tiles >= K11_WIDE_TILES) ? bn : 128;
 }
 
-// the card's SM count, for a block an SM (the same for every library of
-// the process that asks)
+// the current card's SM count, for a block an SM, read once a device (one
+// table for every library of the process that asks; 0 if unknown)
 inline int sm_count() {
-  static int n = 0;
+  static std::atomic<int> sms[MAX_DEVICES];
+  const int dev = current_device();
+  if (dev < 0 || dev >= MAX_DEVICES) return 0;
+  int n = sms[dev].load(std::memory_order_relaxed);
   if (!n) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      return 0;
+    sms[dev].store(n, std::memory_order_relaxed);
   }
   return n;
 }

@@ -680,14 +680,15 @@ cudaError_t launch(Kern kernel, int split, int tiles, size_t smem,
 // the kernel's attributes, once per process: its largest shared memory
 // and clusters past the portable 8 blocks
 template <typename Kern>
-cudaError_t prepare(Kern kernel, bool& ready, size_t smem) {
-  if (ready) return cudaSuccess;
+cudaError_t prepare(Kern kernel, DeviceFlags& ready, size_t smem) {
+  const int dev = current_device();
+  if (ready.done(dev)) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  ready = e == cudaSuccess;
+  if (e == cudaSuccess) ready.mark(dev);
   return e;
 }
 
@@ -698,7 +699,7 @@ template <typename TA, int MT, bool ALIGNED, int PDL = PDL_NONE, class Pro,
 cudaError_t launch_decode(const TA* x, const int8_t* w, const float* s,
                           int M, int K, int N, Pro pro, Epi epi,
                           cudaStream_t st, bool pdl = false) {
-  static bool ready = false;
+  static DeviceFlags ready;     // the kernel's attributes, once a device
   auto kernel = q8_decode_kernel<TA, MT, ALIGNED, Pro, Epi, PDL>;
   cudaError_t e = prepare(kernel, ready, decode_smem(MT, DXK_MAX));
   if (e != cudaSuccess) return e;

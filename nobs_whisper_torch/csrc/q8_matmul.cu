@@ -248,7 +248,7 @@ using namespace nwt;
 template <typename T, int MT>
 cudaError_t launch_prefill(const T* x, const int8_t* w, const float* s,
                            float* out, int M, int K, int N, cudaStream_t st) {
-  static bool ready = false;
+  static DeviceFlags ready;     // the kernel's attributes, once a device
   auto kernel = q8_prefill_kernel<T, MT>;
   cudaError_t e = prepare(kernel, ready, prefill_smem<T>(MT, true));
   if (e != cudaSuccess) return e;

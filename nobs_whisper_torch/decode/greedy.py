@@ -201,6 +201,7 @@ def decode_window_dispatch(
     speculative: int = 0,        # K > 0: exact speculative greedy
     draft_pool: int = 4,
     draft=None,                  # (draft_params, draft_cfg); None = self
+    mesh=None,                   # parallel/mesh.py::Mesh: dp x tp serving
 ):
     """Pad prompts and run the window decode; returns the handle that
     :func:`decode_window_finalize` scores. Exactly one of ``xa``, ``mel``
@@ -211,7 +212,15 @@ def decode_window_dispatch(
     every row at temperature 0, the batch decodes by exact speculative
     greedy (``decode/speculative.py``) and the handle gains a sixth
     element, the pass count; rows above temperature 0 (ladder rungs) take
-    the sampling loop."""
+    the sampling loop.
+
+    With a ``mesh`` the batch (its size a multiple of dp; the batcher pads
+    it) is padded once here and then sharded: each dp group runs the
+    single-device program on its rows (``parallel/spmd.py``), over its tp
+    ranks when tp > 1. ``params`` may be the unsharded tree or
+    ``parallel/mesh.py::shard_params``'s. Speculative decoding on a mesh
+    self-drafts (``draft`` is ignored, as in the reference's mesh
+    program) and its handle has no pass count."""
     n = len(prompts)
     speculative = speculative or opts.speculative
     if draft_pool == 4 and opts.draft_pool != 4:
@@ -231,6 +240,19 @@ def decode_window_dispatch(
         generator = torch.Generator(device=dev).manual_seed(0)
     xattn_bf16 = (opts.xattn_bf16 or bool(os.environ.get("NWT_XATTN_BF16"))
                   or kt_xattn_default(compute_dtype))
+    if mesh is not None:
+        from ..parallel.spmd import window_decode_spmd
+        kind, data = (("frames", frames) if frames is not None
+                      else ("mel", mel) if mel is not None else ("xa", xa))
+        out = window_decode_spmd(
+            params, data, torch.as_tensor(prompt_np, dtype=torch.long),
+            torch.as_tensor(pad_np, dtype=torch.long),
+            torch.as_tensor(sot_np), tables, torch.as_tensor(temps),
+            generator, mesh, cfg, sample_len, compute_dtype,
+            q8_kv=opts.q8_cross_kv, xattn_bf16=xattn_bf16,
+            sampling=sampling, kind=kind, speculative=speculative,
+            draft_pool=draft_pool)
+        return (*out, temps)
     if speculative > 0 and not sampling:
         from . import speculative as sp
         d_params, d_cfg = draft if draft is not None else (params, cfg)
@@ -339,3 +361,25 @@ def frames_encode_detect_impl(params, frames, cfg: WhisperConfig,
     xa = frames_encode_impl(params, frames, cfg, compute_dtype)
     lang_idx, lang_probs = detect_language(params, xa, cfg, compute_dtype)
     return xa, lang_idx, lang_probs
+
+
+def frames_encode_dispatch(params, frames, cfg: WhisperConfig,
+                           compute_dtype=torch.float32, mesh=None):
+    """Mesh-aware frames -> mel -> encode stage (no detect): on a mesh each
+    dp group encodes its rows (``parallel/spmd.py``)."""
+    if mesh is not None:
+        from ..parallel.spmd import frames_encode_spmd
+        return frames_encode_spmd(params, frames, mesh, cfg, compute_dtype)
+    return frames_encode_impl(params, frames, cfg, compute_dtype)
+
+
+def frames_encode_detect_dispatch(params, frames, cfg: WhisperConfig,
+                                  compute_dtype=torch.float32, mesh=None):
+    """Mesh-aware frames -> mel -> encode -> detect stage, as
+    :func:`decode_window_dispatch` is for the decode stage: callers pass
+    ``mesh=`` and never branch on it themselves."""
+    if mesh is not None:
+        from ..parallel.spmd import frames_encode_detect_spmd
+        return frames_encode_detect_spmd(params, frames, mesh, cfg,
+                                         compute_dtype)
+    return frames_encode_detect_impl(params, frames, cfg, compute_dtype)

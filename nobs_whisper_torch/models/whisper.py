@@ -35,7 +35,9 @@ import torch.nn.functional as F
 
 from ..core.config import WhisperConfig
 from ..core.device import disable_tf32
+from ..ops import _build
 from ..ops import attention_pallas as ap
+from ..parallel import tp as _tp
 from ..ops.quant import (dense_int8_dynamic, is_quantized, k_major, ln_f32,
                          q8_matmul)
 
@@ -192,13 +194,15 @@ def q8_kernel_min_bytes() -> int:
 
 
 def xattn_kernel_enabled() -> bool:
-    """K4 on the packed bf16 cross-KV (``NWT_XATTN_KERNEL``)."""
-    return bool(os.environ.get("NWT_XATTN_KERNEL"))
+    """K4 on the packed bf16 cross-KV (``NWT_XATTN_KERNEL``; off in a
+    plain shard, ``parallel/tp.py``)."""
+    return bool(os.environ.get("NWT_XATTN_KERNEL")) and not _tp.kernels_off()
 
 
 def q8_kv_kernel_enabled() -> bool:
-    """K5 on the int8 cross-KV (``NWT_Q8_KV_PALLAS``)."""
-    return bool(os.environ.get("NWT_Q8_KV_PALLAS"))
+    """K5 on the int8 cross-KV (``NWT_Q8_KV_PALLAS``; off in a plain
+    shard)."""
+    return bool(os.environ.get("NWT_Q8_KV_PALLAS")) and not _tp.kernels_off()
 
 
 def _dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
@@ -211,7 +215,7 @@ def _dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
     if is_quantized(w):
         lead = x.shape[:-1]
         m = math.prod(lead)
-        if (m <= Q8_KERNEL_MAX_M
+        if (m <= Q8_KERNEL_MAX_M and not _tp.kernels_off()
                 and math.prod(w["q"].shape[-2:]) >= q8_kernel_min_bytes()):
             y = q8_matmul(x.reshape(m, x.shape[-1]), w)
             y = y.reshape(*lead, -1).to(x.dtype)
@@ -220,6 +224,14 @@ def _dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
     else:
         y = x @ w
     return y if b is None else y + b
+
+
+def _dense_row(x: torch.Tensor, w, b=None) -> torch.Tensor:
+    """:func:`_dense` for a weight split over tp on its input features (o,
+    xo, fc2): the ranks' partial products summed, then the bias once."""
+    if _tp.tp_size() == 1:
+        return _dense(x, w, b)
+    return _tp.row_dense(x, w, b, _dense)
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +297,11 @@ def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
 
     Raises NotImplementedError where the reference would take the JAX
     library's flash kernel (``NWT_LIB_FLASH`` at bf16), which is not
-    ported."""
+    ported.
+
+    In a plain shard (``parallel/tp.py``: tp > 1, or a dp mesh under
+    ``NWT_NO_SPMD``) every gate is off, as the reference's gates are under
+    GSPMD on more than one device."""
     env = os.environ.get
     d, n_head = cfg.n_audio_state, cfg.n_audio_head
     bf16 = compute_dtype == torch.bfloat16
@@ -305,6 +321,9 @@ def encoder_kernel_gates(cfg: WhisperConfig, blocks, compute_dtype,
     o = "K11" if int8_qkv and quant["o_w"] else None
     mlp = (("K8" if chunked else "K2") if int8_mlp and quant["fc1_w"]
            else None)
+    if _tp.kernels_off():
+        return EncoderGates(stem=None, qkv=None, attention=None, o=None,
+                            mlp=None, block_f=block_f, block_q=block_q)
 
     if use_btd and attn_fused >= 3 and all(quant.values()) and int8_mlp:
         # K12's own chunk (whisper.py:410), not K2's or K8's
@@ -353,7 +372,9 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     """mel: (B, n_mels, 2*n_audio_ctx) -> (B, n_audio_ctx, d) states."""
     global encode_count
     disable_tf32()
-    encode_count += 1
+    if _tp.is_lead():
+        with _build.COUNT_LOCK:
+            encode_count += 1
     return _encode(params, mel, cfg, compute_dtype)
 
 
@@ -368,7 +389,7 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
 
     enc = params["encoder"]
     gelu = _gelu_fast if compute_dtype == torch.bfloat16 else _gelu
-    n_head = cfg.n_audio_head
+    n_head = _tp.local_heads(cfg.n_audio_head)   # a tp rank's heads
     blocks = enc["blocks"]
     gates = encoder_kernel_gates(cfg, blocks, compute_dtype, mel.shape[-1],
                                  enc["pos"].shape[0])
@@ -404,10 +425,18 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
         y = h @ w
         return y if bias is None else y + bias
 
+    def row_lin(h, w, bias):
+        # o and fc2: split over tp on their input features
+        if _tp.tp_size() == 1:
+            return lin(h, w, bias)
+        if is_quantized(w):
+            return _tp.row_dense_int8_dynamic(h, w, bias)
+        return _tp.row_dense(h, w, bias, lambda a, z: a @ z)
+
     def rows(z):
         return z.reshape(bsz * t, d)
 
-    sm_scale = float(d // n_head) ** -0.5
+    sm_scale = float(d // cfg.n_audio_head) ** -0.5
     i8 = dict(int8_scores=gates.int8_scores, int8_pv=gates.int8_pv)
     if x.is_cuda:
         for name in k_major_weights(gates):
@@ -457,7 +486,7 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
             x = fq.residual_o_int8(rows(x), rows(a), p["o_w"],
                                    p["o_b"]).reshape(bsz, t, d)
         else:
-            x = x + lin(a, p["o_w"], p["o_b"])
+            x = x + row_lin(a, p["o_w"], p["o_b"])
         if gates.mlp:
             mlp = (fm.encoder_mlp_int8 if gates.mlp == "K8"
                    else fm.encoder_mlp_int8_resident)
@@ -467,7 +496,7 @@ def _encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
         else:
             h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
             h = gelu(lin(h, p["fc1_w"], p["fc1_b"]))
-            x = x + lin(h, p["fc2_w"], p["fc2_b"])
+            x = x + row_lin(h, p["fc2_w"], p["fc2_b"])
     x = x[:, :t_real]
     return _layer_norm(x, enc["ln_post_g"], enc["ln_post_b"])
 
@@ -481,7 +510,7 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig
     """Encoder states -> per-layer cross-attention K/V, each
     (L, B, H, T_audio, Dh). Computed once per window."""
     blocks = params["decoder"]["blocks"]
-    n_head = cfg.n_text_head
+    n_head = _tp.local_heads(cfg.n_text_head)
     ks, vs = [], []
     for i in range(cfg.n_text_layer):
         p = _layer(blocks, i)
@@ -499,7 +528,7 @@ def precompute_cross_kv_q8(params: Params, xa: torch.Tensor,
     for. Returns ({"q": (L, B, H, Dh, Tp) int8, "s": (L, B, H, Tp)},
     {"q": (L, B, H, Tp, Dh) int8, "s": (L, B, H, Tp)})."""
     blocks = params["decoder"]["blocks"]
-    n_head = cfg.n_text_head
+    n_head = _tp.local_heads(cfg.n_text_head)
     kq, ks, vq, vs = [], [], [], []
     for i in range(cfg.n_text_layer):
         p = _layer(blocks, i)
@@ -519,9 +548,10 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, dtype=torch.float32,
                   t_ctx: Optional[int] = None, device="cpu"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K pre-transposed (L, B, H, Dh, T), V (L, B, H, T, Dh); t_ctx
-    defaults to the full text context."""
+    defaults to the full text context. H is a tp rank's own heads."""
     t = t_ctx or cfg.n_text_ctx
-    l, h, dh = cfg.n_text_layer, cfg.n_text_head, cfg.head_dim
+    l, h, dh = (cfg.n_text_layer, _tp.local_heads(cfg.n_text_head),
+                cfg.head_dim)
     return (torch.zeros((l, batch, h, dh, t), dtype=dtype, device=device),
             torch.zeros((l, batch, h, t, dh), dtype=dtype, device=device))
 
@@ -571,13 +601,15 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
     (:func:`_attention_kt_ancestry`); S must be 1."""
     disable_tf32()
     dec = params["decoder"]
-    n_head = cfg.n_text_head
+    n_head = _tp.local_heads(cfg.n_text_head)
     b, s = tokens.shape
     ck, cv = kv_cache
     xk, xv = cross_kv
     t_ctx = ck.shape[-1]
     dev = tokens.device
-    decoder_forward_calls[(_cross_layout(xk, b), b, s)] += 1
+    if _tp.is_lead():
+        with _build.COUNT_LOCK:
+            decoder_forward_calls[(_cross_layout(xk, b), b, s)] += 1
 
     cache_idx = cache_start + torch.arange(s, device=dev)            # (S,)
     if pos_base is None:
@@ -586,7 +618,8 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
     else:
         pos_idx = torch.clamp(pos_base[:, None] + torch.arange(
             s, device=dev)[None, :], 0, cfg.n_text_ctx - 1)
-    x = (dec["tok_emb"][tokens] + dec["pos"][pos_idx]).to(compute_dtype)
+    x = (_tp.embed(dec["tok_emb"], tokens)
+         + dec["pos"][pos_idx]).to(compute_dtype)
 
     key_idx = torch.arange(t_ctx, device=dev)[None, None, :]
     q_idx = cache_idx[None, :, None]
@@ -630,10 +663,10 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
         else:
             a = _attention(q, xk_l.to(compute_dtype),
                            xv_l.to(compute_dtype), None)
-        x = x + _dense(_merge_heads(a), p["xo_w"], p["xo_b"])
+        x = x + _dense_row(_merge_heads(a), p["xo_w"], p["xo_b"])
         h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
         h = _gelu(_dense(h, p["fc1_w"], p["fc1_b"]))
-        return x + _dense(h, p["fc2_w"], p["fc2_b"])
+        return x + _dense_row(h, p["fc2_w"], p["fc2_b"])
 
     end = cache_start + s
     for layer in range(cfg.n_text_layer):
@@ -648,7 +681,7 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
         else:
             a = _attention_kt(q, ck[layer].to(compute_dtype),
                               cv[layer].to(compute_dtype), self_mask)
-        x = x + _dense(_merge_heads(a), p["o_w"], p["o_b"])
+        x = x + _dense_row(_merge_heads(a), p["o_w"], p["o_b"])
         if isinstance(xk, dict):
             xk_l = {kk: vv[layer] for kk, vv in xk.items()}
             xv_l = {kk: vv[layer] for kk, vv in xv.items()}
@@ -660,7 +693,7 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
         logits = _dense(x.to(torch.float32), dec["tok_emb_q"]).float()
     else:
         logits = _f32_dot(x, dec["tok_emb"].transpose(0, 1))
-    return logits, (ck, cv)
+    return _tp.gather_vocab(logits), (ck, cv)
 
 
 # ---------------------------------------------------------------------------
@@ -809,3 +842,79 @@ def params_from_ggml(ckpt, dtype=torch.float32, device="cpu") -> Params:
             "ln_b": to_t(t["decoder.ln.bias"]),
         },
     }
+
+
+def params_to_ggml_tensors(params: Params,
+                           cfg: WhisperConfig) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`params_from_ggml`: f32 numpy arrays named as
+    whisper.cpp names them, linear weights in GGML's (d_out, d_in)
+    layout, for ``core/ggml.py::write_ggml``. Takes an unquantized tree
+    (int8 weights have no GGML f32 counterpart; dequantize first)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def arr(t) -> np.ndarray:
+        if is_quantized(t):
+            raise ValueError("params_to_ggml_tensors takes unquantized "
+                             "weights")
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    def put(name, t, transpose=False):
+        a = arr(t)
+        out[name] = np.ascontiguousarray(a.T if transpose else a)
+
+    enc, dec = params["encoder"], params["decoder"]
+    # ours (k, c_in, d_out) -> GGML (d_out, c_in, k)
+    out["encoder.conv1.weight"] = np.ascontiguousarray(
+        np.transpose(arr(enc["conv1_w"]), (2, 1, 0)))
+    put("encoder.conv1.bias", enc["conv1_b"])
+    out["encoder.conv2.weight"] = np.ascontiguousarray(
+        np.transpose(arr(enc["conv2_w"]), (2, 1, 0)))
+    put("encoder.conv2.bias", enc["conv2_b"])
+    put("encoder.positional_embedding", enc["pos"])
+    put("encoder.ln_post.weight", enc["ln_post_g"])
+    put("encoder.ln_post.bias", enc["ln_post_b"])
+    put("decoder.token_embedding.weight", dec["tok_emb"])
+    put("decoder.positional_embedding", dec["pos"])
+    put("decoder.ln.weight", dec["ln_g"])
+    put("decoder.ln.bias", dec["ln_b"])
+
+    mapping = [
+        ("ln1_g", "{p}.blocks.{i}.attn_ln.weight", False),
+        ("ln1_b", "{p}.blocks.{i}.attn_ln.bias", False),
+        ("q_w", "{p}.blocks.{i}.attn.query.weight", True),
+        ("q_b", "{p}.blocks.{i}.attn.query.bias", False),
+        ("k_w", "{p}.blocks.{i}.attn.key.weight", True),
+        ("v_w", "{p}.blocks.{i}.attn.value.weight", True),
+        ("v_b", "{p}.blocks.{i}.attn.value.bias", False),
+        ("o_w", "{p}.blocks.{i}.attn.out.weight", True),
+        ("o_b", "{p}.blocks.{i}.attn.out.bias", False),
+        ("ln2_g", "{p}.blocks.{i}.mlp_ln.weight", False),
+        ("ln2_b", "{p}.blocks.{i}.mlp_ln.bias", False),
+        ("fc1_w", "{p}.blocks.{i}.mlp.0.weight", True),
+        ("fc1_b", "{p}.blocks.{i}.mlp.0.bias", False),
+        ("fc2_w", "{p}.blocks.{i}.mlp.2.weight", True),
+        ("fc2_b", "{p}.blocks.{i}.mlp.2.bias", False),
+    ]
+    cross_mapping = [
+        ("lnx_g", "{p}.blocks.{i}.cross_attn_ln.weight", False),
+        ("lnx_b", "{p}.blocks.{i}.cross_attn_ln.bias", False),
+        ("xq_w", "{p}.blocks.{i}.cross_attn.query.weight", True),
+        ("xq_b", "{p}.blocks.{i}.cross_attn.query.bias", False),
+        ("xk_w", "{p}.blocks.{i}.cross_attn.key.weight", True),
+        ("xv_w", "{p}.blocks.{i}.cross_attn.value.weight", True),
+        ("xv_b", "{p}.blocks.{i}.cross_attn.value.bias", False),
+        ("xo_w", "{p}.blocks.{i}.cross_attn.out.weight", True),
+        ("xo_b", "{p}.blocks.{i}.cross_attn.out.bias", False),
+    ]
+    for prefix, blocks, n_layer, maps in (
+        ("encoder", enc["blocks"], cfg.n_audio_layer, mapping),
+        ("decoder", dec["blocks"], cfg.n_text_layer,
+         mapping + cross_mapping),
+    ):
+        for key, fmt, transpose in maps:
+            stacked = arr(blocks[key])
+            for i in range(n_layer):
+                a = stacked[i]
+                out[fmt.format(p=prefix, i=i)] = np.ascontiguousarray(
+                    a.T if transpose else a)
+    return out

@@ -34,6 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+# held by every launch counter's increment: shards on a mesh launch from
+# several host threads at once (parallel/spmd.py)
+COUNT_LOCK = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # per-source build record: {"seconds": float, "ptxas": str} (chip_smoke)
 build_log: Dict[str, dict] = {}

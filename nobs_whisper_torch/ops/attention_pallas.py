@@ -35,6 +35,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from . import _build
+
 _NEG = -1e30
 
 QKV = Dict[str, torch.Tensor]
@@ -374,7 +376,8 @@ def cross_attention_decode_bf16(q: torch.Tensor, packed,
                          f"whose sixteenth part is longer than {K4_SPAN} "
                          f"positions")
     _build.check(err, "cross_attention_decode_bf16")
-    k4_launch_count += 1
+    with _build.COUNT_LOCK:
+        k4_launch_count += 1
     return out
 
 
@@ -427,5 +430,6 @@ def cross_attention_decode_q8(q: torch.Tensor, kq: QKV, vq: QKV
                          f"whose sixteenth part no block's shared memory "
                          f"holds")
     _build.check(err, "cross_attention_decode_q8")
-    k5_launch_count += 1
+    with _build.COUNT_LOCK:
+        k5_launch_count += 1
     return out

@@ -26,6 +26,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from . import _build
 from .fused_mlp import gelu_tanh
 
 launch_count = 0
@@ -130,7 +131,8 @@ def encoder_stem_fused(mel, w1, b1, w2, b2, pos,
              out.data_ptr(), b, n_frames, c_in, d, t_out_pad,
              torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, "encoder_stem_fused")
-    launch_count += 1
+    with _build.COUNT_LOCK:
+        launch_count += 1
     return out
 
 

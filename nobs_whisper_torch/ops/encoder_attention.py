@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from . import _build
 from .quant import int8_matmul_exact, k_major, ln_f32, quantize_rows
 
 launch_count = 0
@@ -227,9 +228,11 @@ def encoder_attention_fused_qkv(x, ln_g, ln_b, wq, bq, wk, wv, bv,
     _build.check(err, "encoder_attention_fused_qkv")
     name = variant("K1", fuse_o, int8_scores, int8_pv)
     if name == "K1":
-        launch_count += 1
+        with _build.COUNT_LOCK:
+            launch_count += 1
     else:
-        variant_launch_count[name] += 1
+        with _build.COUNT_LOCK:
+            variant_launch_count[name] += 1
     return ops[14]
 
 
@@ -395,7 +398,8 @@ def encoder_attention_btd(q, k, v, n_real: int, sm_scale: float,
     if not (int8_scores or int8_pv):
         out = _launch("nwt_encoder_attention_btd", q, k, v,
                       (b, t, n_head, dh), n_real, sm_scale)
-        k3_launch_count += 1
+        with _build.COUNT_LOCK:
+            k3_launch_count += 1
         return out
     if dh != 64:
         raise NotImplementedError(
@@ -403,7 +407,8 @@ def encoder_attention_btd(q, k, v, n_real: int, sm_scale: float,
             f"of 64 (the reference's head pairs), got {dh}")
     out = _launch_btd_int8(q, k, v, b, t, n_head, n_real, sm_scale,
                            int8_scores, int8_pv)
-    variant_launch_count[variant("K3", False, int8_scores, int8_pv)] += 1
+    with _build.COUNT_LOCK:
+        variant_launch_count[variant("K3", False, int8_scores, int8_pv)] += 1
     return out
 
 
@@ -425,5 +430,6 @@ def encoder_attention(q, k, v, n_real: int, sm_scale: float) -> torch.Tensor:
     _kernel_checks(q, k, v, t, dh, n_real, "encoder_attention")
     out = _launch("nwt_encoder_attention_bhtd", q, k, v, (b, h, t, dh),
                   n_real, sm_scale)
-    k9_launch_count += 1
+    with _build.COUNT_LOCK:
+        k9_launch_count += 1
     return out

@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from . import _build
 from . import encoder_attention as ea
 from . import fused_mlp as fm
 from .quant import k_major
@@ -100,7 +101,9 @@ def encoder_layer_fused(x, ln1_g, ln1_b, wq, bq, wk, wv, bv, wo, bo,
     _build.check(err, "encoder_layer_fused")
     name = ea.variant("K12", False, int8_scores, int8_pv)
     if name == "K12":
-        launch_count += 1
+        with _build.COUNT_LOCK:
+            launch_count += 1
     else:
-        variant_launch_count[name] += 1
+        with _build.COUNT_LOCK:
+            variant_launch_count[name] += 1
     return mlp[-1]

@@ -41,6 +41,7 @@ from typing import Tuple
 
 import torch
 
+from . import _build
 from .quant import int8_matmul_exact, k_major, ln_f32, quantize_rows
 
 launch_count = 0
@@ -159,8 +160,9 @@ def encoder_mlp_int8_resident(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
         return encoder_mlp_int8_resident_plain(
             x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f=block_f)
     out = _launch("K2", x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f)
-    launch_count += 1
-    launch_count_f32 += int(x.dtype == torch.float32)
+    with _build.COUNT_LOCK:
+        launch_count += 1
+        launch_count_f32 += int(x.dtype == torch.float32)
     return out
 
 
@@ -174,8 +176,9 @@ def encoder_mlp_int8(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
         return encoder_mlp_int8_plain(
             x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f=block_f)
     out = _launch("K8", x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f)
-    k8_launch_count += 1
-    k8_launch_count_f32 += int(x.dtype == torch.float32)
+    with _build.COUNT_LOCK:
+        k8_launch_count += 1
+        k8_launch_count_f32 += int(x.dtype == torch.float32)
     return out
 
 
@@ -324,7 +327,8 @@ def fused_mlp_q8(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b) -> torch.Tensor:
         ptr(s2), ptr(b2), ptr(act), ptr(out), m, d, ffn,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, _K7_ENTRY[x.dtype])
-    k7_launch_count += 1
+    with _build.COUNT_LOCK:
+        k7_launch_count += 1
     return out
 
 

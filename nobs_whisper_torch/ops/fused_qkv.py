@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from . import _build
 from .quant import (dense_int8_dynamic, int8_matmul_exact, k_major, ln_f32,
                     quantize_rows)
 
@@ -135,8 +136,9 @@ def encoder_qkv_int8(x, ln_g, ln_b, wq, q_b, wk, wv, v_b):
         sx)), m, d, torch._C._cuda_getCurrentRawStream(dev.index))
     from . import _build
     _build.check(err, fn)
-    k10_launch_count += 1
-    k10_launch_count_f32 += int(x.dtype == torch.float32)
+    with _build.COUNT_LOCK:
+        k10_launch_count += 1
+        k10_launch_count_f32 += int(x.dtype == torch.float32)
     return q, k, v
 
 
@@ -163,6 +165,7 @@ def residual_o_int8(x, a, wo, o_b):
         torch._C._cuda_getCurrentRawStream(dev.index))
     from . import _build
     _build.check(err, fn)
-    k11_launch_count += 1
-    k11_launch_count_f32 += int(x.dtype == torch.float32)
+    with _build.COUNT_LOCK:
+        k11_launch_count += 1
+        k11_launch_count_f32 += int(x.dtype == torch.float32)
     return out

@@ -35,6 +35,7 @@ import torch
 from ..audio.mel import _dft_bases_np, device_tables, mel_filter_bank
 from ..core.config import HOP_LENGTH, N_FFT
 from ..core.device import disable_tf32
+from . import _build
 
 FRAME_BLOCK = 600          # frames per grid cell of the TPU kernel
 N_FREQ_PAD = 256           # 201 rfft bins zero-padded to 256
@@ -198,7 +199,8 @@ def log10_mel_pallas(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
         ptr(pcm), ptr(tab), ptr(bands), ptr(wts), ptr(out), b, t, n_frames,
         n_mels, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "log10_mel")
-    k14_launch_count += 1
+    with _build.COUNT_LOCK:
+        k14_launch_count += 1
     return out
 
 

@@ -137,8 +137,9 @@ def q8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), m, k,
              n, torch._C._cuda_getCurrentRawStream(x.device.index))
     _build.check(err, "q8_matmul")
-    k6_launch_count += 1
-    k6_decode_launch_count += m <= K6_DECODE_ROWS
+    with _build.COUNT_LOCK:
+        k6_launch_count += 1
+        k6_decode_launch_count += m <= K6_DECODE_ROWS
     return out
 
 

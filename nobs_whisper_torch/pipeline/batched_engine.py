@@ -30,17 +30,14 @@ class BatchedEngine:
     device (the engine's own default is the card). ``speculative``,
     ``draft_pool`` and ``draft_engine`` go to the batcher (exact
     speculative greedy; ``draft_engine`` a second-model draft, None = the
-    target drafting for itself). ``mesh`` is a later slice of the port
-    and raises."""
+    target drafting for itself). ``mesh`` (``parallel/mesh.py::Mesh``,
+    dp x tp) goes to the batcher, which shards the engine's parameters
+    over it; ``max_batch`` must divide by dp."""
 
     def __init__(self, engine, opts: Optional[DecodeOptions] = None,
                  max_batch: int = 8, max_wait_ms: float = 5.0,
                  device=None, mesh=None, speculative: int = 0,
                  draft_pool: Optional[int] = None, draft_engine=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP.md queue 1, "
-                "item 11)")
         if device is not None and resolve_device(device) != engine.device:
             raise ValueError(f"device {device} is not the engine's "
                              f"device {engine.device}")
@@ -60,7 +57,8 @@ class BatchedEngine:
             compute_dtype=engine.compute_dtype, device=engine.device,
             speculative=speculative, draft_pool=draft_pool,
             draft=(None if draft_engine is None
-                   else (draft_engine.params, draft_engine.cfg)))
+                   else (draft_engine.params, draft_engine.cfg)),
+            mesh=mesh)
 
     @property
     def cfg(self):

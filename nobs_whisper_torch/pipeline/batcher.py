@@ -11,7 +11,13 @@ longest row of the batch (there is no compile cache to bound), and a batch
 runs to completion before the next is collected (the decode loop syncs
 with the card for its early exit, so there is no asynchronous dispatch to
 overlap). For the same reason the batch watchdog runs the whole batch,
-not only its finalize step, in the sacrificial thread. No mesh yet.
+not only its finalize step, in the sacrificial thread.
+
+With a ``mesh`` (``parallel/mesh.py``: dp x tp) the parameters are
+sharded once, here, and every batch is padded to a multiple of dp by
+replicating a real row, then split over the dp groups, each running the
+single-device program on its rows (``parallel/spmd.py``), over its tp
+ranks when tp > 1. ``max_batch`` must divide by dp.
 
 With ``speculative`` K > 0 (or ``NWT_SPECULATIVE``) every batch whose
 rows are all at temperature 0 decodes by exact speculative greedy, with
@@ -82,13 +88,29 @@ class WindowBatcher:
                  device="cuda", seed: int = 0,
                  batch_deadline_s: Optional[float] = None,
                  speculative: int = 0, draft_pool: Optional[int] = None,
-                 draft=None):
+                 draft=None, mesh=None):
         """``speculative``/``draft_pool``: an explicit value wins over
         ``NWT_SPECULATIVE``/``NWT_DRAFT_POOL``, which only fill the
         defaults; a malformed value is logged and ignored. ``draft``:
         (draft_params, draft_cfg) of a second-model draft, which must
         share the vocabulary and the encoder width (it reads the target's
-        encoder states)."""
+        encoder states). ``mesh``: a ``parallel/mesh.py::Mesh``; the
+        batcher then runs on its devices (``device`` is not used), and a
+        second-model draft is dropped with a warning (mesh serving
+        self-drafts, as the reference's)."""
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import shard_params
+            dp = mesh.shape["dp"]
+            if max_batch % dp != 0:
+                raise ValueError(f"max_batch ({max_batch}) must be "
+                                 f"divisible by dp ({dp})")
+            if draft is not None:
+                log.warning("mesh serving self-drafts; the configured "
+                            "second-model draft is ignored under a mesh")
+                draft = None
+            params = shard_params(params, mesh)
+            device = mesh.first
         self.opts = opts or DecodeOptions()
         self.speculative = (speculative if speculative
                             else _env_int("NWT_SPECULATIVE", 0))
@@ -308,6 +330,15 @@ class WindowBatcher:
         from ..models.whisper import encode
 
         self.batch_sizes.append(len(batch))
+        if self.mesh is not None:
+            # pad to at least dp rows and a multiple of dp by replicating
+            # a real row; the padding rows' results go to futures nobody
+            # holds
+            dp = self.mesh.shape["dp"]
+            n_pad = max(len(batch), dp)
+            n_pad += -n_pad % dp
+            batch = batch + [dataclasses.replace(batch[0], future=Future())
+                             for _ in range(n_pad - len(batch))]
         frames, mel = self._stack_rows(batch)
         prompts = [list(r.prompt) for r in batch]
         temps = np.asarray([r.temperature for r in batch], np.float32)
@@ -319,11 +350,21 @@ class WindowBatcher:
             # the languages, then each row's language token is patched; a
             # fixed-language beam batch needs the encoder states only
             if frames is not None and need_lang:
-                xa, lang_idx, _ = greedy.frames_encode_detect_impl(
-                    self.params, frames, self.cfg, self.compute_dtype)
+                xa, lang_idx, _ = greedy.frames_encode_detect_dispatch(
+                    self.params, frames, self.cfg, self.compute_dtype,
+                    mesh=self.mesh)
             elif frames is not None:
-                xa = greedy.frames_encode_impl(self.params, frames, self.cfg,
-                                               self.compute_dtype)
+                xa = greedy.frames_encode_dispatch(
+                    self.params, frames, self.cfg, self.compute_dtype,
+                    mesh=self.mesh)
+            elif self.mesh is not None:
+                from ..parallel import spmd
+                xa = spmd.encode_spmd(self.params, mel, self.mesh, self.cfg,
+                                      self.compute_dtype)
+                if need_lang:
+                    lang_idx, _ = spmd.detect_language_spmd(
+                        self.params, xa, self.mesh, self.cfg,
+                        self.compute_dtype)
             else:
                 xa = encode(self.params, mel, self.cfg, self.compute_dtype)
                 if need_lang:
@@ -336,7 +377,16 @@ class WindowBatcher:
                         prompts[i][r.lang_slot] = (self.cfg.lang_base
                                                    + int(lang_idx[i]))
                         langs[i] = LANGUAGES[int(lang_idx[i])]
-            if use_beam:
+            if use_beam and self.mesh is not None:
+                from ..parallel.spmd import run_on_mesh, shard_seeds
+                seeds = shard_seeds(self.generator, self.mesh.shape["dp"])
+                results = run_on_mesh(
+                    self.mesh, self.params,
+                    lambda p, x, pr, t, seed: self._beam_results(
+                        x, pr, t, params=p, generator=torch.Generator(
+                            device=x.device).manual_seed(seed[0])),
+                    (xa, prompts, temps, seeds))
+            elif use_beam:
                 results = self._beam_results(xa, prompts, temps)
             else:
                 results = self._finalize(greedy.decode_window_dispatch(
@@ -357,7 +407,8 @@ class WindowBatcher:
 
     def _spec_kw(self) -> dict:
         return dict(speculative=self.speculative,
-                    draft_pool=self.draft_pool, draft=self.draft)
+                    draft_pool=self.draft_pool, draft=self.draft,
+                    mesh=self.mesh)
 
     def _finalize(self, handle) -> list:
         """Score a decode handle; a speculative batch's (passes, rows,
@@ -372,12 +423,16 @@ class WindowBatcher:
         return results
 
     def _beam_results(self, xa: torch.Tensor, prompts: List[List[int]],
-                      temps: np.ndarray) -> list:
+                      temps: np.ndarray, params=None,
+                      generator: Optional[torch.Generator] = None) -> list:
         """The beam strategy's decode of one encoded batch: rows at
         temperature 0 by beam search, rows above it (ladder retries) by
         sampling (openai/whisper.cpp: beam at zero temperature, sampling
         above it); a mixed batch makes two calls, each subset at its own
-        size."""
+        size. On a mesh each dp group runs this on its rows, with its own
+        ``params`` and sampling ``generator``."""
+        params = self.params if params is None else params
+        generator = self.generator if generator is None else generator
         from ..decode.beam import beam_decode_window
         from ..decode.greedy import decode_window
         results: list = [None] * len(prompts)
@@ -385,17 +440,18 @@ class WindowBatcher:
         hot = [i for i, t in enumerate(temps) if t != 0]
         if zero:
             sub = beam_decode_window(
-                self.params, xa[zero], [prompts[i] for i in zero], self.cfg,
-                self.tables, beam_size=self.opts.beam_size,
+                params, xa[zero], [prompts[i] for i in zero], self.cfg,
+                self.tables.to(xa.device), beam_size=self.opts.beam_size,
                 sample_len=self.opts.sample_len,
                 compute_dtype=self.compute_dtype)
             for i, r in zip(zero, sub):
                 results[i] = r
         if hot:
             sub = decode_window(
-                self.params, xa[hot], [prompts[i] for i in hot], self.cfg,
-                self.tables, self.opts, temperature=temps[hot],
-                generator=self.generator, compute_dtype=self.compute_dtype)
+                params, xa[hot], [prompts[i] for i in hot], self.cfg,
+                self.tables.to(xa.device), self.opts,
+                temperature=temps[hot], generator=generator,
+                compute_dtype=self.compute_dtype)
             for i, r in zip(hot, sub):
                 results[i] = r
         return results

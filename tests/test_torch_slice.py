@@ -380,17 +380,24 @@ def test_unported_options_raise(opts):
     assert all((s.words is not None) == words for s in got.segments)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(speculative=3)])
+@pytest.mark.parametrize("kw", [dict(mesh="dp2"), dict(speculative=3)])
 def test_batched_engine_unported_modes_raise(kw):
-    """``mesh`` still raises naming its ROADMAP item (11); ``speculative``
-    is served and reaches the batcher."""
+    """No mode raises now: ``mesh`` is served (a dp=2 mesh of the CPU
+    shards the engine's parameters in the batcher), and ``speculative``
+    reaches the batcher; a device other than the engine's still raises."""
     from nobs_whisper_torch.api import WhisperEngine
+    from nobs_whisper_torch.parallel.mesh import ShardedParams, make_mesh
     from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
     eng = WhisperEngine.from_random("tiny-test", dtype=torch.float32,
                                     device="cpu")
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            BatchedEngine(eng, **kw)
+        mesh = make_mesh(dp=2, device="cpu")
+        be = BatchedEngine(eng, mesh=mesh)
+        try:
+            assert be.batcher.mesh is mesh
+            assert isinstance(be.batcher.params, ShardedParams)
+        finally:
+            be.close()
     else:
         be = BatchedEngine(eng, **kw)
         try:
