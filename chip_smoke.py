@@ -144,7 +144,18 @@ arguments). Phases; any failure exits non-zero before the result line:
    a transcription's tokens equal), ``params_to_ggml_tensors`` ->
    ``write_ggml`` -> ``from_ggml`` at turbo width, ``resample_torch`` on
    the card against the CPU;
-17. one ``kernels`` JSON line, then the result line.
+17. training, pp and sp (``phase_train``): the unquantized turbo weights
+   as a trainable f32 tree on the card (TF32 off), a batch of two windows
+   whose mel K14 makes; three full-depth ``train_step``s at lr 1e-3 (step
+   times, peak memory; the loss finite and falling; no kernel launched);
+   at 2 + 2 layers the step on the card against the CPU (loss and three
+   leaves' gradients), the guard (the bf16 loss without the plain-ops
+   context raises at K3), a dp=1 x tp=2 train step, ``encode_pipelined``
+   on pp=2 and ``encode_seq_parallel`` on sp=2 against one device (two
+   cards, or ``cuda:0`` twice), the gradient wrt the mel through the pp
+   schedule; the trained weights quantized into a ``WhisperEngine``
+   transcribe 12 s with K1 = K2 = 32;
+18. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 (B=8, B=1 and B=16) and K5 (B=8 and B=1) at
 H=20, Dh=64, Tp=1536, t_real=1500 (two calls bit for bit; timed back to
@@ -4540,6 +4551,350 @@ def phase_native(card, qeng):
     return ok, {}
 
 
+# the [train] phase: f32 throughout (TF32 off); the card against the CPU,
+# and the sharded paths against one device, are the same math in other
+# f32 summation orders (cuBLAS against MKL, tp's partial sums, sp's
+# shorter query blocks): the loss within 1e-5 relative, each gradient and
+# encoder state within 1e-4 (gradients) and 1e-5 (states) of the
+# reference's largest magnitude
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 3
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_STATE_TOL = 1e-5
+
+
+def _rel_max(got, want):
+    """max |got - want| / max |want|, on the CPU in f32."""
+    want = want.detach().float().cpu()
+    return float((got.detach().float().cpu() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def _cut_depth(params, n_enc, n_dec):
+    """The first n_enc encoder and n_dec decoder layers of a tree."""
+    out = {}
+    for part, n in (("encoder", n_enc), ("decoder", n_dec)):
+        out[part] = dict(params[part])
+        out[part]["blocks"] = {k: v[:n] for k, v in
+                               params[part]["blocks"].items()}
+    return out
+
+
+def _train_step_flop(cfg, b, s):
+    """Operations (two a multiply-add) of one train step's matrix products
+    and convolutions: the forward's, times 3 (the backward takes two
+    products for each of the forward's, wrt the input and wrt the weight).
+    A window of T = n_audio_ctx encoder rows of width d: the stem's two
+    convolutions (2T x 3 n_mels x d, T x 3d x d), then per encoder layer
+    24 T d^2 (q, k, v, o and the 4d-wide MLP) and 4 T^2 d (scores and
+    their product with v). The decoder's S = s - 1 positions of width d_t:
+    per layer 28 S d_t^2 (self q/k/v/o, cross q/o, MLP), 4 S^2 d_t (self
+    attention), 4 T d_t^2 (cross k, v over the encoder's rows) and
+    4 S T d_t (cross attention), then the 2 S d_t V logits."""
+    t, d, m = cfg.n_audio_ctx, cfg.n_audio_state, cfg.n_mels
+    dt, n = cfg.n_text_state, s - 1
+    enc = (2 * 2 * t * 3 * m * d + 2 * t * 3 * d * d
+           + cfg.n_audio_layer * (24 * t * d * d + 4 * t * t * d))
+    dec = (cfg.n_text_layer * (28 * n * dt * dt + 4 * n * n * dt
+                               + 4 * t * dt * dt + 4 * n * t * dt)
+           + 2 * n * dt * cfg.n_vocab)
+    return 3 * b * (enc + dec)
+
+
+def _train_batch(cfg, dev, b=2, s=32, pad=4):
+    """``b`` windows of speech-like audio, their mel by K14
+    (``log_mel_spectrogram_pallas``; no gradient needed, so under
+    ``no_grad``: an inference tensor could not be saved for the conv's
+    backward), ``s`` tokens a row from a seeded generator, and a mask of
+    ones but the last ``pad`` positions of the last row."""
+    import numpy as np
+    import torch
+    from nobs_whisper_torch.audio.mel import pad_or_trim
+    from nobs_whisper_torch.ops import mel_pallas as mp
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+    audio = torch.from_numpy(np.stack([
+        np.asarray(pad_or_trim(torch.from_numpy(
+            speech_like_audio(d, seed=90 + i))))
+        for i, d in enumerate((12.0, 25.0, 7.0, 18.0)[:b])])).to(dev)
+    with torch.no_grad():
+        mel = mp.log_mel_spectrogram_pallas(audio, cfg.n_mels)
+    g = torch.Generator().manual_seed(91)
+    tokens = torch.randint(0, cfg.eot, (b, s), generator=g).to(dev)
+    mask = torch.ones((b, s), dtype=torch.float32)
+    mask[-1, s - pad:] = 0
+    return mel, tokens, mask.to(dev)
+
+
+def phase_train(card, eng, dev="cuda"):
+    """Training on the card (``models/training.py``), pp and sp, at the
+    width of large-v3-turbo (random weights from seed 0: ``eng``'s, as a
+    trainable f32 tree), f32 compute, TF32 off:
+
+    * the batch: two windows' mel by K14 (one launch), 32 tokens a row,
+      four padded positions;
+    * full depth (32 + 4 layers) on ``cuda:0``: three ``train_step``s at
+      lr 1e-3, each timed after a sync, the peak memory; the loss finite
+      and falling; no kernel launched (training runs the plain ops);
+    * 2 + 2 layers: the same step on the card and on the CPU, the losses
+      within ``TRAIN_LOSS_TOL`` and the gradients of ``conv1_w``, the
+      second encoder block's ``fc1_w`` and the decoder's ``tok_emb``
+      within ``TRAIN_GRAD_TOL``;
+    * the guard: the bf16 loss at 2 + 2 layers with the plain-ops context
+      taken away reaches K3 with trainable inputs and raises, and K3
+      counts no launch;
+    * sharded, 2 + 2 layers, on two cards or on ``cuda:0`` twice: a dp=1 x
+      tp=2 ``train_step`` (loss and every master gradient against the
+      one-device step), ``encode_pipelined`` on pp=2 with two microbatches
+      and ``encode_seq_parallel`` on sp=2 against the one-device plain
+      encode (``TRAIN_STATE_TOL``), and the gradient wrt the mel through
+      the pp schedule;
+    * back to serving: the trained full-depth weights, rounded to bf16
+      and quantized into a ``WhisperEngine``, transcribe a 12 s clip:
+      K1 = K2 = 32, no other kernel.
+
+    ``dev`` "cpu" rehearses the phase's flow on a tiny engine (the counts
+    stay 0 there: only a launch on the card counts)."""
+    import contextlib
+    import dataclasses
+    import math
+
+    import torch
+    from nobs_whisper_torch.core.native_ckpt import flatten
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.models import training as tr
+    from nobs_whisper_torch.models.whisper import _encode
+    from nobs_whisper_torch.parallel.mesh import make_mesh
+    from nobs_whisper_torch.parallel.pipeline import (encode_pipelined,
+                                                      make_pp_mesh)
+    from nobs_whisper_torch.parallel.seqparallel import (encode_seq_parallel,
+                                                         make_sp_mesh)
+    from nobs_whisper_torch.parallel.tp import plain_ops
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+
+    cfg = eng.cfg
+    f32 = torch.float32
+    ok = True
+    launches = {}
+
+    reset_counts()
+    mel, tokens, mask = _train_batch(cfg, dev)
+    torch.cuda.synchronize()
+    c = read_counts()
+    b_ok = (only(c, {"K14": 1}) and tuple(mel.shape) == (
+        2, cfg.n_mels, 2 * cfg.n_audio_ctx) and not mel.is_inference()
+        and bool(torch.isfinite(mel).all()))
+    log(f"[train] {card}: batch of 2 windows (12 s, 25 s) by "
+        f"log_mel_spectrogram_pallas {tuple(mel.shape)}, tokens "
+        f"{tuple(tokens.shape)}, mask sum {int(mask.sum())}: launches "
+        f"{_launch_summary(c)} (want K14 = 1) -> "
+        f"{'PASS' if b_ok else 'FAIL'}")
+    ok &= b_ok
+    launches["K14"] = c["K14"]
+
+    # full depth, one card
+    master = tr.trainable_params(eng.params, device=dev, dtype=f32)
+    n_params = sum(t.numel() for t in flatten(master).values())
+    opt = tr.make_optimizer(master, lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, times = [], []
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = tr.train_step(master, opt, mel, tokens, mask, cfg, f32)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    c = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    f_ok = (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+            and only(c, {}))
+    log(f"[train] {card}: full depth ({cfg.n_audio_layer} + "
+        f"{cfg.n_text_layer} layers, {n_params / 1e6:.1f} M parameters, "
+        f"f32 master on {dev}, AdamW lr {TRAIN_LR}): losses "
+        f"{', '.join(f'{v:.6f}' for v in losses)}; step times "
+        f"{', '.join(f'{t:.3f}' for t in times)} s; peak memory "
+        f"{peak / 2**30:.2f} GiB (of it {base / 2**30:.2f} GiB allocated "
+        f"before the steps); launches {_launch_summary(c)} (want none) -> "
+        f"{'PASS' if f_ok else 'FAIL'}")
+    ok &= f_ok
+    flop = _train_step_flop(cfg, *tokens.shape)
+    steady = min(times[1:])
+    log(f"[train] {card}: one step's matrix products {flop / 1e12:.3f} "
+        f"TFLOP (_train_step_flop), over the fastest later step "
+        f"{steady:.3f} s: {flop / steady / 1e12:.2f} TFLOP/s (host-timed "
+        f"after a sync; f32 without TF32)")
+
+    # back to serving: the trained weights through the int8 engine
+    with torch.no_grad():
+        served = {part: {k: ({kk: vv.detach().to(torch.bfloat16)
+                              for kk, vv in v.items()}
+                             if isinstance(v, dict)
+                             else v.detach().to(torch.bfloat16))
+                         for k, v in master[part].items()}
+                  for part in master}
+    moved = _rel_max(served["encoder"]["blocks"]["fc1_w"],
+                     eng.params["encoder"]["blocks"]["fc1_w"].float())
+    del master, opt, loss
+    torch.cuda.empty_cache()
+    trained = dataclasses.replace(eng, params=served).quantize()
+    reset_counts()
+    t0 = time.perf_counter()
+    r = trained.transcribe(speech_like_audio(12.0, seed=92), language="en",
+                           opts=DecodeOptions(temperature_increment=0.0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = read_counts()
+    n_tok = sum(len(s.tokens) for s in r.segments)
+    s_ok = (only(c, {"K1": cfg.n_audio_layer, "K2": cfg.n_audio_layer})
+            and c["batches"] == 1 and isinstance(r.text, str) and all(
+                math.isfinite(s.avg_logprob) for s in r.segments))
+    log(f"[train] {card}: the trained weights (fc1_w moved by "
+        f"{moved:.3e} of its largest magnitude), bf16, quantized into a "
+        f"WhisperEngine: 12 s transcription in {dt:.2f} s, {n_tok} tokens; "
+        f"launches {_launch_summary(c)} (want K1 = K2 = "
+        f"{cfg.n_audio_layer}) -> {'PASS' if s_ok else 'FAIL'}")
+    ok &= s_ok
+    launches["K1"], launches["K2"] = c["K1"], c["K2"]
+    del trained, served, r
+    torch.cuda.empty_cache()
+
+    # 2 + 2 layers: the card against the CPU
+    small_cfg = dataclasses.replace(cfg, n_audio_layer=2, n_text_layer=2)
+    small = _cut_depth(eng.params, 2, 2)
+    on_card = tr.trainable_params(small, device=dev, dtype=f32)
+    on_cpu = tr.trainable_params(small, device="cpu", dtype=f32)
+    t0 = time.perf_counter()
+    l_card = tr.loss_fn(on_card, mel, tokens, mask, small_cfg, f32)
+    l_card.backward()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l_cpu = tr.loss_fn(on_cpu, mel.cpu(), tokens.cpu(), mask.cpu(),
+                       small_cfg, f32)
+    l_cpu.backward()
+    cpu_s = time.perf_counter() - t0
+    l_err = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+    picks = {"conv1_w": lambda p: p["encoder"]["conv1_w"],
+             "blocks.fc1_w[1]": lambda p: p["encoder"]["blocks"]["fc1_w"],
+             "tok_emb": lambda p: p["decoder"]["tok_emb"]}
+    g_err = {}
+    for name, pick in picks.items():
+        a, b = pick(on_card).grad, pick(on_cpu).grad
+        if name.endswith("[1]"):
+            a, b = a[1], b[1]
+        g_err[name] = _rel_max(a, b)
+    c_ok = l_err <= TRAIN_LOSS_TOL and all(
+        e <= TRAIN_GRAD_TOL for e in g_err.values())
+    log(f"[train] {card}: 2 + 2 layers, one step's loss and gradients on "
+        f"the card ({card_s:.2f} s) against the CPU ({cpu_s:.2f} s): loss "
+        f"{l_card.item():.6f} / {l_cpu.item():.6f}, relative {l_err:.3e} "
+        f"(<= {TRAIN_LOSS_TOL:.0e}); gradients, max |card - CPU| / max "
+        f"|CPU|: " + ", ".join(f"{k} {v:.3e}" for k, v in g_err.items())
+        + f" (<= {TRAIN_GRAD_TOL:.0e}) -> {'PASS' if c_ok else 'FAIL'}")
+    ok &= c_ok
+    del on_cpu, l_cpu
+
+    # the guard: no kernel inside a training forward
+    guard = tr.trainable_params(small, device=dev)   # bf16, as served
+    real = tr._tp.plain_ops
+    tr._tp.plain_ops = contextlib.nullcontext
+    reset_counts()
+    raised = ""
+    try:
+        tr.loss_fn(guard, mel, tokens, mask, small_cfg, torch.bfloat16)
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        tr._tp.plain_ops = real
+    c = read_counts()
+    g_ok = raised.startswith("K3: a hand-written kernel") and only(c, {})
+    log(f"[train] {card}: the bf16 loss at 2 + 2 layers without the "
+        f"plain-ops context: {'raised ' + repr(raised[:60]) if raised else 'no error'}"
+        f" (want K3's guard), launches {_launch_summary(c)} (want none) "
+        f"-> {'PASS' if g_ok else 'FAIL'}")
+    ok &= g_ok
+    del guard
+
+    # sharded, 2 + 2 layers
+    n_cards = torch.cuda.device_count()
+    pair = (["cuda:0", "cuda:1"] if n_cards >= 2 else ["cuda:0", "cuda:0"])
+    where = ("two cards, cuda:0 and cuda:1" if n_cards >= 2
+             else "one card, cuda:0 twice")
+    if dev == "cpu":
+        pair, where = ["cpu", "cpu"], "the CPU twice"
+    one = tr.trainable_params(small, device=dev, dtype=f32)
+    sh = tr.trainable_params(small, device=dev, dtype=f32)
+    t0 = time.perf_counter()
+    l_one = tr.train_step(one, tr.make_optimizer(one, lr=TRAIN_LR), mel,
+                          tokens, mask, small_cfg, f32)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l_tp = tr.train_step(sh, tr.make_optimizer(sh, lr=TRAIN_LR), mel,
+                         tokens, mask, small_cfg, f32,
+                         mesh=make_mesh(dp=1, tp=2, devices=pair))
+    torch.cuda.synchronize()
+    tp_s = time.perf_counter() - t0
+    lt_err = abs(l_tp.item() - l_one.item()) / abs(l_one.item())
+    worst, worst_name = 0.0, ""
+    ref_leaves = flatten(one)
+    for name, t in flatten(sh).items():
+        e = _rel_max(t.grad, ref_leaves[name].grad)
+        if e >= worst:
+            worst, worst_name = e, name
+    t_ok = lt_err <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL
+    log(f"[train] {card}: dp=1 x tp=2 train step on {where} ({tp_s:.2f} s;"
+        f" one device {one_s:.2f} s): loss {l_tp.item():.6f} against "
+        f"{l_one.item():.6f}, relative {lt_err:.3e} (<= "
+        f"{TRAIN_LOSS_TOL:.0e}); master gradients, largest max |tp - one| "
+        f"/ max |one| {worst:.3e} ({worst_name}; <= {TRAIN_GRAD_TOL:.0e})"
+        f" -> {'PASS' if t_ok else 'FAIL'}")
+    ok &= t_ok
+    del sh
+
+    with torch.no_grad(), plain_ops():
+        ref = _encode(one, mel, small_cfg, f32)
+        t0 = time.perf_counter()
+        pp = encode_pipelined(one, mel, small_cfg,
+                              make_pp_mesh(pp=2, devices=pair), n_micro=2)
+        torch.cuda.synchronize()
+        pp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sp = encode_seq_parallel(one, mel, small_cfg,
+                                 make_sp_mesh(2, devices=pair))
+        torch.cuda.synchronize()
+        sp_s = time.perf_counter() - t0
+    pp_err, sp_err = _rel_max(pp, ref), _rel_max(sp, ref)
+    e_ok = (pp.shape == ref.shape == sp.shape and pp_err <= TRAIN_STATE_TOL
+            and sp_err <= TRAIN_STATE_TOL)
+    log(f"[train] {card}: 2 layers on {where}: encode_pipelined pp=2, "
+        f"n_micro=2 ({pp_s:.2f} s) and encode_seq_parallel sp=2 "
+        f"({sp_s:.2f} s) against the one-device plain encode: max |got - "
+        f"one| / max |one| {pp_err:.3e} and {sp_err:.3e} (<= "
+        f"{TRAIN_STATE_TOL:.0e}) -> {'PASS' if e_ok else 'FAIL'}")
+    ok &= e_ok
+
+    x_pp = mel.clone().requires_grad_(True)
+    (encode_pipelined(one, x_pp, small_cfg, make_pp_mesh(pp=2, devices=pair),
+                      n_micro=2) ** 2).sum().backward()
+    x_one = mel.clone().requires_grad_(True)
+    with plain_ops():
+        (_encode(one, x_one, small_cfg, f32) ** 2).sum().backward()
+    gi_err = _rel_max(x_pp.grad, x_one.grad)
+    gi_ok = gi_err <= TRAIN_GRAD_TOL and float(x_one.grad.abs().max()) > 0
+    log(f"[train] {card}: gradient wrt the mel through the pp=2 schedule on "
+        f"{where}: max |pp - one| / max |one| {gi_err:.3e} (<= "
+        f"{TRAIN_GRAD_TOL:.0e}) -> {'PASS' if gi_ok else 'FAIL'}")
+    ok &= gi_ok
+    del one, on_card, x_pp, x_one, mel
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4609,8 +4964,10 @@ def main():
         for key, n in counts.items():
             launches[key] = launches.get(key, 0) + n
         took(name)
-    for name, phase in (("mesh", phase_mesh), ("native", phase_native)):
-        phase_ok, counts = phase(card, qeng)
+    for name, phase, args in (("mesh", phase_mesh, (card, qeng)),
+                              ("native", phase_native, (card, qeng)),
+                              ("train", phase_train, (card, eng))):
+        phase_ok, counts = phase(*args)
         ok &= phase_ok
         for key, n in counts.items():
             launches[key] = launches.get(key, 0) + n

@@ -2,6 +2,6 @@
 
 Mirrors the JAX package's file layout: each module's reference is the file
 at the same relative path under ``nobs_whisper_tpu/``. The port imports
-neither JAX nor the JAX package; the two Pallas kernels of the serving
-path are hand-written CUDA under ``csrc/``.
+neither JAX nor the JAX package; each of its Pallas kernels is a
+hand-written CUDA kernel under ``csrc/``.
 """

@@ -179,18 +179,16 @@ def _default_beam_batch(model: Optional[str], beam_size: int) -> int:
 def _parse_mesh(spec: str, device: str):
     """``--mesh DPxTP`` -> a mesh over the first dp*tp visible cards
     (``--device cpu``: the CPU named dp*tp times); fewer cards than that
-    raise. pp and sp (a third factor) are the last slice of the port and
-    raise."""
+    raise. DPxTP only, as the reference parses it: pp and sp
+    (``parallel/pipeline.py``, ``parallel/seqparallel.py``) serve nothing,
+    and a third factor is a malformed spec."""
     import torch
 
     from .parallel.mesh import make_mesh
     parts = spec.lower().split("x")
-    if len(parts) > 2:
-        raise NotImplementedError(
-            f"--mesh {spec}: pipeline (pp) and sequence (sp) parallelism "
-            "are not ported yet; they come with training in the last "
-            "slice of the port (ROADMAP.md queue 1)")
     try:
+        if len(parts) > 2:
+            raise ValueError(spec)
         dp, tp = int(parts[0]), int(parts[1]) if len(parts) > 1 else 1
     except ValueError:
         raise SystemExit(f"--mesh {spec}: expected DPxTP, e.g. 2x1")
@@ -456,11 +454,11 @@ def main(argv=None):
     s.add_argument("--quant", choices=["int8", "none"], default="int8",
                    help="int8 serving path (default; 'none' = raw dtype)")
     s.add_argument("--mesh", default=None, metavar="DPxTP",
-                   help="serve on a dp x tp mesh of the first dp*tp cards, "
-                        "e.g. 2x1 (each window batch split over 2 cards) "
-                        "or 1x2 (each layer's heads and FFN columns split "
-                        "over 2); --batch is rounded down to a multiple of "
-                        "dp")
+                   help="serve on a dp x tp mesh of the first dp*tp cards "
+                        "(DPxTP only), e.g. 2x1 (each window batch split "
+                        "over 2 cards) or 1x2 (each layer's heads and FFN "
+                        "columns split over 2); --batch is rounded down to "
+                        "a multiple of dp")
     s.add_argument("--speculative", type=int, default=0, metavar="K",
                    help="exact speculative greedy decode with K drafted "
                         "tokens a pass (token-identical output; 0 = off). "

@@ -22,6 +22,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
@@ -170,6 +172,27 @@ def sass_counts(lib_path: str) -> Dict[str, collections.Counter]:
         if name and m:
             out[name][m.group(1)] += 1
     return out
+
+
+def no_autograd(what: str, *inputs) -> None:
+    """Refuse a kernel call under autograd. A hand-written kernel's output
+    has no ``grad_fn``, so a training forward that reached one would lose
+    every gradient behind it without a word. Raises RuntimeError when grad
+    mode is on and a tensor input (or a part of a QTensor dict) requires
+    grad. Under ``inference_mode`` and ``no_grad`` it is one flag read.
+    Each wrapper calls it first, on every device: the plain version that
+    a CPU tensor takes stands in for the kernel, and raises alike."""
+    if not torch.is_grad_enabled():
+        return
+    for t in inputs:
+        parts = t.values() if isinstance(t, dict) else (t,)
+        if any(isinstance(z, torch.Tensor) and z.requires_grad
+               for z in parts):
+            raise RuntimeError(
+                f"{what}: a hand-written kernel was reached with an input "
+                "that requires grad; its output would carry no gradient. "
+                "Training runs the plain torch ops "
+                "(parallel/tp.py::plain_ops)")
 
 
 def check(err: int, what: str) -> None:

@@ -343,6 +343,7 @@ def cross_attention_decode_bf16(q: torch.Tensor, packed,
     kT and v (the kernel's bulk copies), as
     ``pack_cross_kv_bf16`` lays them out. Returns (B, H, 1, Dh) f32."""
     global k4_launch_count
+    _build.no_autograd("K4", q, packed)
     if q.device.type == "cpu":
         return cross_attention_decode_bf16_plain(q, packed, t_real)
     b, h, dh = _check_decode(q, "cross_attention_decode_bf16")
@@ -357,7 +358,6 @@ def cross_attention_decode_bf16(q: torch.Tensor, packed,
             f"Tp % {K4_STEP} == 0 and 0 < t_real <= Tp; got kT "
             f"{tuple(kT.shape)} {kT.dtype}, v {tuple(v.shape)} {v.dtype}, "
             f"t_real {t_real}")
-    from . import _build
     lib = _build.load("cross_attention_decode", _SIG)
     # every converted tensor stays in a name until the launch has returned
     qb = q.to(torch.bfloat16).contiguous()
@@ -392,6 +392,7 @@ def cross_attention_decode_q8(q: torch.Tensor, kq: QKV, vq: QKV
     (the kernel's bulk copies), as ``quantize_cross_kv`` lays them out.
     Returns (B, H, 1, Dh) f32."""
     global k5_launch_count
+    _build.no_autograd("K5", q, kq, vq)
     if q.device.type == "cpu":
         return cross_attention_decode_q8_plain(q, kq, vq)
     b, h, dh = _check_decode(q, "cross_attention_decode_q8")
@@ -406,7 +407,6 @@ def cross_attention_decode_q8(q: torch.Tensor, kq: QKV, vq: QKV
             f"(B, H, Tp) scales with Tp % {K5_STEP} == 0; got "
             f"{tuple(kq['q'].shape)} {kq['q'].dtype}, "
             f"{tuple(vq['q'].shape)} {vq['q'].dtype}")
-    from . import _build
     lib = _build.load("cross_attention_decode", _SIG)
     # every converted tensor stays in a name until the launch has returned
     f32 = lambda z: z.to(torch.float32).contiguous()

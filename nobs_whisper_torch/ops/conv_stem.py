@@ -87,6 +87,7 @@ def encoder_stem_fused(mel, w1, b1, w2, b2, pos,
     serving engine's bf16 parameters: no copy, no launch besides the
     kernels'); other types are converted first."""
     global launch_count
+    _build.no_autograd("K13", mel, w1, b1, w2, b2, pos)
     b, c_in, n_frames = mel.shape
     d = w1.shape[-1]
     t_half = n_frames // 2
@@ -104,7 +105,6 @@ def encoder_stem_fused(mel, w1, b1, w2, b2, pos,
                          f"{tuple(w1.shape)}, {tuple(w2.shape)}, "
                          f"{tuple(b1.shape)}, {tuple(b2.shape)}, "
                          f"{tuple(pos.shape)}")
-    from . import _build
     fn = _build.load("conv_stem", _SIG).nwt_encoder_stem
     dev, bf = mel.device, torch.bfloat16
     if any(z.device != dev for z in (w1, b1, w2, b2, pos)):

@@ -208,6 +208,7 @@ def encoder_attention_fused_qkv(x, ln_g, ln_b, wq, bq, wk, wv, bv,
     ``wo`` the finished ``x + attn @ wo + bo``, whose per-pair o-input
     quantization is finer than the unfused full-row one."""
     global launch_count
+    _build.no_autograd("K1", x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo)
     b, t, d = x.shape
     assert n_head % 2 == 0 and d % 128 == 0 and 2 * (d // n_head) == 128, \
         (d, n_head)
@@ -218,7 +219,6 @@ def encoder_attention_fused_qkv(x, ln_g, ln_b, wq, bq, wk, wv, bv,
             int8_scores, int8_pv, wo, bo)
     ops = fused_qkv_operands(x, ln_g, ln_b, wq, bq, wk, wv, bv, n_real,
                              n_head, int8_scores, int8_pv, wo, bo)
-    from . import _build
     lib = _build.load("encoder_attention", _SIG)
     err = lib.nwt_encoder_attention_fused_qkv(
         *(ctypes.c_void_p(z.data_ptr()) for z in ops),
@@ -334,7 +334,6 @@ def _kernel_checks(q, k, v, t: int, dh: int, n_real: int, what: str):
 
 
 def _launch(fn: str, q, k, v, dims, n_real: int, sm_scale: float):
-    from . import _build
     lib = _build.load("encoder_attention", _SIG)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
@@ -349,7 +348,6 @@ def _launch(fn: str, q, k, v, dims, n_real: int, sm_scale: float):
 
 def _launch_btd_int8(q, k, v, b, t, n_head, n_real, sm_scale, int8_scores,
                      int8_pv):
-    from . import _build
     lib = _build.load("encoder_attention", _SIG)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
@@ -388,6 +386,7 @@ def encoder_attention_btd(q, k, v, n_real: int, sm_scale: float,
     kernel needs T % 64 == 0); keys >= ``n_real`` are masked and padded
     query rows come out finite. Returns (B, T, d) in q.dtype."""
     global k3_launch_count
+    _build.no_autograd("K3", q, k, v)
     b, t, d = q.shape
     assert n_head % 2 == 0, n_head      # head pairs, as the reference asserts
     if q.device.type == "cpu":
@@ -424,6 +423,7 @@ def encoder_attention(q, k, v, n_real: int, sm_scale: float) -> torch.Tensor:
     keys >= ``n_real`` are masked, padded query rows come out finite.
     Returns (B, H, T, dh) in q.dtype."""
     global k9_launch_count
+    _build.no_autograd("K9", q, k, v)
     b, h, t, dh = q.shape
     if q.device.type == "cpu":
         return encoder_attention_plain(q, k, v, n_real, sm_scale)

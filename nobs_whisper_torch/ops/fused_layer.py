@@ -63,6 +63,8 @@ def encoder_layer_fused(x, ln1_g, ln1_b, wq, bq, wk, wv, bv, wo, bo,
     first launch and kept in the QTensor); ``block_f``: the fc2-input
     requantization chunk. Returns (B, T, d) in x.dtype."""
     global launch_count
+    _build.no_autograd("K12", x, ln1_g, ln1_b, wq, bq, wk, wv, bv, wo, bo,
+                       ln2_g, ln2_b, fc1, fc1_b, fc2, fc2_b)
     b, t, d = x.shape
     assert n_head % 2 == 0 and d % 128 == 0 and 2 * (d // n_head) == 128, \
         (d, n_head)
@@ -91,7 +93,6 @@ def encoder_layer_fused(x, ln1_g, ln1_b, wq, bq, wk, wv, bv, wo, bo,
            f32(fc1["s"]).reshape(ffn), f32(fc1_b), k_major(fc2),
            f32(fc2["s"]).reshape(d), f32(fc2_b),
            *fm.mlp_workspace(m, ffn, block_f, dev), torch.empty_like(ops[0])]
-    from . import _build
     lib = _build.load("fused_layer", _SIG)
     err = lib.nwt_encoder_layer_fused(
         *(ctypes.c_void_p(z.data_ptr()) for z in ops + mlp),

@@ -156,6 +156,7 @@ def encoder_mlp_int8_resident(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
     chunk (resolved as the reference does). The reference's VMEM row tile
     ``block_m`` does not change the result and has no counterpart here."""
     global launch_count, launch_count_f32
+    _build.no_autograd("K2", x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b)
     if x.device.type == "cpu":
         return encoder_mlp_int8_resident_plain(
             x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f=block_f)
@@ -172,6 +173,7 @@ def encoder_mlp_int8(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b,
     arguments; the reference's ``block_m`` (``NWT_MLP_BM``) does not
     change the result and has no counterpart here."""
     global k8_launch_count, k8_launch_count_f32
+    _build.no_autograd("K8", x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b)
     if x.device.type == "cpu":
         return encoder_mlp_int8_plain(
             x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f=block_f)
@@ -196,7 +198,6 @@ def _launch(key, x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b, block_f):
             or tuple(fc1["q"].shape) != (d, ffn)
             or tuple(fc2["q"].shape) != (ffn, d)):
         raise ValueError("fc1/fc2 must be (d, ffn)/(ffn, d) int8 QTensors")
-    from . import _build
     lib = _build.load("fused_mlp", _SIG)
     dev = x.device
     # every converted tensor stays in a name until the launch has returned
@@ -286,7 +287,6 @@ def k7_set_pdl(on: bool) -> None:
     plain stream-ordered launch, for every call that follows in this
     process, on any thread: one process-wide switch for timing and testing
     both, not a per-call option (the card only)."""
-    from . import _build
     _build.load("fused_mlp_q8", _K7_SIG).nwt_fused_mlp_q8_set_pdl(int(on))
 
 
@@ -295,6 +295,7 @@ def fused_mlp_q8(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b) -> torch.Tensor:
     ffn) and ``fc2`` (ffn, d) dequantized to bf16; x (M, d) bf16 or f32,
     M small (a decode step). Returns x's dtype."""
     global k7_launch_count
+    _build.no_autograd("K7", x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b)
     m, d = x.shape
     ffn = fc1["q"].shape[-1]
     if x.device.type == "cpu":
@@ -308,7 +309,6 @@ def fused_mlp_q8(x, ln_g, ln_b, fc1, fc1_b, fc2, fc2_b) -> torch.Tensor:
             or tuple(fc1["q"].shape) != (d, ffn)
             or tuple(fc2["q"].shape) != (ffn, d)):
         raise ValueError("fc1/fc2 must be (d, ffn)/(ffn, d) int8 QTensors")
-    from . import _build
     lib = _build.load("fused_mlp_q8", _K7_SIG)
     dev = x.device
     # every converted tensor stays in a name until the launch has returned;

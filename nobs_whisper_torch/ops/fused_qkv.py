@@ -96,7 +96,6 @@ def _checks(key, x, weights):
     for w in weights:
         if w["q"].dtype != torch.int8 or tuple(w["q"].shape) != (d, d):
             raise ValueError(f"{key}: weights must be (d, d) int8 QTensors")
-    from . import _build
     return _build.load("fused_qkv", _SIG)
 
 
@@ -118,6 +117,7 @@ def encoder_qkv_int8(x, ln_g, ln_b, wq, q_b, wk, wv, v_b):
     (``NWT_QKV_BM``) does not change the result and has no counterpart
     here."""
     global k10_launch_count, k10_launch_count_f32
+    _build.no_autograd("K10", x, ln_g, ln_b, wq, q_b, wk, wv, v_b)
     if x.device.type == "cpu":
         return encoder_qkv_int8_plain(x, ln_g, ln_b, wq, q_b, wk, wv, v_b)
     lib = _checks("K10", x, (wq, wk, wv))
@@ -134,7 +134,6 @@ def encoder_qkv_int8(x, ln_g, ln_b, wq, q_b, wk, wv, v_b):
     err = getattr(lib, fn)(*(z.data_ptr() for z in (
         x, g, be, w[0], s[0], bq, w[1], s[1], w[2], s[2], bv, q, k, v, xq,
         sx)), m, d, torch._C._cuda_getCurrentRawStream(dev.index))
-    from . import _build
     _build.check(err, fn)
     with _build.COUNT_LOCK:
         k10_launch_count += 1
@@ -147,6 +146,7 @@ def residual_o_int8(x, a, wo, o_b):
     ``wo``: int8 QTensor (d, d); ``o_b``: (d,). Returns (M, d) in
     x.dtype."""
     global k11_launch_count, k11_launch_count_f32
+    _build.no_autograd("K11", x, a, wo, o_b)
     if x.device.type == "cpu":
         return residual_o_int8_plain(x, a, wo, o_b)
     lib = _checks("K11", x, (wo,))
@@ -163,7 +163,6 @@ def residual_o_int8(x, a, wo, o_b):
     err = getattr(lib, fn)(*(z.data_ptr() for z in (
         x, a, w, s, b, out, aq, sa)), m, d,
         torch._C._cuda_getCurrentRawStream(dev.index))
-    from . import _build
     _build.check(err, fn)
     with _build.COUNT_LOCK:
         k11_launch_count += 1

@@ -182,12 +182,12 @@ def log10_mel_pallas(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     log10 mel. T // 160 must be a multiple of 600 (a 30 s window is 5
     blocks); the kernel applies the reflect pad as it reads the PCM."""
     global k14_launch_count
+    _build.no_autograd("K14", audio)
     n_frames = _check_frames(audio.shape[1])
     if audio.device.type == "cpu":
         return log10_mel_pallas_plain(audio, n_mels)
     if audio.device.type != "cuda":
         raise ValueError(f"unsupported device {audio.device}")
-    from . import _build
     lib = _build.load("mel", _SIG)
     dev = audio.device
     b, t = audio.shape

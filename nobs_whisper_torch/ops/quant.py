@@ -113,6 +113,7 @@ def q8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     The reference's VMEM tiles ``block_m``/``block_n`` do not change the
     result and have no counterpart here."""
     global k6_launch_count, k6_decode_launch_count
+    _build.no_autograd("K6", x, qt)
     m, k = x.shape
     k2, n = qt["q"].shape
     assert k == k2, (k, k2)

@@ -13,7 +13,14 @@ q/k/v and fc1 split on the output feature axis, o and fc2 on the input
 feature axis, so each block needs one sum across tp. Where the reference
 places a tree on the mesh with ``NamedSharding``s, :func:`shard_params`
 here builds one parameter tree per mesh position, on that position's
-device, holding only that tp rank's slices.
+device, holding only that tp rank's slices. Its slices and copies are
+torch ops (``tensor_split``, ``.to``), so under grad mode the shards of a
+trainable tree stay in the autograd graph: the dp x tp train step
+(``models/training.py``) shards its master tree this way at each step,
+and a replicated leaf's gradient sums over its copies.
+
+The other axes of the reference, pp and sp, have meshes of their own
+(``parallel/pipeline.py``, ``parallel/seqparallel.py``).
 """
 
 from __future__ import annotations
@@ -38,39 +45,50 @@ def P(*axes: Optional[str]) -> Tuple[Optional[str], ...]:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A (dp, tp) grid of devices; ``devices[i][j]`` is dp group i's tp
-    rank j. A device may appear more than once (a one-card machine runs
-    dp=2 on ``cuda:0`` twice)."""
+    """A grid of devices; ``devices[i][j]`` is row i's position j. The
+    serving mesh is (dp, tp): dp group i's tp rank j. The pipeline mesh is
+    (dp, pp) (``parallel/pipeline.py``); a one-axis mesh (sp,
+    ``parallel/seqparallel.py``) is one row. A device may appear more than
+    once (a one-card machine runs dp=2 on ``cuda:0`` twice)."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
+    axis_names: Tuple[str, ...] = ("dp", "tp")
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"dp": len(self.devices), "tp": len(self.devices[0])}
+        if len(self.axis_names) == 1:
+            return {self.axis_names[0]: len(self.devices[0])}
+        return {self.axis_names[0]: len(self.devices),
+                self.axis_names[1]: len(self.devices[0])}
 
     @property
     def first(self) -> torch.device:
         return self.devices[0][0]
 
 
+def default_devices(n: Optional[int], device="cuda") -> List[torch.device]:
+    """A mesh's devices when the caller names none: every visible card,
+    or, when ``device`` asks for the CPU, the CPU named n times
+    (:data:`CPU_DEVICE_COUNT` times when n is None)."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return [torch.device("cpu")] * (n if n is not None
+                                        else CPU_DEVICE_COUNT)
+    from ..core.device import resolve_device
+    resolve_device(dev)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def make_mesh(dp: Optional[int] = None, tp: int = 1, devices=None,
               device="cuda") -> Mesh:
     """Build a (dp, tp) mesh; dp defaults to n_devices // tp.
 
-    With ``devices`` None the devices are every visible card, or, when
-    ``device`` asks for the CPU, the CPU named dp * tp times
-    (:data:`CPU_DEVICE_COUNT` times when dp is None). Raises ValueError
-    when dp * tp is not the number of devices."""
+    With ``devices`` None the devices are :func:`default_devices`' (the CPU
+    named dp * tp times under a CPU request). Raises ValueError when
+    dp * tp is not the number of devices."""
     if devices is None:
-        dev = torch.device(device)
-        if dev.type == "cpu":
-            n = dp * tp if dp is not None else CPU_DEVICE_COUNT
-            devices = [torch.device("cpu")] * n
-        else:
-            from ..core.device import resolve_device
-            resolve_device(dev)
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
+        devices = default_devices(dp * tp if dp is not None else None,
+                                  device)
     devices = [torch.device(d) for d in devices]
     n = len(devices)
     if dp is None:

@@ -32,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,11 +62,51 @@ def _to(x, dev: torch.device):
     return x
 
 
+def run_threads(jobs: Sequence[Tuple[str, torch.device, Callable[[], Any],
+                                     Optional[TPGroup]]]) -> List[Any]:
+    """Run each job ``(name, device, fn, group)``'s ``fn()`` in a host
+    thread of its own named ``name``, under its device's context and the
+    caller's grad mode (grad mode is per thread), and wait for them all.
+    A job that raises aborts its ``group``'s barrier, so its peers raise
+    too instead of waiting; the first exception in job order that is not
+    a peer's broken barrier is raised here after every thread has ended.
+    Returns the results in job order."""
+    grad = torch.is_grad_enabled()
+    results: List[Any] = [None] * len(jobs)
+    errors: List[Optional[BaseException]] = [None] * len(jobs)
+
+    def run(k: int):
+        _, dev, fn, group = jobs[k]
+        try:
+            with _device_ctx(dev), torch.set_grad_enabled(grad):
+                results[k] = fn()
+        except BaseException as e:     # noqa: BLE001 (re-raised below)
+            errors[k] = e
+            if group is not None:
+                group.abort()
+
+    threads = [threading.Thread(target=run, args=(k,), daemon=True,
+                                name=job[0]) for k, job in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    first = [e for e in errors if e is not None]
+    if first:
+        # a rank that saw only its peer's broken barrier is not the cause
+        real = [e for e in first
+                if not isinstance(e, threading.BrokenBarrierError)]
+        raise (real or first)[0]
+    return results
+
+
 def run_on_mesh(mesh: Mesh, sparams: ShardedParams,
                 body: Callable[..., Any], batch_args: Sequence = (),
                 out_device: Optional[torch.device] = None) -> Any:
     """Run ``body(params, *shard_args)`` once a mesh position, each in a
-    host thread under its device's context and its :class:`ShardContext`.
+    host thread (:func:`run_threads`) under its device's context and its
+    :class:`ShardContext` (kernels off under tp or ``NWT_NO_SPMD``,
+    :func:`spmd_serving_enabled`).
 
     ``batch_args`` are batch-leading (tensors, arrays or lists, or None)
     and split into dp contiguous shards; a shard's tensors move to its
@@ -80,38 +120,21 @@ def run_on_mesh(mesh: Mesh, sparams: ShardedParams,
     plain = not spmd_serving_enabled(mesh)
     shards = [batch_shards(a, dp) if a is not None else [None] * dp
               for a in batch_args]
-    results: List[List[Any]] = [[None] * tp for _ in range(dp)]
-    errors: List[List[Optional[BaseException]]] = [[None] * tp
-                                                   for _ in range(dp)]
     groups = [TPGroup(row) if tp > 1 else None for row in mesh.devices]
 
-    def run(i: int, j: int):
+    def job(i: int, j: int):
         dev = mesh.devices[i][j]
         ctx = (ShardContext(groups[i], j, plain, sparams.vocab[j][0])
                if tp > 1 or plain else None)
-        try:
-            with _device_ctx(dev), shard_context(ctx):
-                args = [_to(s[i], dev) for s in shards]
-                results[i][j] = body(sparams.trees[i][j], *args)
-        except BaseException as e:     # noqa: BLE001 (re-raised below)
-            errors[i][j] = e
-            if groups[i] is not None:
-                groups[i].abort()
 
-    threads = [threading.Thread(target=run, args=(i, j), daemon=True,
-                                name=f"nwt-shard-{i}-{j}")
-               for i in range(dp) for j in range(tp)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    first = [e for row in errors for e in row if e is not None]
-    if first:
-        # a rank that saw only its peer's broken barrier is not the cause
-        real = [e for e in first
-                if not isinstance(e, threading.BrokenBarrierError)]
-        raise (real or first)[0]
-    return gather_batch([row[0] for row in results],
+        def fn():
+            with shard_context(ctx):
+                args = [_to(s[i], dev) for s in shards]
+                return body(sparams.trees[i][j], *args)
+        return f"nwt-shard-{i}-{j}", dev, fn, groups[i]
+
+    results = run_threads([job(i, j) for i in range(dp) for j in range(tp)])
+    return gather_batch([results[i * tp] for i in range(dp)],
                         out_device if out_device is not None
                         else mesh.first)
 

@@ -28,7 +28,15 @@ device or a shard body (reference ``models/whisper.py:261-285``), so GSPMD
 runs the plain int8 path, and the port's tp forward runs the plain torch
 path on each rank. That is the reference's function, not a fallback. The
 same context, at size 1, turns the kernels off on a dp mesh with
-``NWT_NO_SPMD`` (the reference's pure-GSPMD dp path).
+``NWT_NO_SPMD`` (the reference's pure-GSPMD dp path), and for training
+(:func:`plain_ops`).
+
+The exchanges are differentiable: a peer's tensor comes over with
+``.to()`` and the sums and gathers are out-of-place torch ops, so autograd
+records rank r's output as a function of every rank's input. The dp x tp
+train step (``models/training.py``) runs its forward through them and
+takes one ``backward()`` from the calling thread; no collective runs
+inside a backward.
 
 The collectives are exchanges through host memory slots under a barrier:
 each rank posts its tensor, and every rank copies the others' to its own
@@ -128,6 +136,20 @@ def shard_context(ctx: Optional[ShardContext]):
 def kernels_off() -> bool:
     ctx = current()
     return ctx is not None and ctx.plain
+
+
+def plain_ops():
+    """A context in which every kernel gate is off and the model runs the
+    plain torch ops: the calling thread's shard context with ``plain``
+    set, or a plain context of its own off a mesh. Training enters it
+    (``models/training.py``): autograd differentiates torch ops, not the
+    hand-written kernels (``ops/_build.py::no_autograd``)."""
+    ctx = current()
+    if ctx is None:
+        return shard_context(ShardContext(None, plain=True))
+    if ctx.plain:
+        return contextlib.nullcontext(ctx)
+    return shard_context(dataclasses.replace(ctx, plain=True))
 
 
 def tp_size() -> int:

@@ -451,13 +451,13 @@ def test_shard_failure_fails_the_call():
 
 def test_cli_mesh_spec():
     """``serve --mesh DPxTP`` builds the mesh (``--device cpu``: the CPU
-    named dp * tp times); a third factor (pp or sp) raises naming the
-    last slice; a malformed spec exits."""
+    named dp * tp times); a third factor (pp or sp, which serve nothing)
+    and a malformed spec exit."""
     from nobs_whisper_torch.cli import _parse_mesh
     assert _parse_mesh("2x1", "cpu").shape == {"dp": 2, "tp": 1}
     assert _parse_mesh("4", "cpu").shape == {"dp": 4, "tp": 1}
     assert _parse_mesh("1x2", "cpu").shape == {"dp": 1, "tp": 2}
-    with pytest.raises(NotImplementedError, match="last slice"):
+    with pytest.raises(SystemExit, match="expected DPxTP"):
         _parse_mesh("1x2x2", "cpu")
     with pytest.raises(SystemExit):
         _parse_mesh("twoxone", "cpu")
