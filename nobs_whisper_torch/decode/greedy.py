@@ -8,12 +8,18 @@ that exits early once every row is done (checked every ``_EXIT_CHECK``
 steps, one host sync each; rows that are done keep emitting eot and do not
 change the result). Ragged batches are left-padded; sampling draws from an
 explicit ``torch.Generator``.
+
+Inside a batch of the window batcher each stage adds its host time to the
+batch's record (``utils/profiling.py::batch_record``): ``encode``,
+``prefill``, a step's ``forward`` and ``rules``, ``sync`` where the host
+waits on the device, ``finalize``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,6 +30,7 @@ from ..models.whisper import (decoder_forward, init_kv_cache,
                               precompute_cross_kv, precompute_cross_kv_q8,
                               xattn_kernel_enabled)
 from ..ops.attention_pallas import pack_cross_kv_bf16, quantize_cross_kv
+from ..utils.profiling import batch_record
 from .rules import DecodeOptions, RuleTables, apply_logit_rules_scored
 
 _EXIT_CHECK = 8
@@ -114,9 +121,11 @@ def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
     """Returns (tokens (B, sample_len), n_sampled (B,), sum_logprob (B,),
     no_speech_prob (B,)), all device tensors; the cross-KV layout is
     :func:`window_cross_kv`'s."""
+    rec, t = batch_record(), time.time_ns()
     b, p_max = prompt_tokens.shape
     dev = xa.device
     cross_kv = window_cross_kv(params, xa, cfg, q8_kv, xattn_bf16)
+    t = rec.add("encode", t)
     t_cache = -(-(p_max + sample_len) // 8) * 8
     cache = init_kv_cache(cfg, b, dtype=compute_dtype,
                           t_ctx=min(t_cache, cfg.n_text_ctx), device=dev)
@@ -135,11 +144,18 @@ def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
     max_ts = torch.full((b,), tb - 1, dtype=torch.long, device=dev)
     last = torch.zeros((b,), dtype=torch.long, device=dev)
     penult = torch.zeros((b,), dtype=torch.long, device=dev)
+    t = rec.add("prefill", t)
+    # a copy from the host's pageable memory: it waits for the work
+    # enqueued so far (the encoder, the cross-KV, the prefill)
     eot_t = torch.tensor(eot, device=dev)
+    t = rec.add("sync", t)
 
     for step in range(sample_len):
-        if step and step % _EXIT_CHECK == 0 and bool(done.all()):
-            break
+        if step and step % _EXIT_CHECK == 0:
+            finished = bool(done.all())
+            t = rec.add("sync", t)
+            if finished:
+                break
         masked, lse, greedy_logit = apply_logit_rules_scored(
             logits.float(), tables,
             n_sampled=torch.full((b,), step, device=dev),
@@ -159,11 +175,13 @@ def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
         penult = torch.where(done, penult, last)
         last = torch.where(done, last, tok)
         done = done | (tok == eot)
+        t = rec.add("rules", t)
         if step + 1 < sample_len:
             logits_next, cache = decoder_forward(
                 params, tok[:, None], p_max + step, pad_lens, cache,
                 cross_kv, cfg, compute_dtype)
             logits = logits_next[:, 0]
+            t = rec.add("forward", t)
     n_sampled = torch.sum(tokens != eot, dim=1)
     return tokens, n_sampled, sum_logprob, no_speech_prob
 
@@ -177,9 +195,11 @@ def frames_encode_decode_window_impl(
     main path (frames from ``audio/mel.py::frame_window_np``)."""
     from ..audio.mel import log_mel_from_frames
     from ..models.whisper import encode
+    t = time.time_ns()
     mel = log_mel_from_frames(frames, n_mels=cfg.n_mels,
                               n_frames=2 * cfg.n_audio_ctx)
     xa = encode(params, mel, cfg, compute_dtype=compute_dtype)
+    batch_record().add("encode", t)
     return decode_window_impl(params, xa, prompt_tokens, pad_lens, sot_idx,
                               tables, temperature, generator, cfg,
                               sample_len, compute_dtype, q8_kv,
@@ -221,6 +241,7 @@ def decode_window_dispatch(
     ``parallel/mesh.py::shard_params``'s. Speculative decoding on a mesh
     self-drafts (``draft`` is ignored, as in the reference's mesh
     program) and its handle has no pass count."""
+    t = time.time_ns()
     n = len(prompts)
     speculative = speculative or opts.speculative
     if draft_pool == 4 and opts.draft_pool != 4:
@@ -277,23 +298,28 @@ def decode_window_dispatch(
             torch.as_tensor(sot_np, device=dev), tables.to(dev),
             torch.as_tensor(temps, device=dev), generator, cfg, sample_len,
             compute_dtype, opts.q8_cross_kv, xattn_bf16, sampling)
+    rec = batch_record()
+    t = rec.add("prefill", t)
     if frames is not None:
         out = frames_encode_decode_window_impl(params, frames, *args)
     else:
         if mel is not None:
             from ..models.whisper import encode
             xa = encode(params, mel, cfg, compute_dtype=compute_dtype)
+            rec.add("encode", t)
         out = decode_window_impl(params, xa, *args)
     return (*out, temps)
 
 
 def decode_window_finalize(handle) -> List[WindowResult]:
     """Copy the decode's device tensors to the host and score them."""
+    rec, t = batch_record(), time.time_ns()
     tokens, n_sampled, sum_lp, nsp, temps = handle[:5]
     tokens = tokens.cpu().numpy()
     n_sampled = n_sampled.cpu().numpy()
     sum_lp = sum_lp.cpu().numpy()
     nsp = nsp.float().cpu().numpy()
+    t = rec.add("sync", t)
     out = []
     for i in range(tokens.shape[0]):
         toks = tokens[i, : n_sampled[i]].tolist()
@@ -304,6 +330,7 @@ def decode_window_finalize(handle) -> List[WindowResult]:
             no_speech_prob=float(nsp[i]),
             temperature=float(temps[i]),
         ))
+    rec.add("finalize", t)
     return out
 
 

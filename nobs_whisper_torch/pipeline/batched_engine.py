@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -121,6 +122,7 @@ class BatchedEngine:
                    context: Optional[str] = None,
                    task: Optional[str] = None,
                    opts: Optional[DecodeOptions] = None) -> TranscribeResult:
+        t_prep = time.time_ns()     # the request's preparation: to submit
         if task is not None:
             opts = dataclasses.replace(opts or DecodeOptions(), task=task)
         cfg = self.engine.cfg
@@ -168,7 +170,9 @@ class BatchedEngine:
             attempts += 1
             result = self.batcher.submit(
                 None, prompt, temperature=temp, lang_slot=lang_slot,
-                frames=frames).result(timeout=_submit_timeout())
+                frames=frames, prep_ns=time.time_ns() - t_prep).result(
+                    timeout=_submit_timeout())
+            t_prep = time.time_ns()     # a retry's: from this result
             if lang_slot is not None and result.language:
                 lang = result.language
                 prompt[lang_slot] = self.engine.tokenizer.language_token(lang)

@@ -13,6 +13,11 @@ with the card for its early exit, so there is no asynchronous dispatch to
 overlap). For the same reason the batch watchdog runs the whole batch,
 not only its finalize step, in the sacrificial thread.
 
+Each request carries its submit stamp and the time its caller spent
+preparing it; each batch leaves a record of its host time by part
+on ``utils/profiling.py::GLOBAL_PROFILER`` (``/stats`` and the benchmark
+read them).
+
 With a ``mesh`` (``parallel/mesh.py``: dp x tp) the parameters are
 sharded once, here, and every batch is padded to a multiple of dp by
 replicating a real row, then split over the dp groups, each running the
@@ -50,6 +55,7 @@ import torch
 
 from ..core.config import WhisperConfig
 from ..decode.rules import DecodeOptions, RuleTables, build_rule_tables
+from ..utils.profiling import GLOBAL_PROFILER
 
 log = logging.getLogger(__name__)
 
@@ -77,6 +83,8 @@ class _Request:
     lang_slot: Optional[int] = None
     # STFT-framed audio (n <= N_FRAMES, N_FFT): the fused main path
     frames: Optional[np.ndarray] = None
+    t_submit: int = 0           # time.time_ns() at submit
+    prep_ns: int = 0            # the caller's preparation before submit
 
 
 class WindowBatcher:
@@ -157,8 +165,12 @@ class WindowBatcher:
     # ------------------------------------------------------------------
     def submit(self, mel_window: Optional[np.ndarray], prompt: Sequence[int],
                temperature: float = 0.0, lang_slot: Optional[int] = None,
-               frames: Optional[np.ndarray] = None) -> "Future":
-        """Submit either a mel window or STFT ``frames``."""
+               frames: Optional[np.ndarray] = None,
+               prep_ns: int = 0) -> "Future":
+        """Submit either a mel window or STFT ``frames``; ``prep_ns``: the
+        caller's time preparing the request (framing, prompt), for its
+        batch's record."""
+        t_submit = time.time_ns()
         if (mel_window is None) == (frames is None):
             raise ValueError("pass exactly one of mel_window / frames")
         if not self._running:
@@ -170,7 +182,8 @@ class WindowBatcher:
             prompt=list(prompt), future=fut,
             temperature=float(temperature), lang_slot=lang_slot,
             frames=(None if frames is None
-                    else np.asarray(frames, np.float32))))
+                    else np.asarray(frames, np.float32)),
+            t_submit=t_submit, prep_ns=prep_ns))
         return fut
 
     def warmup(self, auto_language: bool = True,
@@ -325,11 +338,23 @@ class WindowBatcher:
         return None, torch.stack(rows)
 
     def _run_batch(self, batch: List[_Request]):
+        """Decode one batch under its record (published before the
+        futures resolve), then resolve the futures."""
+        self.batch_sizes.append(len(batch))
+        with GLOBAL_PROFILER.batch([(r.t_submit, r.prep_ns)
+                                    for r in batch]) as rec:
+            results, langs = self._decode_batch(batch, rec)
+        for r, res, lang in zip(batch, results, langs):
+            res.language = lang
+            if not r.future.done():
+                r.future.set_result(res)
+
+    def _decode_batch(self, batch: List[_Request], rec):
+        """(results, languages) of the batch's rows; ``rec`` its record."""
         from ..core.tokenizer import LANGUAGES
         from ..decode import greedy
         from ..models.whisper import encode
 
-        self.batch_sizes.append(len(batch))
         if self.mesh is not None:
             # pad to at least dp rows and a multiple of dp by replicating
             # a real row; the padding rows' results go to futures nobody
@@ -340,6 +365,7 @@ class WindowBatcher:
             batch = batch + [dataclasses.replace(batch[0], future=Future())
                              for _ in range(n_pad - len(batch))]
         frames, mel = self._stack_rows(batch)
+        t = rec.add("stack", rec.start_ns)
         prompts = [list(r.prompt) for r in batch]
         temps = np.asarray([r.temperature for r in batch], np.float32)
         langs: List[Optional[str]] = [None] * len(batch)
@@ -370,8 +396,10 @@ class WindowBatcher:
                 if need_lang:
                     lang_idx, _ = greedy.detect_language(
                         self.params, xa, self.cfg, self.compute_dtype)
+            t = rec.add("encode", t)
             if need_lang:
                 lang_idx = lang_idx.cpu().numpy()
+                rec.add("sync", t)
                 for i, r in enumerate(batch):
                     if r.lang_slot is not None:
                         prompts[i][r.lang_slot] = (self.cfg.lang_base
@@ -400,10 +428,7 @@ class WindowBatcher:
                 self.opts, temperature=temps, generator=self.generator,
                 compute_dtype=self.compute_dtype, mel=mel, frames=frames,
                 **self._spec_kw()))
-        for r, res, lang in zip(batch, results, langs):
-            res.language = lang
-            if not r.future.done():
-                r.future.set_result(res)
+        return results, langs
 
     def _spec_kw(self) -> dict:
         return dict(speculative=self.speculative,

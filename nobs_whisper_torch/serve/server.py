@@ -321,6 +321,9 @@ def make_handler(state: ServerState):
                             getattr(batcher, "transferred_bytes", 0)
                             / 1e6, 1),
                     }
+                    # queue_wait_ms (p50, p95 over the recent batches'
+                    # rows) and step_ms (host ms a decode step by part)
+                    out["batcher"].update(GLOBAL_PROFILER.batch_summary())
                     sp = getattr(batcher, "spec_stats", [])[-100:]
                     if sp:
                         # emitted tokens per (pass x row): the

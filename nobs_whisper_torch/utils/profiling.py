@@ -1,10 +1,23 @@
-"""Per-stage timing and RTF counters.
+"""The port's tracer: stage aggregates, the window batcher's batch
+records, and the device timing helpers of the kernel scripts.
 
 The reference has only log-line breadcrumbs with durations
-(src-tauri/src/whisper.rs:75-80, audio.rs:147-153); here observability is a
-real subsystem since real-time factor is the benchmark metric. Stage timers
-aggregate into a global registry; ``rtf()`` converts audio-seconds /
-wall-seconds. ``torch.profiler`` traces can be wrapped around any stage.
+(src-tauri/src/whisper.rs:75-80, audio.rs:147-153). Here:
+
+* ``stage_timer``/``Profiler.record`` sum count, total and longest
+  duration per stage name (``/stats`` shows them);
+* every batch that ``pipeline/batcher.py::WindowBatcher`` runs leaves a
+  :class:`BatchRecord` on ``GLOBAL_PROFILER`` (a bounded deque, in the
+  order the batches end): its requests' submit stamps and preparation
+  time, and its host time by part (:data:`PARTS`); ``/stats`` shows
+  the recent batches' queue wait and step parts (``batch_summary``). The parts are timed
+  where the work happens (``decode/greedy.py``), reaching the batch's
+  record through a thread-local (each batch runs in a thread of its
+  own), so no lock is taken before the batch ends. Inside a batch that
+  starts while a ``torch.profiler`` session records, each part's
+  intervals are kept too, so that the device trace can be read against
+  them: every stamp is ``time.time_ns()``, the clock of the profiler's
+  events.
 """
 
 from __future__ import annotations
@@ -12,8 +25,23 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from collections import defaultdict
-from typing import Dict, Iterator
+from collections import defaultdict, deque
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+# A batch's host time by part, in the order the parts run: ``stack`` the
+# requests' framing rows stacked and copied to the card; ``encode`` the
+# mel, the encoder and the cross-KV enqueued; ``prefill`` the prompts
+# padded, the cache made and the prompt's forward; then each decode step's
+# ``forward`` (the ``decoder_forward`` enqueue) and ``rules`` (the logit
+# rules, argmax or sampling, the step's bookkeeping); ``sync`` the host
+# blocked on the device (a copy before the loop, the exit check every few
+# steps, the results' copies to the host); ``finalize`` the results
+# scored on the host.
+PARTS = ("stack", "encode", "prefill", "forward", "rules", "sync",
+         "finalize")
+STEP_PARTS = ("forward", "rules", "sync")
+RECORDS_KEPT = 4096         # batch records; a 51 s dictation run makes ~70
+SUMMARY_BATCHES = 100       # the recent batches ``batch_summary`` reads
 
 
 class StageStats:
@@ -30,12 +58,91 @@ class StageStats:
         self.max_s = max(self.max_s, dt)
 
 
+class BatchRecord:
+    """One batch of ``WindowBatcher``: its ``requests`` (submit stamp, ns
+    of preparation on the caller's thread), ``start_ns`` and ``end_ns``,
+    and by part (:data:`PARTS`) the summed host ``ns`` and the
+    ``calls``; ``intervals`` holds
+    each part's (part, start, end) in a batch that started while a
+    ``torch.profiler`` session recorded, else None. Stamps are
+    ``time.time_ns()``.
+
+    A decode step is a pass of the greedy/sampling loop
+    (``decode/greedy.py::decode_window_impl``): ``rules`` runs once a
+    step, ``forward`` once a step but the last (its token needs none),
+    ``sync`` at each exit check, once before the loop (the eot scalar's
+    copy to the card waits for the encoder and the prefill enqueued
+    before it) and once for the results' copies in
+    ``decode_window_finalize`` (and for the detected languages' copy in
+    an auto-language batch). Beam search, speculative passes and mesh
+    shards time no step parts: their decode falls outside every part
+    (a beam batch's rows above temperature 0, ladder retries, sample in
+    the greedy loop and do time them)."""
+
+    __slots__ = ("requests", "start_ns", "end_ns", "ns", "calls",
+                 "intervals")
+
+    def __init__(self, requests: Sequence[Tuple[int, int]], start_ns: int,
+                 traced: bool):
+        self.requests = list(requests)
+        self.start_ns = start_ns
+        self.end_ns = start_ns
+        self.ns = dict.fromkeys(PARTS, 0)
+        self.calls = dict.fromkeys(PARTS, 0)
+        self.intervals: Optional[List[Tuple[str, int, int]]] = (
+            [] if traced else None)
+
+    def add(self, part: str, t0: int) -> int:
+        """Count the time from ``t0`` to now under ``part``; return now,
+        the next part's start."""
+        t1 = time.time_ns()
+        self.ns[part] += t1 - t0
+        self.calls[part] += 1
+        if self.intervals is not None:
+            self.intervals.append((part, t0, t1))
+        return t1
+
+    @property
+    def rows(self) -> int:
+        return len(self.requests)
+
+    @property
+    def steps(self) -> int:
+        """Decode steps run (the ``rules`` part's calls)."""
+        return self.calls["rules"]
+
+    def queue_waits_ns(self) -> List[int]:
+        """Each request's wait in the queue: the batch's start minus its
+        submit stamp."""
+        return [self.start_ns - t for t, _ in self.requests]
+
+
+class _NoRecord:
+    """The record a thread that runs no batch times into: nothing."""
+
+    __slots__ = ()
+
+    def add(self, part: str, t0: int) -> int:
+        return t0
+
+
+NO_RECORD = _NoRecord()
+_local = threading.local()
+
+
+def batch_record():
+    """The record of the batch this thread runs, else :data:`NO_RECORD`."""
+    return getattr(_local, "record", NO_RECORD)
+
+
 class Profiler:
-    """Thread-safe stage-time aggregator."""
+    """Thread-safe stage-time aggregator, and the keeper of the window
+    batcher's batch records."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._stages: Dict[str, StageStats] = defaultdict(StageStats)
+        self._batches: deque[BatchRecord] = deque(maxlen=RECORDS_KEPT)
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
@@ -61,9 +168,46 @@ class Profiler:
                 for k, v in self._stages.items()
             }
 
-    def reset(self):
+    @contextlib.contextmanager
+    def batch(self, requests: Sequence[Tuple[int, int]]
+              ) -> Iterator[BatchRecord]:
+        """Open the record of a batch the calling thread runs; at the end
+        it is published, whether or not the batch raised."""
+        from torch.autograd import profiler as torch_profiler
+        rec = BatchRecord(requests, time.time_ns(),
+                          getattr(torch_profiler, "_is_profiler_enabled",
+                                  False))
+        _local.record = rec
+        try:
+            yield rec
+        finally:
+            rec.end_ns = time.time_ns()
+            del _local.record
+            with self._lock:
+                self._batches.append(rec)
+
+    def batch_records(self) -> List[BatchRecord]:
+        """The kept batch records, in the order their batches ended."""
         with self._lock:
-            self._stages.clear()
+            return list(self._batches)
+
+    def batch_summary(self) -> Dict[str, Dict[str, float]]:
+        """The last :data:`SUMMARY_BATCHES` batches' queue wait (ms, p50
+        and p95 over their rows) and host ms a decode step by step part
+        (over those that ran decode steps); an entry without samples is
+        left out."""
+        import numpy as np
+        recs = self.batch_records()[-SUMMARY_BATCHES:]
+        out: Dict[str, Dict[str, float]] = {}
+        waits = [w for r in recs for w in r.queue_waits_ns()]
+        if waits:
+            p50, p95 = np.percentile(waits, [50, 95]) * 1e-6
+            out["queue_wait_ms"] = {"p50": float(p50), "p95": float(p95)}
+        steps = sum(r.steps for r in recs)
+        if steps:
+            out["step_ms"] = {p: sum(r.ns[p] for r in recs) * 1e-6 / steps
+                              for p in STEP_PARTS}
+        return out
 
 
 GLOBAL_PROFILER = Profiler()
@@ -171,7 +315,3 @@ def device_ms_by_part(fn, reps: int, parts=K1_PARTS):
     return sorted(ms.items(), key=lambda kv: order.index(kv[0])
                   if kv[0] in order else len(order))
 
-
-def rtf(audio_seconds: float, wall_seconds: float) -> float:
-    """Real-time factor: audio seconds transcribed per wall second."""
-    return audio_seconds / max(wall_seconds, 1e-9)

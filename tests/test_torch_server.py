@@ -481,6 +481,38 @@ def test_stats_endpoint(server):
     assert stats["stages"]["decode"]["count"] >= 1
 
 
+def test_stats_batcher_queue_wait_and_step_parts(server):
+    """A batching server's /stats reports its requests' queue wait (p50,
+    p95 over the recent batches' rows) and the host ms a decode step by
+    part, from the batches' records."""
+    import socket
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    from nobs_whisper_torch.serve.server import serve
+    _, httpd = server
+    # the server passes default options, which a BatchedEngine serves
+    # through its batcher when they are its own
+    batched = BatchedEngine(httpd.state.engine, opts=DecodeOptions(),
+                            max_batch=2, max_wait_ms=5)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    srv = serve(batched, port=port, background=True)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        audio = (np.random.RandomState(6).randn(8000) * 0.2).astype(
+            np.float32)
+        _post(base, "/transcribe?language=en", audio.tobytes())
+        b = _get(base, "/stats")["batcher"]
+    finally:
+        srv.shutdown()
+        batched.close()
+    assert 0 <= b["queue_wait_ms"]["p50"] <= b["queue_wait_ms"]["p95"]
+    assert set(b["step_ms"]) == {"forward", "rules", "sync"}
+    assert b["step_ms"]["forward"] > 0 and b["step_ms"]["rules"] > 0
+    assert b["step_ms"]["sync"] >= 0
+
+
 def test_persisted_config_applies_serverside(server):
     """max_recording_duration, language, and custom_vocabulary from the
     persisted AppConfig apply to sessions and one-shots when the request
