@@ -3549,12 +3549,23 @@ SPEC_WAIT_MS = 250     # one wave, one batch: both engines batch alike
 WORD_TOL = 1e-4        # golden alignment scores, card vs CPU, f32
 
 
+def _eager_steps(impl):
+    """``decode/greedy.py::decode_window_impl`` with its steps run eagerly:
+    a step replayed from its CUDA graph calls no ``decoder_forward`` that
+    a tap could see (the graph gives the eager loop's bits,
+    ``tests/test_torch_decode_graph_gpu.py``)."""
+    def eager(*a, **kw):
+        return impl(*a, **{**kw, "cuda_graph": False})
+    return eager
+
+
 class LogitTap:
     """Keeps the logits (on the card) of every TARGET decoder forward that
     the greedy and speculative loops run while it is installed: the calls
     on a packed or int8 cross-KV (a dict), which at bf16 are all the
     target's; the draft's forwards (plain, pooled cross-KV) and the
-    language-detect forward (plain) are left out. A record: (tokens
+    language-detect forward (plain) are left out. The greedy loop runs its
+    steps eagerly meanwhile (:func:`_eager_steps`). A record: (tokens
     (B, S), pos_base or None, pad_lens, logits (B, S, V) f32)."""
 
     def __init__(self):
@@ -3565,11 +3576,15 @@ class LogitTap:
         self.saved = [(m, m.decoder_forward) for m in (greedy, speculative)]
         for m, fn in self.saved:
             m.decoder_forward = self._wrap(fn)
+        self.saved_impl = greedy.decode_window_impl
+        greedy.decode_window_impl = _eager_steps(self.saved_impl)
         return self
 
     def __exit__(self, *exc):
+        from nobs_whisper_torch.decode import greedy
         for m, fn in self.saved:
             m.decoder_forward = fn
+        greedy.decode_window_impl = self.saved_impl
 
     def _wrap(self, fn):
         def tapped(params, tokens, cache_start, pad_lens, kv_cache, cross_kv,
@@ -4197,7 +4212,8 @@ class MeshTap:
     greedy loop (the calls on a packed or int8 cross-KV; the language
     detect forward is left out), by host thread: a mesh's shards decode
     in threads of their own (``parallel/spmd.py``, thread
-    ``nwt-shard-<dp>-<tp>``), an unsharded batch in the batcher's."""
+    ``nwt-shard-<dp>-<tp>``), an unsharded batch in the batcher's, its
+    steps run eagerly meanwhile (:func:`_eager_steps`)."""
 
     def __init__(self):
         self.calls = {}
@@ -4207,11 +4223,14 @@ class MeshTap:
         from nobs_whisper_torch.decode import greedy
         self.saved = greedy.decoder_forward
         greedy.decoder_forward = self._wrap(self.saved)
+        self.saved_impl = greedy.decode_window_impl
+        greedy.decode_window_impl = _eager_steps(self.saved_impl)
         return self
 
     def __exit__(self, *exc):
         from nobs_whisper_torch.decode import greedy
         greedy.decoder_forward = self.saved
+        greedy.decode_window_impl = self.saved_impl
 
     def _wrap(self, fn):
         def tapped(params, tokens, cache_start, pad_lens, kv_cache, cross_kv,

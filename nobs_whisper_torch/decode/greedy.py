@@ -9,29 +9,42 @@ steps, one host sync each; rows that are done keep emitting eot and do not
 change the result). Ragged batches are left-padded; sampling draws from an
 explicit ``torch.Generator``.
 
+A step updates the loop's state in place and reads its position from a
+step counter on the device (:class:`_DecodeLoop`), so on the card a greedy
+batch captures one step as a CUDA graph after its prefill and replays it
+for every later step but the last (:class:`_StepGraph`): the host's
+enqueue of the step's thousands of kernels becomes one launch. Sampling rungs (their ``torch.Generator``), tp shards, the
+mesh's shards and the CPU run the same step eagerly.
+
 Inside a batch of the window batcher each stage adds its host time to the
 batch's record (``utils/profiling.py::batch_record``): ``encode``,
-``prefill``, a step's ``forward`` and ``rules``, ``sync`` where the host
-waits on the device, ``finalize``.
+``prefill``, ``capture``, a step's ``forward`` (or replay) and ``rules``,
+``sync`` where the host waits on the device, ``finalize``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import threading
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.config import WhisperConfig
+from ..core.device import scalar
 from ..models.whisper import (decoder_forward, init_kv_cache,
                               precompute_cross_kv, precompute_cross_kv_q8,
                               xattn_kernel_enabled)
+from ..ops import _build
 from ..ops.attention_pallas import pack_cross_kv_bf16, quantize_cross_kv
+from ..parallel import tp as _tp
 from ..utils.profiling import batch_record
-from .rules import DecodeOptions, RuleTables, apply_logit_rules_scored
+from .rules import (NEG_INF, DecodeOptions, RuleTables,
+                    apply_logit_rules_scored)
 
 _EXIT_CHECK = 8
 
@@ -110,6 +123,130 @@ def window_cross_kv(params, xa: torch.Tensor, cfg: WhisperConfig,
     return kT, v
 
 
+class _DecodeLoop:
+    """The sampling loop's state on the device, updated in place by every
+    step so that a captured step replays on it: the next token's f32
+    ``logits`` (B, V); ``step``, the step counter (the step's n_sampled,
+    its column of ``tokens`` and, past the prompt, its cache position);
+    the sampled ``tokens`` (B, sample_len) and their ``sum_logprob``; the
+    rows that are ``done``; the last, second-to-last and highest timestamp
+    tokens. ``forward(tokens (B, 1), cache_start)`` runs the decoder."""
+
+    def __init__(self, logits: torch.Tensor, tables: RuleTables,
+                 temperature: torch.Tensor,
+                 generator: Optional[torch.Generator], sampling: bool,
+                 sample_len: int, p_max: int, forward: Callable):
+        b, dev = logits.shape[0], logits.device
+        self.tables, self.temperature = tables, temperature
+        self.generator, self.sampling = generator, sampling
+        self.p_max, self._forward = p_max, forward
+        eot = tables.eot
+        self.logits = logits
+        self.step = torch.zeros((), dtype=torch.long, device=dev)
+        self.tokens = torch.full((b, sample_len), eot, dtype=torch.long,
+                                 device=dev)
+        self.sum_logprob = torch.zeros((b,), dtype=torch.float32, device=dev)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.max_ts = torch.full((b,), tables.timestamp_begin - 1,
+                                 dtype=torch.long, device=dev)
+        self.last = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.penult = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.eot = scalar(eot, torch.long, dev)
+
+    def rules(self) -> torch.Tensor:
+        """The step's logit rules, its tokens (greedy, or sampled for rows
+        above temperature 0) and the state's updates; returns the tokens
+        (B,)."""
+        b = self.logits.shape[0]
+        tb = self.tables.timestamp_begin
+        masked, lse, greedy_logit = apply_logit_rules_scored(
+            self.logits, self.tables, n_sampled=self.step.expand(b),
+            last_token=self.last, penult_token=self.penult,
+            max_ts_token=self.max_ts)
+        greedy_tok = torch.argmax(masked, dim=-1)
+        if self.sampling:
+            sampled = _sample(masked, self.temperature, self.generator)
+            tok = torch.where(self.temperature > 0, sampled, greedy_tok)
+            tok_logit = torch.gather(masked, 1, tok[:, None])[:, 0]
+        else:
+            tok, tok_logit = greedy_tok, greedy_logit
+        done = self.done
+        tok = torch.where(done, self.eot, tok)
+        self.sum_logprob += torch.where(done, 0.0, tok_logit - lse)
+        self.tokens.scatter_(1, self.step.expand(b, 1), tok[:, None])
+        self.max_ts.copy_(torch.where((tok >= tb) & ~done,
+                                      torch.maximum(self.max_ts, tok),
+                                      self.max_ts))
+        self.penult.copy_(torch.where(done, self.penult, self.last))
+        self.last.copy_(torch.where(done, self.last, tok))
+        done |= tok == self.eot
+        return tok
+
+    def forward(self, tok: torch.Tensor) -> None:
+        """The next token's logits from the step's tokens; the counter
+        moves on."""
+        logits = self._forward(tok[:, None], self.step + self.p_max)
+        self.logits.copy_(logits[:, 0])
+        self.step += 1
+
+
+class _Captures:
+    """A device's captures: they take turns (``lock``) on one ``stream``
+    and allocate the step's temporaries from one memory ``pool``. The
+    graphs replay on the batches' stream one after another, and no replay
+    leaves anything in the pool for the next. A pool lives while a graph
+    captured into it does, so the ``last`` graph is kept."""
+
+    def __init__(self, dev: torch.device):
+        self.stream = torch.cuda.Stream(dev)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.lock = threading.Lock()
+        self.last: Optional[torch.cuda.CUDAGraph] = None
+
+
+_CAPTURES: Dict[torch.device, _Captures] = {}
+_CAPTURES_LOCK = threading.Lock()
+
+
+def _captures(dev: torch.device) -> _Captures:
+    with _CAPTURES_LOCK:
+        if dev not in _CAPTURES:
+            _CAPTURES[dev] = _Captures(dev)
+        return _CAPTURES[dev]
+
+
+class _StepGraph:
+    """A decode step captured as a CUDA graph: the rules, the greedy
+    choice, the state's updates and the next token's ``decoder_forward``,
+    on the batch's own cache, cross-KV and loop state. Captured once a
+    batch (a capture enqueues nothing); each :meth:`replay` runs the step
+    on the batch's current stream and counts the launches it replays
+    (``ops/_build.py::count``)."""
+
+    def __init__(self, step: Callable[[], None], dev: torch.device):
+        cap = _captures(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches = _build.LaunchTally()
+        # thread_local: each batch runs in a thread of its own, and other
+        # threads keep working on the card during the capture
+        with cap.lock, self.launches, torch.cuda.device(dev), \
+                torch.cuda.stream(cap.stream):
+            self.graph.capture_begin(pool=cap.pool,
+                                     capture_error_mode="thread_local")
+            try:
+                step()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    self.graph.capture_end()
+                raise
+            self.graph.capture_end()
+            cap.last = self.graph
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.launches.replay()
+
+
 @torch.inference_mode()
 def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
                        pad_lens: torch.Tensor, sot_idx: torch.Tensor,
@@ -117,10 +254,13 @@ def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
                        generator: Optional[torch.Generator],
                        cfg: WhisperConfig, sample_len: int,
                        compute_dtype=torch.float32, q8_kv: bool = False,
-                       xattn_bf16: bool = False, sampling: bool = True):
+                       xattn_bf16: bool = False, sampling: bool = True,
+                       cuda_graph: bool = True):
     """Returns (tokens (B, sample_len), n_sampled (B,), sum_logprob (B,),
     no_speech_prob (B,)), all device tensors; the cross-KV layout is
-    :func:`window_cross_kv`'s."""
+    :func:`window_cross_kv`'s. The steps replay a CUDA graph of one step
+    on a CUDA device, at tp size 1, without ``sampling`` and with
+    ``cuda_graph`` (False: the mesh's shards, and a test's eager run)."""
     rec, t = batch_record(), time.time_ns()
     b, p_max = prompt_tokens.shape
     dev = xa.device
@@ -130,66 +270,53 @@ def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
     cache = init_kv_cache(cfg, b, dtype=compute_dtype,
                           t_ctx=min(t_cache, cfg.n_text_ctx), device=dev)
 
-    logits_all, cache = decoder_forward(
-        params, prompt_tokens, 0, pad_lens, cache, cross_kv, cfg,
-        compute_dtype)
-    logits = logits_all[:, -1]
+    def forward(tokens, cache_start):
+        return decoder_forward(params, tokens, cache_start, pad_lens, cache,
+                               cross_kv, cfg, compute_dtype)[0]
+
+    logits_all = forward(prompt_tokens, 0)
     sot_logits = logits_all[torch.arange(b, device=dev), sot_idx]
     no_speech_prob = torch.softmax(sot_logits, dim=-1)[:, cfg.no_speech]
-
-    tb, eot = tables.timestamp_begin, tables.eot
-    tokens = torch.full((b, sample_len), eot, dtype=torch.long, device=dev)
-    sum_logprob = torch.zeros((b,), dtype=torch.float32, device=dev)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    max_ts = torch.full((b,), tb - 1, dtype=torch.long, device=dev)
-    last = torch.zeros((b,), dtype=torch.long, device=dev)
-    penult = torch.zeros((b,), dtype=torch.long, device=dev)
+    loop = _DecodeLoop(logits_all[:, -1].clone(), tables,
+                       temperature, generator, sampling, sample_len, p_max,
+                       forward)
+    del logits_all
+    use_graph = (cuda_graph and not sampling and dev.type == "cuda"
+                 and _tp.tp_size() == 1)
+    graph = None
     t = rec.add("prefill", t)
-    # a copy from the host's pageable memory: it waits for the work
-    # enqueued so far (the encoder, the cross-KV, the prefill)
-    eot_t = torch.tensor(eot, device=dev)
-    t = rec.add("sync", t)
 
     for step in range(sample_len):
         if step and step % _EXIT_CHECK == 0:
-            finished = bool(done.all())
+            finished = bool(loop.done.all())
             t = rec.add("sync", t)
             if finished:
                 break
-        masked, lse, greedy_logit = apply_logit_rules_scored(
-            logits.float(), tables,
-            n_sampled=torch.full((b,), step, device=dev),
-            last_token=last, penult_token=penult, max_ts_token=max_ts)
-        greedy_tok = torch.argmax(masked, dim=-1)
-        if sampling:
-            sampled = _sample(masked, temperature, generator)
-            tok = torch.where(temperature > 0, sampled, greedy_tok)
-            tok_logit = torch.gather(masked, 1, tok[:, None])[:, 0]
+        if step + 1 == sample_len:          # the last token needs no forward
+            loop.rules()
+            t = rec.add("rules", t)
+        elif use_graph:
+            if graph is None:
+                # a constant is made at its first use, which the capture
+                # may not hold: the prefill made the decoder's
+                scalar(NEG_INF, loop.logits.dtype, dev)
+                graph = _StepGraph(lambda: loop.forward(loop.rules()), dev)
+                t = rec.add("capture", t)
+            graph.replay()
+            t = rec.replayed(t)
         else:
-            tok, tok_logit = greedy_tok, greedy_logit
-        tok = torch.where(done, eot_t, tok)
-        sum_logprob += torch.where(done, 0.0, tok_logit - lse)
-        tokens[:, step] = tok
-        max_ts = torch.where((tok >= tb) & ~done,
-                             torch.maximum(max_ts, tok), max_ts)
-        penult = torch.where(done, penult, last)
-        last = torch.where(done, last, tok)
-        done = done | (tok == eot)
-        t = rec.add("rules", t)
-        if step + 1 < sample_len:
-            logits_next, cache = decoder_forward(
-                params, tok[:, None], p_max + step, pad_lens, cache,
-                cross_kv, cfg, compute_dtype)
-            logits = logits_next[:, 0]
+            tok = loop.rules()
+            t = rec.add("rules", t)
+            loop.forward(tok)
             t = rec.add("forward", t)
-    n_sampled = torch.sum(tokens != eot, dim=1)
-    return tokens, n_sampled, sum_logprob, no_speech_prob
+    n_sampled = torch.sum(loop.tokens != tables.eot, dim=1)
+    return loop.tokens, n_sampled, loop.sum_logprob, no_speech_prob
 
 
 def frames_encode_decode_window_impl(
     params, frames, prompt_tokens, pad_lens, sot_idx, tables, temperature,
     generator, cfg, sample_len, compute_dtype=torch.float32, q8_kv=False,
-    xattn_bf16=False, sampling=True,
+    xattn_bf16=False, sampling=True, cuda_graph=True,
 ):
     """STFT-framed audio -> mel -> encoder -> decode loop: the serving
     main path (frames from ``audio/mel.py::frame_window_np``)."""
@@ -203,7 +330,7 @@ def frames_encode_decode_window_impl(
     return decode_window_impl(params, xa, prompt_tokens, pad_lens, sot_idx,
                               tables, temperature, generator, cfg,
                               sample_len, compute_dtype, q8_kv,
-                              xattn_bf16, sampling)
+                              xattn_bf16, sampling, cuda_graph=cuda_graph)
 
 
 def decode_window_dispatch(

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..core.config import WhisperConfig
+from ..core.device import scalar
 
 NEG_INF = -1e30
 
@@ -134,7 +135,7 @@ def apply_logit_rules_scored(
     ids = torch.arange(v, device=logits.device)[None, :]
     is_first = (n_sampled == 0)[:, None]
     static_mask = tables.suppress_mask[None, :]
-    neg = torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device)
+    neg = scalar(NEG_INF, logits.dtype, logits.device)
 
     if not tables.timestamps_enabled:
         mask = (static_mask | (is_first & tables.blank_mask[None, :])

@@ -27,14 +27,14 @@ from __future__ import annotations
 import collections
 import math
 import os
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.config import WhisperConfig
-from ..core.device import disable_tf32
+from ..core.device import disable_tf32, scalar
 from ..ops import _build
 from ..ops import attention_pallas as ap
 from ..parallel import tp as _tp
@@ -84,8 +84,9 @@ def _layer_norm(x: torch.Tensor, g, b, eps: float = 1e-5) -> torch.Tensor:
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
     """A constant rounded to ``like``'s dtype first, as the reference's
     weakly typed Python scalars and ``np...astype(x.dtype)`` constants are
-    (a bare Python float would enter a bf16 op unrounded)."""
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    (a bare Python float would enter a bf16 op unrounded). Made once per
+    value, dtype and device (``core/device.py::scalar``)."""
+    return scalar(v, like.dtype, like.device)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -571,7 +572,8 @@ def _cross_layout(xk, rows: int) -> str:
 
 
 @torch.inference_mode()
-def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
+def decoder_forward(params: Params, tokens: torch.Tensor,
+                    cache_start: Union[int, torch.Tensor],
                     pad_lens: torch.Tensor, kv_cache, cross_kv,
                     cfg: WhisperConfig, compute_dtype=torch.float32,
                     ancestry: Optional[torch.Tensor] = None,
@@ -581,6 +583,10 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
     """One decoder pass over S tokens (S=1 in the sampling loop, S=prompt
     length for prefill). Returns f32 logits (B, S, V) and the KV cache,
     whose slices [cache_start, cache_start+S) are written in place.
+    ``cache_start`` is an int, or a 0-d long tensor on the tokens' device
+    (the decode loop's step counter, which a CUDA graph of the step reads
+    at each replay): the cache is then written by index, with the same
+    values.
 
     Ragged batches are LEFT-padded: element b's sequence starts at cache
     index pad_lens[b]; position embeddings use the element's own position
@@ -608,8 +614,7 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
     t_ctx = ck.shape[-1]
     dev = tokens.device
     if _tp.is_lead():
-        with _build.COUNT_LOCK:
-            decoder_forward_calls[(_cross_layout(xk, b), b, s)] += 1
+        _build.count(decoder_forward_calls, (_cross_layout(xk, b), b, s))
 
     cache_idx = cache_start + torch.arange(s, device=dev)            # (S,)
     if pos_base is None:
@@ -668,12 +673,16 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cache_start: int,
         h = _gelu(_dense(h, p["fc1_w"], p["fc1_b"]))
         return x + _dense_row(h, p["fc2_w"], p["fc2_b"])
 
-    end = cache_start + s
     for layer in range(cfg.n_text_layer):
         p = _layer(dec["blocks"], layer)
         q, k, v = project_qkv(x, p)
-        ck[layer, :, :, :, cache_start:end] = k.transpose(-1, -2).to(ck.dtype)
-        cv[layer, :, :, cache_start:end, :] = v.to(cv.dtype)
+        k_new, v_new = k.transpose(-1, -2).to(ck.dtype), v.to(cv.dtype)
+        if isinstance(cache_start, torch.Tensor):
+            ck[layer].index_copy_(-1, cache_idx, k_new)
+            cv[layer].index_copy_(-2, cache_idx, v_new)
+        else:
+            ck[layer, :, :, :, cache_start:cache_start + s] = k_new
+            cv[layer, :, :, cache_start:cache_start + s, :] = v_new
         if ancestry is not None:
             a = _attention_kt_ancestry(
                 q, ck[layer].to(compute_dtype), cv[layer].to(compute_dtype),

@@ -39,6 +39,7 @@ _lock = threading.Lock()
 # held by every launch counter's increment: shards on a mesh launch from
 # several host threads at once (parallel/spmd.py)
 COUNT_LOCK = threading.Lock()
+_capture = threading.local()
 _libs: Dict[str, ctypes.CDLL] = {}
 # per-source build record: {"seconds": float, "ptxas": str} (chip_smoke)
 build_log: Dict[str, dict] = {}
@@ -193,6 +194,47 @@ def no_autograd(what: str, *inputs) -> None:
                 "that requires grad; its output would carry no gradient. "
                 "Training runs the plain torch ops "
                 "(parallel/tp.py::plain_ops)")
+
+
+def count(counter, key, n: int = 1) -> None:
+    """Add ``n`` to the launch counter ``counter[key]``: a module's
+    ``globals()`` and a counter's name, or a ``Counter`` and a key. While
+    the calling thread captures a CUDA graph (:class:`LaunchTally`), the
+    launch only enters the graph: the count goes to the capture's tally,
+    and each replay adds it (the decode step's counters:
+    ``decoder_forward_calls``, K4, K5 and K6)."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally.add(counter, key, n)
+        return
+    with COUNT_LOCK:
+        counter[key] += n
+
+
+class LaunchTally:
+    """The launch counts of one CUDA graph's capture: entered around the
+    capture (in the capturing thread), added once a replay
+    (:meth:`replay`), so that replays count as the launches they
+    replay."""
+
+    def __init__(self):
+        self._counts: Dict[Tuple[int, object], list] = {}
+
+    def add(self, counter, key, n: int) -> None:
+        slot = self._counts.setdefault((id(counter), key), [counter, key, 0])
+        slot[2] += n
+
+    def replay(self) -> None:
+        with COUNT_LOCK:
+            for counter, key, n in self._counts.values():
+                counter[key] += n
+
+    def __enter__(self) -> "LaunchTally":
+        _capture.tally = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        del _capture.tally
 
 
 def check(err: int, what: str) -> None:

@@ -35,6 +35,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..core.device import scalar
 from . import _build
 
 _NEG = -1e30
@@ -271,8 +272,7 @@ def cross_attention_dequant_reference(q: torch.Tensor, kq: QKV, vq: QKV
     dh = q.shape[-1]
     scores = (q.float() @ k) * (dh ** -0.5)
     scores = torch.where((kq["s"] > 0)[:, :, None, :], scores,
-                         torch.tensor(_NEG, dtype=scores.dtype,
-                                      device=scores.device))
+                         scalar(_NEG, scores.dtype, scores.device))
     return torch.softmax(scores, dim=-1) @ v
 
 
@@ -342,7 +342,6 @@ def cross_attention_decode_bf16(q: torch.Tensor, packed,
     at positions >= ``t_real`` are masked. Tp % 8 == 0 and 16-byte aligned
     kT and v (the kernel's bulk copies), as
     ``pack_cross_kv_bf16`` lays them out. Returns (B, H, 1, Dh) f32."""
-    global k4_launch_count
     _build.no_autograd("K4", q, packed)
     if q.device.type == "cpu":
         return cross_attention_decode_bf16_plain(q, packed, t_real)
@@ -376,8 +375,7 @@ def cross_attention_decode_bf16(q: torch.Tensor, packed,
                          f"whose sixteenth part is longer than {K4_SPAN} "
                          f"positions")
     _build.check(err, "cross_attention_decode_bf16")
-    with _build.COUNT_LOCK:
-        k4_launch_count += 1
+    _build.count(globals(), "k4_launch_count")
     return out
 
 
@@ -391,7 +389,6 @@ def cross_attention_decode_q8(q: torch.Tensor, kq: QKV, vq: QKV
     masks its position. Tp % 16 == 0 and 16-byte aligned K, V and scales
     (the kernel's bulk copies), as ``quantize_cross_kv`` lays them out.
     Returns (B, H, 1, Dh) f32."""
-    global k5_launch_count
     _build.no_autograd("K5", q, kq, vq)
     if q.device.type == "cpu":
         return cross_attention_decode_q8_plain(q, kq, vq)
@@ -430,6 +427,5 @@ def cross_attention_decode_q8(q: torch.Tensor, kq: QKV, vq: QKV
                          f"whose sixteenth part no block's shared memory "
                          f"holds")
     _build.check(err, "cross_attention_decode_q8")
-    with _build.COUNT_LOCK:
-        k5_launch_count += 1
+    _build.count(globals(), "k5_launch_count")
     return out

@@ -112,7 +112,6 @@ def q8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     scales -> (M, N) f32, each weight tile dequantized to bf16 on chip.
     The reference's VMEM tiles ``block_m``/``block_n`` do not change the
     result and have no counterpart here."""
-    global k6_launch_count, k6_decode_launch_count
     _build.no_autograd("K6", x, qt)
     m, k = x.shape
     k2, n = qt["q"].shape
@@ -138,9 +137,9 @@ def q8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), m, k,
              n, torch._C._cuda_getCurrentRawStream(x.device.index))
     _build.check(err, "q8_matmul")
-    with _build.COUNT_LOCK:
-        k6_launch_count += 1
-        k6_decode_launch_count += m <= K6_DECODE_ROWS
+    _build.count(globals(), "k6_launch_count")
+    if m <= K6_DECODE_ROWS:
+        _build.count(globals(), "k6_decode_launch_count")
     return out
 
 

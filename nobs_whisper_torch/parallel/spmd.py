@@ -197,7 +197,8 @@ def window_decode_spmd(params, data, prompt_tokens, pad_lens, sot_idx,
             if kind == "mel":
                 data = encode(p, data, cfg, compute_dtype=compute_dtype)
         return impl(p, data, prompt, pads, sot, tab, temps, gen, cfg,
-                    sample_len, compute_dtype, q8_kv, xattn_bf16, sampling)
+                    sample_len, compute_dtype, q8_kv, xattn_bf16, sampling,
+                    cuda_graph=False)
 
     return run_on_mesh(mesh, shard_params(params, mesh), body,
                        (data, prompt_tokens, pad_lens, sot_idx, temperature,

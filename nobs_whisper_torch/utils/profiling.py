@@ -31,15 +31,17 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 # A batch's host time by part, in the order the parts run: ``stack`` the
 # requests' framing rows stacked and copied to the card; ``encode`` the
 # mel, the encoder and the cross-KV enqueued; ``prefill`` the prompts
-# padded, the cache made and the prompt's forward; then each decode step's
-# ``forward`` (the ``decoder_forward`` enqueue) and ``rules`` (the logit
-# rules, argmax or sampling, the step's bookkeeping); ``sync`` the host
-# blocked on the device (a copy before the loop, the exit check every few
-# steps, the results' copies to the host); ``finalize`` the results
-# scored on the host.
-PARTS = ("stack", "encode", "prefill", "forward", "rules", "sync",
-         "finalize")
-STEP_PARTS = ("forward", "rules", "sync")
+# padded, the cache made and the prompt's forward; ``capture`` a decode
+# step captured as a CUDA graph (greedy batches on the card); then each
+# decode step's ``forward`` (the ``decoder_forward`` enqueue, or the
+# graph's replay, which holds the step's rules too) and ``rules`` (the
+# logit rules, argmax or sampling, the step's bookkeeping, where they run
+# outside a graph); ``sync`` the host blocked on the device (the exit
+# check every few steps, the results' copies to the host); ``finalize``
+# the results scored on the host.
+PARTS = ("stack", "encode", "prefill", "capture", "forward", "rules",
+         "sync", "finalize")
+STEP_PARTS = ("forward", "rules", "sync", "capture")
 RECORDS_KEPT = 4096         # batch records; a 51 s dictation run makes ~70
 SUMMARY_BATCHES = 100       # the recent batches ``batch_summary`` reads
 
@@ -61,26 +63,28 @@ class StageStats:
 class BatchRecord:
     """One batch of ``WindowBatcher``: its ``requests`` (submit stamp, ns
     of preparation on the caller's thread), ``start_ns`` and ``end_ns``,
-    and by part (:data:`PARTS`) the summed host ``ns`` and the
-    ``calls``; ``intervals`` holds
+    by part (:data:`PARTS`) the summed host ``ns`` and the ``calls``, and
+    ``replays``, the decode steps that ran as a replay of a CUDA graph;
+    ``intervals`` holds
     each part's (part, start, end) in a batch that started while a
     ``torch.profiler`` session recorded, else None. Stamps are
     ``time.time_ns()``.
 
     A decode step is a pass of the greedy/sampling loop
-    (``decode/greedy.py::decode_window_impl``): ``rules`` runs once a
-    step, ``forward`` once a step but the last (its token needs none),
-    ``sync`` at each exit check, once before the loop (the eot scalar's
-    copy to the card waits for the encoder and the prefill enqueued
-    before it) and once for the results' copies in
-    ``decode_window_finalize`` (and for the detected languages' copy in
-    an auto-language batch). Beam search, speculative passes and mesh
-    shards time no step parts: their decode falls outside every part
-    (a beam batch's rows above temperature 0, ladder retries, sample in
-    the greedy loop and do time them)."""
+    (``decode/greedy.py::decode_window_impl``): ``forward`` once a step
+    but the last (its token needs none), ``rules`` once a step that runs
+    outside a graph, ``sync`` at each exit check and once for the
+    results' copies in ``decode_window_finalize`` (and for the detected
+    languages' copy in an auto-language batch). On the card a greedy
+    batch captures its step once (``capture``) and replays it for every
+    step but the last: a replay counts under ``forward`` and in
+    ``replays``, and the last step's rules run outside it. Beam search,
+    speculative passes and mesh shards time no step parts: their decode
+    falls outside every part (a beam batch's rows above temperature 0,
+    ladder retries, sample in the greedy loop and do time them)."""
 
     __slots__ = ("requests", "start_ns", "end_ns", "ns", "calls",
-                 "intervals")
+                 "replays", "intervals")
 
     def __init__(self, requests: Sequence[Tuple[int, int]], start_ns: int,
                  traced: bool):
@@ -89,6 +93,7 @@ class BatchRecord:
         self.end_ns = start_ns
         self.ns = dict.fromkeys(PARTS, 0)
         self.calls = dict.fromkeys(PARTS, 0)
+        self.replays = 0
         self.intervals: Optional[List[Tuple[str, int, int]]] = (
             [] if traced else None)
 
@@ -102,14 +107,20 @@ class BatchRecord:
             self.intervals.append((part, t0, t1))
         return t1
 
+    def replayed(self, t0: int) -> int:
+        """:meth:`add` for a decode step that ran as a graph's replay."""
+        self.replays += 1
+        return self.add("forward", t0)
+
     @property
     def rows(self) -> int:
         return len(self.requests)
 
     @property
     def steps(self) -> int:
-        """Decode steps run (the ``rules`` part's calls)."""
-        return self.calls["rules"]
+        """Decode steps run: the ``rules`` part's calls and the replays
+        (whose rules ran inside the graph)."""
+        return self.calls["rules"] + self.replays
 
     def queue_waits_ns(self) -> List[int]:
         """Each request's wait in the queue: the batch's start minus its
@@ -123,6 +134,9 @@ class _NoRecord:
     __slots__ = ()
 
     def add(self, part: str, t0: int) -> int:
+        return t0
+
+    def replayed(self, t0: int) -> int:
         return t0
 
 
@@ -194,8 +208,9 @@ class Profiler:
     def batch_summary(self) -> Dict[str, Dict[str, float]]:
         """The last :data:`SUMMARY_BATCHES` batches' queue wait (ms, p50
         and p95 over their rows) and host ms a decode step by step part
-        (over those that ran decode steps); an entry without samples is
-        left out."""
+        (over those that ran decode steps), with ``replayed_share``, the
+        share of the steps with a forward that ran it as a graph's
+        replay; an entry without samples is left out."""
         import numpy as np
         recs = self.batch_records()[-SUMMARY_BATCHES:]
         out: Dict[str, Dict[str, float]] = {}
@@ -207,6 +222,9 @@ class Profiler:
         if steps:
             out["step_ms"] = {p: sum(r.ns[p] for r in recs) * 1e-6 / steps
                               for p in STEP_PARTS}
+            forwards = sum(r.calls["forward"] for r in recs)
+            out["step_ms"]["replayed_share"] = (
+                sum(r.replays for r in recs) / forwards if forwards else 0.0)
         return out
 
 

@@ -1,9 +1,10 @@
 """The host cost of the window batcher's batch record
 (``nobs_whisper_torch/utils/profiling.py``) a decode step.
 
-A decode step of ``decode/greedy.py::decode_window_impl`` stamps two
-parts (``rules``, ``forward``) and every eighth step a third (``sync``).
-This times that pattern of stamps alone: on no record (``NO_RECORD``, a
+An eager decode step of ``decode/greedy.py::decode_window_impl`` stamps
+two parts (``rules``, ``forward``; a step replayed from a CUDA graph one)
+and every eighth step a third (``sync``). This times the eager pattern of
+stamps alone: on no record (``NO_RECORD``, a
 thread that runs no batch), on a record, and on a record that keeps its
 intervals (a batch under ``torch.profiler``), each against the same loop
 without stamps, in turns; and a batch's record opened and published

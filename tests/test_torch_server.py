@@ -508,9 +508,12 @@ def test_stats_batcher_queue_wait_and_step_parts(server):
         srv.shutdown()
         batched.close()
     assert 0 <= b["queue_wait_ms"]["p50"] <= b["queue_wait_ms"]["p95"]
-    assert set(b["step_ms"]) == {"forward", "rules", "sync"}
+    assert set(b["step_ms"]) == {"forward", "rules", "sync", "capture",
+                                 "replayed_share"}
     assert b["step_ms"]["forward"] > 0 and b["step_ms"]["rules"] > 0
     assert b["step_ms"]["sync"] >= 0
+    # the CPU runs the steps eagerly: no capture, no replay
+    assert b["step_ms"]["capture"] == b["step_ms"]["replayed_share"] == 0
 
 
 def test_persisted_config_applies_serverside(server):

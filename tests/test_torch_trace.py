@@ -87,17 +87,19 @@ def test_queue_wait_ends_at_the_batch_start(served):
 
 
 def test_parts_fit_in_the_batch(served):
+    """Every part runs but ``capture``: the CPU runs the steps eagerly."""
     for r in served[1]:
         wall = r.end_ns - r.start_ns
         assert set(r.ns) == set(PARTS)
         assert 0 < sum(r.ns.values()) <= wall
-        assert all(r.calls[p] >= 1 and r.ns[p] > 0 for p in PARTS)
+        assert all(r.calls[p] >= 1 and r.ns[p] > 0
+                   for p in PARTS if p != "capture")
+        assert r.calls["capture"] == r.ns["capture"] == r.replays == 0
 
 
 def test_step_parts_count_the_decode_steps(served):
     """``forward`` once a step but the last of a loop that ran to
-    ``sample_len``; ``sync`` once an exit check, once for the copy that
-    waits on the prefill before the loop and once for the results'
+    ``sample_len``; ``sync`` once an exit check and once for the results'
     copies."""
     for r in served[1]:
         steps = r.steps
@@ -105,7 +107,7 @@ def test_step_parts_count_the_decode_steps(served):
         full = steps == SAMPLE_LEN
         assert r.calls["forward"] == (steps - 1 if full else steps)
         checks = (SAMPLE_LEN - 1 if full else steps) // EXIT_CHECK
-        assert r.calls["sync"] == checks + 2
+        assert r.calls["sync"] == checks + 1
         assert r.calls["finalize"] == 1 and r.calls["stack"] == 1
 
 
@@ -242,13 +244,20 @@ def test_batch_summary_reads_the_recent_batches():
 
 
 def test_batch_summary_by_hand():
+    """Two batches of four steps: one eager (four rules passes, three
+    forwards), one whose first three steps replayed a captured graph."""
     prof = Profiler()
     ms = 1_000_000
-    for waits, fwd, rules, steps in (((10, 30), 8, 2, 4), ((20,), 4, 2, 4)):
+    for waits, fwd, rules, capture, replays in (((10, 30), 8, 2, 0, 0),
+                                                ((20,), 4, 2, 4, 3)):
         with prof.batch([(-w * ms, 0) for w in waits]) as rec:
             rec.start_ns = 0
-            rec.ns.update(forward=fwd * ms, rules=rules * ms)
-            rec.calls["rules"] = steps
+            rec.ns.update(forward=fwd * ms, rules=rules * ms,
+                          capture=capture * ms)
+            rec.calls.update(rules=4 - replays, forward=3)
+            rec.replays = replays
+            assert rec.steps == 4
     got = prof.batch_summary()
     assert got["queue_wait_ms"] == {"p50": 20.0, "p95": pytest.approx(29.0)}
-    assert got["step_ms"] == {"forward": 1.5, "rules": 0.5, "sync": 0.0}
+    assert got["step_ms"] == {"forward": 1.5, "rules": 0.5, "sync": 0.0,
+                              "capture": 0.5, "replayed_share": 0.5}
