@@ -9,10 +9,27 @@ is found by name (``BENCHMARK.json`` names them):
 * ``traffic/<mix>.json``: the mix's parameters, read by ``traffic.py``;
 * ``metrics/<metric>.py`` (or ``metrics/<name before the first dot>.py``):
   the metric's reader, ``read(run) -> float | None``;
-* ``limits/<cell>.json``: the limits of the cell's correctness check.
+* ``limits/<cell>.json``: the limits of the cell's correctness check;
+* ``families/<family>.py``: the model family, which the configuration
+  names with ``"family"`` (none: ``whisper``). It gives, each for a model
+  file and a seed, never for a weight tree handed in:
 
-The program under test is ``nobs_whisper_torch``: its ``WhisperEngine``
-serves the benchmark's weights through ``BatchedEngine.transcribe``, the
+  - ``vocabulary(model) -> (layout, vocab, encoder)``: the special-token
+    layout, the vocabulary the program is served with, the plain prompt
+    encoder;
+  - ``build_engine(cell, seed, vocab, device)``: the program's engine on
+    weights made on the card from ``seed``;
+  - ``judge(cell, sample, seed, device, control_bits=None) -> dict``: the
+    sample's served tokens against the family's plain reference, on
+    weights it makes again from ``seed`` (``widest_gap``,
+    ``tokens_judged``, ``prompts_differ``, ``row_gaps``; with a control
+    ``control_widest_gap``);
+  - ``batch_least_s(model, prompt_lens, steps)``: a batch's least time;
+  - ``encoder_blocks(model) -> (d, ffn, layers) | None``: the K1/K2
+    encoder blocks the rooflines count, None without them.
+
+The program under test is ``nobs_whisper_torch``: whatever the family,
+its engine serves every request through ``BatchedEngine.transcribe``, the
 main serving path. The benchmark records its own spans around the
 batcher's batches and reads the batcher's counters.
 """
@@ -29,12 +46,11 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from . import guard, traffic
-from .reference.tokens import Encoder, byte_level_vocab, layout
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 DRAIN_S = 90.0          # how long past the window's close answers are awaited
@@ -52,6 +68,7 @@ class Cell:
     limits: dict                # limits/<cell>.json
     metrics: List[dict]         # BENCHMARK.json entries this cell reports
     bench_dir: str
+    family: Any = None          # families/<family>.py
 
     def serving(self) -> dict:
         """The configuration's serving settings, the mix's ``batcher``
@@ -76,12 +93,20 @@ def load_cell(root: str, workload: str, bench_dir: str = BENCH_DIR) -> Cell:
                if workload in m.get("workloads", [workload])]
     for m in metrics:
         m["kind"] = "end_to_end" if m in bench["end_to_end"] else "per_layer"
+    model = _json(os.path.join(root, conf["file"]))
     return Cell(
-        name=workload, chips=int(w["chips"]),
-        model=_json(os.path.join(root, conf["file"])),
+        name=workload, chips=int(w["chips"]), model=model,
         mix=_json(os.path.join(bench_dir, "traffic", w["traffic"] + ".json")),
         limits=_json(os.path.join(bench_dir, "limits", workload + ".json")),
-        metrics=metrics, bench_dir=bench_dir)
+        metrics=metrics, bench_dir=bench_dir,
+        family=family(bench_dir, model.get("family", "whisper")))
+
+
+def _module(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(bench_dir: str, name: str):
@@ -90,13 +115,19 @@ def reader(bench_dir: str, name: str):
     for stem in (name, name.split(".", 1)[0]):
         path = os.path.join(bench_dir, "metrics", stem + ".py")
         if os.path.exists(path):
-            spec = importlib.util.spec_from_file_location(
-                f"benchmark_metric_{stem.replace('.', '_')}", path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            return mod
+            return _module(path, f"benchmark_metric_{stem.replace('.', '_')}")
     raise FileNotFoundError(f"no reader for metric {name!r} under "
                             f"{bench_dir}/metrics")
+
+
+def family(bench_dir: str, name: str):
+    """The module of model family ``name``: ``families/<name>.py``."""
+    path = os.path.join(bench_dir, "families", name + ".py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no module for model family {name!r}: "
+                                f"{path} not found")
+    return _module(path, "benchmark_family_" + name.replace(".", "_")
+                   .replace("-", "_"))
 
 
 # --------------------------------------------------------------- run ---
@@ -172,34 +203,6 @@ class Run:
 def decode_options(mix: dict):
     from nobs_whisper_torch.decode.rules import DecodeOptions
     return DecodeOptions(**mix["decode"])
-
-
-def build_engine(cell: Cell, seed: int, vocab: List[bytes], device):
-    """The program's engine on the benchmark's weights, made on the card
-    from ``seed`` and quantized by the program as configured."""
-    import torch
-    from nobs_whisper_torch.api import WhisperEngine
-    from nobs_whisper_torch.core.config import config_from_hparams
-    from nobs_whisper_torch.core.tokenizer import WhisperTokenizer
-
-    from .weights import make_tree
-    m = cell.model
-    cfg = config_from_hparams(
-        n_vocab=m["vocab_size"], n_audio_ctx=m["max_source_positions"],
-        n_audio_state=m["d_model"], n_audio_head=m["encoder_attention_heads"],
-        n_audio_layer=m["encoder_layers"],
-        n_text_ctx=m["max_target_positions"], n_text_state=m["d_model"],
-        n_text_head=m["decoder_attention_heads"],
-        n_text_layer=m["decoder_layers"], n_mels=m["num_mel_bins"],
-        name=cell.model["name"])
-    dtype = getattr(torch, cell.model["serving"]["compute_dtype"])
-    tree = make_tree(m, seed, cfg.eot, device, dtype=dtype)
-    eng = WhisperEngine(params=tree, cfg=cfg,
-                        tokenizer=WhisperTokenizer(vocab, cfg),
-                        compute_dtype=dtype, device=torch.device(device))
-    if cell.model["serving"]["quantization"] == "int8":
-        eng = eng.quantize()
-    return eng
 
 
 def warm(engine, cell: Cell, reqs: List[traffic.Request]):
@@ -376,24 +379,18 @@ def sample_for_check(recs: List[Sent], n: int, seed: int) -> List[Sent]:
     return [ok[i] for i in sorted(pick)]
 
 
-def check(cell: Cell, run: Run, seed: int, lay, enc, device,
+def check(cell: Cell, run: Run, seed: int, device,
           control_bits: Optional[int] = None) -> Dict:
     """The correctness numbers: each with its value and limit."""
-    from .reference.check import judge
-    from .weights import make_tree
-    import torch
     recs = run.records
     short = sum(1 for r in recs if r.ok and len(r.served) != run.sample_len)
     failed = sum(1 for r in recs if not r.ok)
     sample = sample_for_check(recs, int(cell.mix["check"]["requests"]), seed)
-    dtype = getattr(torch, cell.model["serving"]["compute_dtype"])
-    tree = make_tree(cell.model, seed, lay.eot, device, dtype=dtype)
-    bits = 8 if cell.model["serving"]["quantization"] == "int8" else None
-    got = judge(tree, cell.model, lay, enc,
-                [dict(audio=s.req.audio, vocabulary=s.req.vocabulary,
-                      context=s.req.context, prompt=s.prompt,
-                      served=s.served) for s in sample],
-                device, bits=bits, control_bits=control_bits)
+    got = cell.family.judge(
+        cell, [dict(audio=s.req.audio, vocabulary=s.req.vocabulary,
+                    context=s.req.context, prompt=s.prompt,
+                    served=s.served) for s in sample],
+        seed, device, control_bits=control_bits)
     checks = {
         "widest_gap": {"value": got["widest_gap"],
                        "limit": cell.limits["widest_gap"]},
@@ -421,16 +418,14 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     fields. ``t_start``: the process's start on the host clock."""
     import torch
     log(t_start, "torch imported")
-    lay = layout(cell.model["vocab_size"])
-    vocab = byte_level_vocab(lay)
-    enc = Encoder(vocab, lay.eot)
+    _, vocab, enc = cell.family.vocabulary(cell.model)
     mix = cell.mix
     reqs = traffic.make_requests(mix, seed, seconds, enc)
     log(t_start, f"{len(reqs)} requests made")
     run = Run(cell=cell, seconds=seconds,
               open_loop=mix["kind"] == "open_poisson",
               sample_len=int(mix["decode"]["sample_len"]))
-    engine = build_engine(cell, seed, vocab, device)
+    engine = cell.family.build_engine(cell, seed, vocab, device)
     if device != "cpu":
         torch.cuda.synchronize()
     log(t_start, "weights made and quantized")
@@ -462,7 +457,7 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     gc.collect()
     if device != "cpu":
         torch.cuda.empty_cache()
-    verdict = check(cell, run, seed, lay, enc, device, control_bits)
+    verdict = check(cell, run, seed, device, control_bits)
     log(t_start, "reference check done")
     return {"run": run, "peak": peak, **verdict}
 

@@ -34,14 +34,15 @@ def block_times(run):
 
 
 def block_share(run, which: str):
-    """The block's least time over its kernels' time, in %."""
-    if not run.kernels or not run.profiled:
+    """The block's least time over its kernels' time, in %; None where
+    the cell's family has no K1/K2 encoder blocks."""
+    blocks = run.cell.family.encoder_blocks(run.cell.model)
+    if blocks is None or not run.kernels or not run.profiled:
         return None
     took = block_times(run)[which]
     if took <= 0:
         return None
-    m = run.cell.model
-    d, f, n = m["d_model"], m["encoder_ffn_dim"], m["encoder_layers"]
+    d, f, n = blocks
     least = 0.0
     for b in run.profiled:
         if which == "attention":

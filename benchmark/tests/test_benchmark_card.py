@@ -15,7 +15,7 @@ import pytest
 import tiny
 
 pytestmark = pytest.mark.gpu
-CELLS = ["turbo-dictation", "v3-chunks"]
+CELLS = ["turbo-dictation", "v3-chunks", "turbo-chunks"]
 
 
 @pytest.fixture

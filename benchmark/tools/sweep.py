@@ -23,8 +23,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 sys.path[0] = ROOT
 
 from benchmark import harness, traffic  # noqa: E402
-from benchmark.reference.tokens import (Encoder, byte_level_vocab,  # noqa
-                                        layout)
 
 
 def main():
@@ -35,10 +33,8 @@ def main():
     ap.add_argument("--seed", type=int, default=1)
     a = ap.parse_args()
     cell = harness.load_cell(ROOT, a.workload)
-    lay = layout(cell.model["vocab_size"])
-    vocab = byte_level_vocab(lay)
-    enc = Encoder(vocab, lay.eot)
-    engine = harness.build_engine(cell, a.seed, vocab, "cuda")
+    _, vocab, enc = cell.family.vocabulary(cell.model)
+    engine = cell.family.build_engine(cell, a.seed, vocab, "cuda")
     harness.warm(engine, cell, traffic.make_requests(cell.mix, a.seed, 5.0,
                                                      enc))
     for rate in (float(r) for r in a.rates.split(",")):
