@@ -4,7 +4,8 @@ NVIDIA card, at the full width and depth of large-v3-turbo with weights
 made from a seed.
 
 Run from the repo root: ``python3 chip_smoke.py`` (one card, no
-arguments). Phases; any failure exits non-zero before the result line:
+arguments; ``uni_moe`` as the one argument runs phases 1 and 18 alone).
+Phases; any failure exits non-zero before the result line:
 
 1. card and build: ``nvidia-smi`` name and power limit, torch/CUDA
    versions, one ``nvcc`` per kernel source started together, with the
@@ -155,7 +156,13 @@ arguments). Phases; any failure exits non-zero before the result line:
    cards, or ``cuda:0`` twice), the gradient wrt the mel through the pp
    schedule; the trained weights quantized into a ``WhisperEngine``
    transcribe 12 s with K1 = K2 = 32;
-18. one ``kernels`` JSON line, then the result line.
+18. the speech LM (``phase_uni_moe``): Uni-MoE-2.0-Omni's audio-to-text
+   path at its published widths, random weights made on the card, a wave
+   through ``BatchedEngine.transcribe`` whose ``moe_`` launches must be 4
+   a layer a forward, and the expert kernels against their plain version
+   at a decode batch (32 tokens) and a prefill (11,136 tokens), timed;
+   ``python3 chip_smoke.py uni_moe`` runs phases 1 and 18 alone;
+19. one ``kernels`` JSON line, then the result line.
 
 Phase 2 also checks K4 (B=8, B=1 and B=16) and K5 (B=8 and B=1) at
 H=20, Dh=64, Tp=1536, t_real=1500 (two calls bit for bit; timed back to
@@ -189,6 +196,7 @@ with ``NWT_ATTN_FUSED=3`` and both int8 knobs, and with
 Imports nothing of JAX and nothing of ``nobs_whisper_tpu``.
 """
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -3724,7 +3732,7 @@ def _direct_pair(qeng, xa, prompts, tables, opts, **spec):
                 compute_dtype=qeng.compute_dtype, **kw)
             res = greedy.decode_window_finalize(h)
         out.append(([(keys, res)], tap.segments()))
-    return out[0], out[1], h[5]
+    return out[0], out[1], h.passes
 
 
 def reference_speculative(dev):
@@ -3890,7 +3898,7 @@ def phase_speculative(card, qeng, eng):
                 compute_dtype=qeng.compute_dtype, speculative=SPEC_K, **kw)
             res = greedy.decode_window_finalize(h)
             torch.cuda.synchronize()
-        return res, h[5], read_counts()
+        return res, h.passes, read_counts()
 
     def phases(fw):
         return {k: sum(n for key, n in fw.items() if pred(*key))
@@ -3979,7 +3987,7 @@ def phase_speculative(card, qeng, eng):
         h = greedy.decode_window_dispatch(
             qeng.params, xa8[:b], [prompt] * b, cfg, tables, o96,
             compute_dtype=qeng.compute_dtype, **kw)
-        return greedy.decode_window_finalize(h), (h[5] if kw else None)
+        return greedy.decode_window_finalize(h), (h.passes if kw else None)
 
     per_tok = {}
     for b in (1, 8):
@@ -4914,6 +4922,186 @@ def phase_train(card, eng, dev="cuda"):
 
 
 
+# the speech LM's configuration at its published widths (the benchmark's
+# configuration file, read as data)
+UNIMOE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "benchmark", "configs",
+                             "uni-moe-2.0-omni-audio.json")
+# the expert kernels against their plain version: both sum bf16 products
+# in f32 and round h to bf16 at the same point; the order of the f32 sums
+# differs (~1e-6 of a sum), which flips a few elements of a row's h by one
+# bf16 step (2^-8 of it). A flip moves an output by 2^-8 |h w|, up to ~1e-3
+# of the outputs' scale where h is among the largest of a prefill's 2e8
+# (measured on an H100: 0.67e-3 at 32 tokens, 0.97e-3 and 1.04e-3 at
+# 11,136). 4e-3 leaves that fourfold room and fails a tile whose rows,
+# columns or expert are wrong, which is off by the scale itself.
+MOE_TOL = 4e-3
+UNIMOE_ROWS = 8          # the serving wave's requests, one batch
+
+
+def moe_least_ms(d, f, n_shared, f_shared, tokens, rows):
+    """One layer's experts at the published peaks: operations (6 d width a
+    row of an expert) against bytes (each expert hit's weights once, the
+    rows' activations in and out), as ``benchmark/ops/moe_arith.py``
+    counts them."""
+    ops = 6.0 * d * (f * sum(rows) + f_shared * n_shared * tokens)
+    hit = sum(1 for r in rows if r > 0)
+    nbytes = 3 * d * 2 * (f * hit + f_shared * n_shared) \
+        + 2 * d * 2 * (sum(rows) + n_shared * tokens)
+    return max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def moe_kernel_check(p, cfg, tokens, seed):
+    """``ops/moe.py::expert_ffn`` on one layer's routed and shared
+    experts (``p``) at ``tokens`` random rows routed by the layer's own
+    gate, against ``expert_ffn_plain``: (max error over the outputs'
+    scale, ms of both calls alone in a CUDA graph, bound ms, plain ms,
+    routed rows by expert)."""
+    import torch
+    from nobs_whisper_torch.ops import moe
+    dev = p["w13"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((tokens, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    ids, w = moe.route(x, p["gate"], cfg.top_p, cfg.top_k, cfg.n_routed)
+    sid = torch.arange(cfg.n_shared, device=dev).expand(tokens, cfg.n_shared)
+    sw = torch.ones((tokens, cfg.n_shared), device=dev)
+    err = 0.0
+    for i, w13, w2, i_, w_ in ((0, p["w13"], p["w2"], ids, w),
+                               (1, p["s13"], p["s2"], sid, sw)):
+        got = moe.expert_ffn(x, i_, w_, w13, w2)
+        pl = moe.plan(i_, w2.shape[0], moe.BM)
+        want = moe.expert_ffn_plain(x, pl, w_, w13, w2, cfg.top_k).view(
+            tokens, -1, cfg.d_model).sum(1)
+        scale = want.abs().max().item()
+        err = max(err, (got - want).abs().max().item() / scale)
+    rows = torch.bincount(ids[(ids >= 0) & (ids < cfg.n_routed)],
+                          minlength=cfg.n_routed).tolist()
+    both = lambda: (moe.expert_ffn(x, ids, w, p["w13"], p["w2"]),
+                    moe.expert_ffn(x, sid, sw, p["s13"], p["s2"]))
+    pl = moe.plan(ids, cfg.n_routed, moe.BM)
+    spl = moe.plan(sid, cfg.n_shared, moe.BM)
+    plain = lambda: (
+        moe.expert_ffn_plain(x, pl, w, p["w13"], p["w2"], cfg.top_k),
+        moe.expert_ffn_plain(x, spl, sw, p["s13"], p["s2"], cfg.n_shared))
+    bound = moe_least_ms(cfg.d_model, cfg.expert_width, cfg.n_shared,
+                         cfg.shared_width, tokens, rows)
+    return (err, graph_ms(both, reps=10), bound,
+            cuda_ms(plain, reps=2, warmup=1), rows)
+
+
+def phase_uni_moe(card):
+    """The speech LM (``models/uni_moe.py``) at the published widths of
+    Uni-MoE-2.0-Omni's audio-to-text path (``benchmark/configs/
+    uni-moe-2.0-omni-audio.json``: 28 layers, d 3584, 4 routed experts of
+    18,944, a null, 2 shared of 2,368), random weights made on the card,
+    the tower int8 and the language model bf16: a wave of
+    ``UNIMOE_ROWS`` concurrent requests through ``BatchedEngine.
+    transcribe`` (fixed language, the ladder off), whose ``moe_`` kernel
+    launches, reset just before and read just after, must be 4 a layer a
+    forward (routed and shared, two kernels each) over the batches'
+    forwards (the prefill's, each decode step's with the graph's replays,
+    and the warm-up step before a batch size's first capture) and whose
+    every request must leave its routing on the tracer; then ``expert_ffn`` against ``expert_ffn_plain`` on layer 0's
+    experts at a decode batch (32 tokens) and at the ``unimoe-chunks``
+    cell's prefill (11,136 tokens) within ``MOE_TOL`` of the outputs'
+    scale, timed alone in a CUDA graph against their least time and the
+    plain version's. Returns (ok, {"MoE": launches}, the kernel's
+    entry)."""
+    import torch
+    from nobs_whisper_torch.api import UniMoEEngine
+    from nobs_whisper_torch.core.config import uni_moe_config_from_hparams
+    from nobs_whisper_torch.core.tokenizer import UniMoETokenizer
+    from nobs_whisper_torch.decode.rules import DecodeOptions
+    from nobs_whisper_torch.models import uni_moe
+    from nobs_whisper_torch.ops import moe
+    from nobs_whisper_torch.pipeline.batched_engine import BatchedEngine
+    from nobs_whisper_torch.utils.profiling import GLOBAL_PROFILER
+    from nobs_whisper_torch.utils.testing import speech_like_audio
+
+    with open(UNIMOE_CONFIG) as f:
+        cfg = uni_moe_config_from_hparams(json.load(f))
+    t0 = time.perf_counter()
+    eng = UniMoEEngine(
+        params=uni_moe.init_params(0, cfg, dtype=torch.bfloat16,
+                                   device="cuda"),
+        cfg=cfg, tokenizer=UniMoETokenizer([bytes([i]) for i in range(256)]
+                                           + [b"w%d" % i for i in range(
+                                               256, cfg.endoftext)], cfg),
+        compute_dtype=torch.bfloat16, device=torch.device("cuda")).quantize()
+    torch.cuda.synchronize()
+    log(f"[uni-moe] {cfg.name}: {cfg.n_layer} layers, d {cfg.d_model}, "
+        f"{cfg.n_routed} routed experts of {cfg.expert_width}, "
+        f"{cfg.n_shared} shared of {cfg.shared_width}, random weights from "
+        f"seed 0: built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    be = BatchedEngine(eng, opts=DecodeOptions(
+        language="en", temperature_increment=0.0, sample_len=32),
+        max_batch=UNIMOE_ROWS, max_wait_ms=500.0)
+    try:
+        # the records are kept in bounded queues: this wave's by their
+        # stamps and by the wave's prompts
+        t_ns = time.time_ns()
+        warm = len(uni_moe._WARMED)
+        moe.moe_launch_count = 0
+        t0 = time.perf_counter()
+        futs, results = [], []
+        with concurrent.futures.ThreadPoolExecutor(UNIMOE_ROWS) as pool:
+            for i in range(UNIMOE_ROWS):
+                futs.append(pool.submit(
+                    be.transcribe, speech_like_audio(6.0 + 2 * i, seed=70 + i),
+                    language="en", context=f"chunk {i} of the smoke wave"))
+            results = [f.result() for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = moe.moe_launch_count
+        recs = [r for r in GLOBAL_PROFILER.batch_records()
+                if r.start_ns >= t_ns]
+        # the prefill's and each step's, and one eager step's before the
+        # first capture at a batch size (models/uni_moe.py::window_impl)
+        warm = len(uni_moe._WARMED) - warm
+        forwards = sum(1 + r.calls["forward"] for r in recs) + warm
+        want = 4 * cfg.n_layer * forwards
+        kept = sum(1 for pr, _, _ in GLOBAL_PROFILER.routing_records()
+                   if "of the smoke wave" in eng.tokenizer.decode(list(pr)))
+        ok = (launches == want and kept == UNIMOE_ROWS
+              and all(r.text is not None for r in results))
+        log(f"[uni-moe] {card}: wave of {UNIMOE_ROWS} through "
+            f"BatchedEngine.transcribe in {wall:.2f} s; batch sizes "
+            f"{be.batcher.batch_sizes}; forwards {forwards} (replays "
+            f"{sum(r.replays for r in recs)}, warm-up {warm}); moe_ "
+            f"launches {launches} "
+            f"(want 4 x {cfg.n_layer} x {forwards} = {want}); routing kept "
+            f"{kept} -> {'PASS' if ok else 'FAIL'}")
+    finally:
+        be.close()
+    p = eng.params["layers"][0]
+    entry = None
+    for name, tokens in (("decode", 32), ("prefill", 11136)):
+        err, ms, bound, plain_ms, rows = moe_kernel_check(p, cfg, tokens,
+                                                          tokens)
+        good = err <= MOE_TOL
+        ok &= good
+        log(f"[uni-moe] expert_ffn {name} {tokens} tokens (routed rows "
+            f"{rows}): max err {err:.2e} of the scale (tol {MOE_TOL}); "
+            f"{ms:.4f} ms alone, bound {bound:.4f} ms, plain "
+            f"{plain_ms:.4f} ms -> {'PASS' if good else 'FAIL'}")
+        if entry is None:
+            entry = dict(name="MoE", route="cuda",
+                         source="nobs_whisper_torch/csrc/moe.cu",
+                         replaces="none", max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound,
+                         bound_by="bytes", library_ms=None, ok=good)
+        else:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry["ok"] &= good
+            entry["prefill"] = dict(ms=ms, bound_ms=bound,
+                                    plain_ms=plain_ms)
+    del eng, p
+    torch.cuda.empty_cache()
+    return ok, {"MoE": launches}, entry
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4932,6 +5120,18 @@ def main():
     smi = phase_card_and_build()
     card = smi
     took("card and build")
+    if sys.argv[1:] == ["uni_moe"]:      # phases 1 and 18 alone
+        ok, counts, entry = phase_uni_moe(card)
+        took("uni-moe")
+        entry = dict(entry, launches=counts["MoE"])
+        ok &= entry.pop("ok") and entry["launches"] > 0
+        log(f"[done] {card}: total {time.perf_counter() - t_start:.1f} s, "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            return 1
+        print(smi)
+        print(json.dumps({"kernels": [entry]}))
+        return 0
     ok, launches = True, {}
     kern = phase_kernels()
     took("kernels")
@@ -4991,6 +5191,11 @@ def main():
         for key, n in counts.items():
             launches[key] = launches.get(key, 0) + n
         took(name)
+    phase_ok, counts, moe_entry = phase_uni_moe(card)
+    ok &= phase_ok
+    launches.update(counts)
+    kern["MoE"] = moe_entry
+    took("uni-moe")
     entries = []
     for key, e in kern.items():
         e = dict(e)

@@ -9,15 +9,15 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Any, List, Optional, Sequence
+from typing import Any, ClassVar, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .audio.mel import HOP_LENGTH, log_mel_longform
-from .core.config import CONFIGS, WhisperConfig, get_config
+from .core.config import CONFIGS, UniMoEConfig, WhisperConfig, get_config
 from .core.device import resolve_device
-from .core.tokenizer import WhisperTokenizer
+from .core.tokenizer import UniMoETokenizer, WhisperTokenizer
 from .decode.hallucination import filter_hallucinations
 from .decode.rules import DecodeOptions
 from .pipeline.longform import TranscribeResult, transcribe_mel
@@ -66,6 +66,19 @@ class WhisperEngine:
     # when there is no card)
     device: torch.device = dataclasses.field(
         default_factory=lambda: resolve_device("cuda"))
+    # serves long-form, per-request options and best_of beside windows
+    window_only: ClassVar[bool] = False
+
+    @property
+    def window_program(self):
+        """The batcher's window program: Whisper's rules and dispatch."""
+        from .decode.greedy import WHISPER_WINDOW
+        return WHISPER_WINDOW
+
+    def check_serving(self, opts: DecodeOptions, mesh=None,
+                      speculative: int = 0, draft_engine=None) -> None:
+        """Every decode option, speculative decoding and a mesh are served:
+        nothing raises."""
 
     # ------------------------------------------------------------------
     # loading
@@ -231,6 +244,28 @@ class WhisperEngine:
             return None
         return self.tokenizer.encode(" " + " ".join(parts).strip())
 
+    def window_prompt(self, lang: Optional[str], vocabulary: Optional[str],
+                      context: Optional[str], task: str
+                      ) -> Tuple[List[int], Optional[int]]:
+        """The decoder prompt of one 30 s window in the batcher, and the
+        index of its language token when ``lang`` is None on a
+        multilingual model (the batcher detects and patches it), else
+        None: ``<|startofprev|>`` and the tail of the initial prompt (at
+        most n_text_ctx // 2 - 1 tokens), then the sot sequence."""
+        cfg = self.cfg
+        prompt: List[int] = []
+        initial = self.build_initial_prompt(vocabulary, context)
+        if initial:
+            prompt.append(cfg.sot_prev)
+            prompt.extend(initial[-(cfg.n_text_ctx // 2 - 1):])
+        sot_pos = len(prompt)
+        prompt.extend(self.tokenizer.sot_sequence(
+            language=(lang or "en") if cfg.multilingual else None,
+            task=task))
+        lang_slot = (sot_pos + 1
+                     if lang is None and cfg.multilingual else None)
+        return prompt, lang_slot
+
     def transcribe(self, audio: np.ndarray, language: Optional[str] = None,
                    vocabulary: Optional[str] = None,
                    context: Optional[str] = None, task: Optional[str] = None,
@@ -290,3 +325,70 @@ class WhisperEngine:
                 results.append(r.text)
                 rolling = r.text
         return " ".join(results)
+
+
+@dataclasses.dataclass
+class UniMoEEngine:
+    """A speech LM (``models/uni_moe.py``: Uni-MoE-2.0-Omni's audio-to-text
+    path) with the surface ``pipeline/batched_engine.py::BatchedEngine``
+    and the window batcher use. It serves single 30 s windows through the
+    batcher, greedy at the batcher's options on one device: beam,
+    speculative decoding, a mesh, long-form, word timestamps, automatic
+    language, another task and the temperature ladder raise ValueError."""
+
+    params: Any
+    cfg: UniMoEConfig
+    tokenizer: UniMoETokenizer
+    compute_dtype: Any = torch.bfloat16
+    device: torch.device = dataclasses.field(
+        default_factory=lambda: resolve_device("cuda"))
+    window_only: ClassVar[bool] = True
+
+    @property
+    def loaded(self) -> bool:
+        return self.params is not None
+
+    @property
+    def window_program(self):
+        """The batcher's window program: no logit rules, the model's own
+        dispatch (``models/uni_moe.py::window_dispatch``)."""
+        from .models.uni_moe import UNIMOE_WINDOW
+        return UNIMOE_WINDOW
+
+    def quantize(self) -> "UniMoEEngine":
+        """The serving configuration: the tower's linears int8 (the
+        dynamic-int8 encoder of ``WhisperEngine.quantize``), the language
+        model as it is."""
+        from .ops.quant import quantize_encoder_params
+        return dataclasses.replace(
+            self, params=quantize_encoder_params(self.params))
+
+    def check_serving(self, opts: DecodeOptions, mesh=None,
+                      speculative: int = 0, draft_engine=None) -> None:
+        """Raise ValueError for what this engine does not serve."""
+        refused = [what for what, on in (
+            ("beam search", (opts.beam_size or 0) > 1),
+            ("best_of sampling", (opts.best_of or 1) > 1),
+            ("speculative decoding", bool(speculative or opts.speculative
+                                          or draft_engine is not None)),
+            ("a mesh", mesh is not None),
+            ("word timestamps", opts.word_timestamps),
+            ("the temperature ladder", opts.temperature != 0.0
+             or bool(opts.temperature_increment)),
+            (f"task {opts.task!r}", opts.task != "transcribe")) if on]
+        if refused:
+            raise ValueError(f"{self.cfg.name} is not served with "
+                             + ", ".join(refused))
+
+    def window_prompt(self, lang: Optional[str], vocabulary: Optional[str],
+                      context: Optional[str], task: str
+                      ) -> Tuple[List[int], Optional[int]]:
+        """The chat prompt of one window (``UniMoETokenizer.window_prompt``)
+        and no language slot; automatic language raises ValueError."""
+        if lang is None:
+            raise ValueError(f"{self.cfg.name} is not served with automatic "
+                             "language")
+        if task != "transcribe":
+            raise ValueError(f"{self.cfg.name} is not served with task "
+                             f"{task!r}")
+        return self.tokenizer.window_prompt(vocabulary, context), None

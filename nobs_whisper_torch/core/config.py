@@ -189,3 +189,115 @@ def get_config(name: str) -> WhisperConfig:
         raise KeyError(
             f"unknown model {name!r}; known: {sorted(CONFIGS)}")
     return CONFIGS[name]
+
+
+# ---------------------------------------------------------------------------
+# Uni-MoE-2.0-Omni's audio-to-text path: a Whisper encoder (the tower)
+# feeding a decoder-only language model whose FFN is a dynamic-capacity
+# mixture of experts (models/uni_moe.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class UniMoEConfig:
+    """Static description of a speech LM: the Whisper ``tower`` (only its
+    encoder fields are read), the connector's ``audio_tokens`` a 30 s
+    window, and the language model. Each FFN holds ``n_routed`` routed
+    SwiGLU experts of ``expert_width``, ``n_null`` zero-compute experts
+    and ``n_shared`` shared experts of ``shared_width``; a token takes
+    the shortest prefix of its sorted gate probabilities that reaches
+    ``top_p``, at most ``top_k`` experts. Special ids: ``endoftext`` and
+    the chat and audio markers after it (Qwen2's layout)."""
+
+    name: str
+    tower: WhisperConfig
+    audio_tokens: int
+    d_model: int
+    n_layer: int
+    n_head: int
+    n_kv_head: int
+    head_dim: int
+    n_vocab: int
+    n_routed: int
+    n_null: int
+    expert_width: int
+    n_shared: int
+    shared_width: int
+    top_p: float
+    top_k: int
+    rope_theta: float
+    rms_eps: float
+    n_ctx: int = 2048            # positions the decode loop may reach
+    endoftext: int = 151643
+
+    @property
+    def im_start(self) -> int:
+        return self.endoftext + 1
+
+    @property
+    def im_end(self) -> int:
+        return self.endoftext + 2
+
+    @property
+    def audio_start(self) -> int:
+        return self.endoftext + 3
+
+    @property
+    def audio_end(self) -> int:
+        return self.endoftext + 4
+
+    @property
+    def audio_pad(self) -> int:
+        return self.endoftext + 5
+
+    @property
+    def stop_ids(self) -> tuple:
+        """Greedy decoding stops at either."""
+        return (self.im_end, self.endoftext)
+
+    @property
+    def eot(self) -> int:
+        """The id a finished row keeps emitting, and the prompts' pad."""
+        return self.endoftext
+
+    @property
+    def n_audio_ctx(self) -> int:
+        return self.tower.n_audio_ctx
+
+    @property
+    def n_mels(self) -> int:
+        return self.tower.n_mels
+
+    @property
+    def n_experts(self) -> int:
+        """Routed and null: the gate's outputs."""
+        return self.n_routed + self.n_null
+
+
+def uni_moe_config_from_hparams(model: dict) -> UniMoEConfig:
+    """A speech LM's configuration from its model file: the published
+    ``config.json`` keys of the language model (``hidden_size``,
+    ``num_hidden_layers``, ``mlp_dynamic_*``, ...), ``endoftext`` (the
+    first special id) and ``tower``, the Whisper encoder's Hugging Face
+    keys."""
+    t = model["tower"]
+    tower = config_from_hparams(
+        n_vocab=51866, n_audio_ctx=t["max_source_positions"],
+        n_audio_state=t["d_model"], n_audio_head=t["encoder_attention_heads"],
+        n_audio_layer=t["encoder_layers"], n_text_ctx=448,
+        n_text_state=t["d_model"], n_text_head=t["encoder_attention_heads"],
+        n_text_layer=0, n_mels=t["num_mel_bins"])
+    d, h = model["hidden_size"], model["num_attention_heads"]
+    return UniMoEConfig(
+        name=model.get("name", "uni-moe"), tower=tower,
+        audio_tokens=model["whisper_query_tokens_size"], d_model=d,
+        n_layer=model["num_hidden_layers"], n_head=h,
+        n_kv_head=model["num_key_value_heads"], head_dim=d // h,
+        n_vocab=model["vocab_size"],
+        n_routed=model["mlp_dynamic_expert_num"],
+        n_null=model["mlp_dynamic_null_expert_num"],
+        expert_width=model["dynamic_intermediate_size"],
+        n_shared=model["mlp_fixed_expert_num"],
+        shared_width=model["shared_intermediate_size"],
+        top_p=model["mlp_dynamic_top_p"], top_k=model["mlp_dynamic_top_k"],
+        rope_theta=float(model["rope_theta"]),
+        rms_eps=model["rms_norm_eps"], endoftext=model["endoftext"])

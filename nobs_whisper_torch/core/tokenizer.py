@@ -20,7 +20,7 @@ import functools
 import unicodedata
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-from .config import WhisperConfig
+from .config import UniMoEConfig, WhisperConfig
 
 # GPT-2 pre-tokenization pattern as used by openai-whisper's tiktoken setup.
 # ``pretokenize`` below is a scanner for it; the string is kept as its
@@ -131,44 +131,20 @@ LANGUAGES: Tuple[str, ...] = (
 )
 
 
-class WhisperTokenizer:
-    """Exact byte-level BPE over a checkpoint-embedded vocab."""
+class ByteLevelBPE:
+    """Exact byte-level BPE: ``_ranks`` (bytes -> merge rank, the ids
+    below the first special token, first occurrence winning) and a cache
+    of encoded pieces, set up by :meth:`_set_ranks`."""
 
-    def __init__(self, vocab: Sequence[bytes], config: WhisperConfig):
-        self.config = config
-        self.n_vocab = config.n_vocab
-        self.eot = config.eot
-        self.sot = config.sot
-        self.translate = config.translate
-        self.transcribe = config.transcribe
-        self.sot_lm = config.sot_lm
-        self.sot_prev = config.sot_prev
-        self.no_speech = config.no_speech
-        self.no_timestamps = config.no_timestamps
-        self.timestamp_begin = config.timestamp_begin
-        self.lang_base = config.lang_base
-        self.n_langs = config.n_langs
-
-        # id -> raw bytes for every non-special token; specials rendered
-        # symbolically.
-        self._vocab: List[bytes] = list(vocab)
-        if len(self._vocab) < self.n_vocab:
-            self._vocab += [
-                f"[_extra_token_{i}]".encode()
-                for i in range(len(self._vocab), self.n_vocab)
-            ]
-
+    def _set_ranks(self, vocab: Sequence[bytes], first_special: int):
         ranks: Dict[bytes, int] = {}
-        for i in range(min(self.eot, len(self._vocab))):
-            tok = self._vocab[i]
+        for i in range(min(first_special, len(vocab))):
+            tok = vocab[i]
             if tok not in ranks:  # first occurrence wins the merge rank
                 ranks[tok] = i
         self._ranks = ranks
         self._pieces: Dict[bytes, Tuple[int, ...]] = {}   # BPE cache
 
-    # ------------------------------------------------------------------
-    # core encode / decode
-    # ------------------------------------------------------------------
     def _bpe(self, piece: bytes) -> Tuple[int, ...]:
         """One pre-token's ids: the piece itself when it is in the ranks;
         else, from single bytes, merge the adjacent pair whose
@@ -219,6 +195,39 @@ class WhisperTokenizer:
             ids.extend(self._bpe(piece.encode("utf-8")))
         return ids
 
+
+class WhisperTokenizer(ByteLevelBPE):
+    """Exact byte-level BPE over a checkpoint-embedded vocab."""
+
+    def __init__(self, vocab: Sequence[bytes], config: WhisperConfig):
+        self.config = config
+        self.n_vocab = config.n_vocab
+        self.eot = config.eot
+        self.sot = config.sot
+        self.translate = config.translate
+        self.transcribe = config.transcribe
+        self.sot_lm = config.sot_lm
+        self.sot_prev = config.sot_prev
+        self.no_speech = config.no_speech
+        self.no_timestamps = config.no_timestamps
+        self.timestamp_begin = config.timestamp_begin
+        self.lang_base = config.lang_base
+        self.n_langs = config.n_langs
+
+        # id -> raw bytes for every non-special token; specials rendered
+        # symbolically.
+        self._vocab: List[bytes] = list(vocab)
+        if len(self._vocab) < self.n_vocab:
+            self._vocab += [
+                f"[_extra_token_{i}]".encode()
+                for i in range(len(self._vocab), self.n_vocab)
+            ]
+
+        self._set_ranks(self._vocab, self.eot)
+
+    # ------------------------------------------------------------------
+    # core encode / decode
+    # ------------------------------------------------------------------
     def decode(self, ids: Iterable[int]) -> str:
         """Token ids -> text, dropping all special/timestamp tokens."""
         parts = []
@@ -345,3 +354,51 @@ class WhisperTokenizer:
 def build_tokenizer(vocab: Sequence[bytes],
                     config: WhisperConfig) -> WhisperTokenizer:
     return WhisperTokenizer(vocab, config)
+
+
+class UniMoETokenizer(ByteLevelBPE):
+    """A speech LM's byte-level BPE (``UniMoEConfig``): the ids below
+    ``endoftext`` are ordinary tokens, merge rank = id; ``endoftext``, the
+    chat markers and the audio markers follow (Qwen2's layout), then
+    unused ids. The window prompt is a Qwen2-style chat:
+
+        <|im_start|> system you are a helpful assistant <|im_end|>
+        <|im_start|> user <|audio_start|> <|audio_pad|> x audio_tokens
+        <|audio_end|> transcribe the audio [ vocabulary context] <|im_end|>
+        <|im_start|> assistant
+
+    each text part encoded as it stands (the turns' newlines are left
+    out, so that a vocabulary of lower-case words alone can encode it)."""
+
+    SYSTEM = " system you are a helpful assistant"
+    USER = " user"
+    INSTRUCTION = " transcribe the audio"
+    ASSISTANT = " assistant"
+
+    def __init__(self, vocab: Sequence[bytes], config: UniMoEConfig):
+        self.config = config
+        self.n_vocab = config.n_vocab
+        self.eot = config.endoftext
+        self._vocab: List[bytes] = list(vocab)[: self.n_vocab]
+        self._vocab += [f"[_extra_token_{i}]".encode()
+                        for i in range(len(self._vocab), self.n_vocab)]
+        self._set_ranks(self._vocab, self.eot)
+
+    def decode(self, ids: Iterable[int]) -> str:
+        """Token ids -> text, dropping the special ids."""
+        return b"".join(self._vocab[i] for i in ids if i < self.eot).decode(
+            "utf-8", errors="replace")
+
+    def window_prompt(self, vocabulary: Optional[str],
+                      context: Optional[str]) -> List[int]:
+        """The prompt of one 30 s window, its audio slots as
+        ``<|audio_pad|>`` ids, the request's vocabulary and context text
+        after the instruction."""
+        c = self.config
+        parts = [p.strip() for p in (vocabulary, context) if p and p.strip()]
+        extra = self.encode(" " + " ".join(parts)) if parts else []
+        return ([c.im_start, *self.encode(self.SYSTEM), c.im_end,
+                 c.im_start, *self.encode(self.USER), c.audio_start]
+                + [c.audio_pad] * c.audio_tokens
+                + [c.audio_end, *self.encode(self.INSTRUCTION), *extra,
+                   c.im_end, c.im_start, *self.encode(self.ASSISTANT)])

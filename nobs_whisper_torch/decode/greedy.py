@@ -29,7 +29,7 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,9 +42,9 @@ from ..models.whisper import (decoder_forward, init_kv_cache,
 from ..ops import _build
 from ..ops.attention_pallas import pack_cross_kv_bf16, quantize_cross_kv
 from ..parallel import tp as _tp
-from ..utils.profiling import batch_record
+from ..utils.profiling import BatchRecord, RoutingTrace, batch_record
 from .rules import (NEG_INF, DecodeOptions, RuleTables,
-                    apply_logit_rules_scored)
+                    apply_logit_rules_scored, build_rule_tables)
 
 _EXIT_CHECK = 8
 
@@ -71,15 +71,36 @@ class WindowResult:
     no_speech_prob: float
     temperature: float
     language: Optional[str] = None   # set when the batcher auto-detected
+    # (layers, positions, top_k) int8: the experts each position of the
+    # prompt and the served tokens fed back chose, for a model with
+    # experts (utils/profiling.py::RoutingTrace), else None
+    routing: Optional[np.ndarray] = None
+
+
+class WindowHandle(NamedTuple):
+    """What a window program's dispatch leaves on the device for
+    :func:`decode_window_finalize`: each row's tokens, count, summed
+    log-probability, no-speech probability and temperature; ``passes``
+    the pass count of an exact speculative batch; ``routing`` the batch's
+    routing on a model with experts (``utils/profiling.py::
+    RoutingTrace``)."""
+    tokens: torch.Tensor
+    n_sampled: torch.Tensor
+    sum_logprob: torch.Tensor
+    no_speech_prob: torch.Tensor
+    temperatures: np.ndarray
+    passes: Optional[torch.Tensor] = None
+    routing: Optional[RoutingTrace] = None
 
 
 def _pad_len(n: int) -> int:
     """Quantize prompt pad length (the reference's recompile bound; kept
-    so prompts pad identically)."""
+    so prompts pad identically); above 256 (a speech LM's prompts, never
+    Whisper's) the next multiple of 64."""
     for p in (8, 32, 64, 128, 256):
         if n <= p:
             return p
-    return 256
+    return -(-n // 64) * 64
 
 
 def pad_prompts(prompts: Sequence[Sequence[int]],
@@ -139,18 +160,22 @@ class _DecodeLoop:
         b, dev = logits.shape[0], logits.device
         self.tables, self.temperature = tables, temperature
         self.generator, self.sampling = generator, sampling
+        self._state(logits, tables.eot, sample_len, p_max, forward)
+        self.max_ts = torch.full((b,), tables.timestamp_begin - 1,
+                                 dtype=torch.long, device=dev)
+        self.last = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.penult = torch.zeros((b,), dtype=torch.long, device=dev)
+
+    def _state(self, logits: torch.Tensor, eot: int, sample_len: int,
+               p_max: int, forward: Callable) -> None:
+        b, dev = logits.shape[0], logits.device
         self.p_max, self._forward = p_max, forward
-        eot = tables.eot
         self.logits = logits
         self.step = torch.zeros((), dtype=torch.long, device=dev)
         self.tokens = torch.full((b, sample_len), eot, dtype=torch.long,
                                  device=dev)
         self.sum_logprob = torch.zeros((b,), dtype=torch.float32, device=dev)
         self.done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        self.max_ts = torch.full((b,), tables.timestamp_begin - 1,
-                                 dtype=torch.long, device=dev)
-        self.last = torch.zeros((b,), dtype=torch.long, device=dev)
-        self.penult = torch.zeros((b,), dtype=torch.long, device=dev)
         self.eot = scalar(eot, torch.long, dev)
 
     def rules(self) -> torch.Tensor:
@@ -188,6 +213,29 @@ class _DecodeLoop:
         logits = self._forward(tok[:, None], self.step + self.p_max)
         self.logits.copy_(logits[:, 0])
         self.step += 1
+
+
+class _StopLoop(_DecodeLoop):
+    """The loop of a model without Whisper's rules: plain greedy over the
+    logits; a row is done at any of ``stop_ids`` and then emits ``eot``."""
+
+    def __init__(self, logits: torch.Tensor, eot: int, stop_ids, sample_len:
+                 int, p_max: int, forward: Callable):
+        self._state(logits, eot, sample_len, p_max, forward)
+        self.stop = torch.tensor(list(stop_ids), dtype=torch.long,
+                                 device=logits.device)
+
+    def rules(self) -> torch.Tensor:
+        b = self.logits.shape[0]
+        tok = torch.argmax(self.logits, dim=-1)
+        tok_logit = torch.gather(self.logits, 1, tok[:, None])[:, 0]
+        lse = torch.logsumexp(self.logits, dim=-1)
+        done = self.done
+        tok = torch.where(done, self.eot, tok)
+        self.sum_logprob += torch.where(done, 0.0, tok_logit - lse)
+        self.tokens.scatter_(1, self.step.expand(b, 1), tok[:, None])
+        done |= (tok[:, None] == self.stop).any(dim=1)
+        return tok
 
 
 class _Captures:
@@ -283,9 +331,18 @@ def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
     del logits_all
     use_graph = (cuda_graph and not sampling and dev.type == "cuda"
                  and _tp.tp_size() == 1)
-    graph = None
     t = rec.add("prefill", t)
+    run_steps(loop, sample_len, use_graph, dev, rec, t)
+    n_sampled = torch.sum(loop.tokens != tables.eot, dim=1)
+    return loop.tokens, n_sampled, loop.sum_logprob, no_speech_prob
 
+
+def run_steps(loop: _DecodeLoop, sample_len: int, use_graph: bool,
+              dev: torch.device, rec, t: int) -> None:
+    """The loop's steps: an exit check every ``_EXIT_CHECK``, the last
+    step's rules alone, the others eagerly or, with ``use_graph``, as
+    replays of one step captured at the first."""
+    graph = None
     for step in range(sample_len):
         if step and step % _EXIT_CHECK == 0:
             finished = bool(loop.done.all())
@@ -309,8 +366,6 @@ def decode_window_impl(params, xa: torch.Tensor, prompt_tokens: torch.Tensor,
             t = rec.add("rules", t)
             loop.forward(tok)
             t = rec.add("forward", t)
-    n_sampled = torch.sum(loop.tokens != tables.eot, dim=1)
-    return loop.tokens, n_sampled, loop.sum_logprob, no_speech_prob
 
 
 def frames_encode_decode_window_impl(
@@ -357,9 +412,9 @@ def decode_window_dispatch(
     With ``speculative`` K > 0 (or ``opts.speculative``; the explicit
     argument wins, as does an explicit ``draft_pool`` other than 4) and
     every row at temperature 0, the batch decodes by exact speculative
-    greedy (``decode/speculative.py``) and the handle gains a sixth
-    element, the pass count; rows above temperature 0 (ladder rungs) take
-    the sampling loop.
+    greedy (``decode/speculative.py``) and the handle carries the pass
+    count; rows above temperature 0 (ladder rungs) take the sampling
+    loop.
 
     With a ``mesh`` the batch (its size a multiple of dp; the batcher pads
     it) is padded once here and then sharded: each dp group runs the
@@ -400,7 +455,7 @@ def decode_window_dispatch(
             q8_kv=opts.q8_cross_kv, xattn_bf16=xattn_bf16,
             sampling=sampling, kind=kind, speculative=speculative,
             draft_pool=draft_pool)
-        return (*out, temps)
+        return WindowHandle(*out, temps)
     if speculative > 0 and not sampling:
         from . import speculative as sp
         d_params, d_cfg = draft if draft is not None else (params, cfg)
@@ -419,7 +474,7 @@ def decode_window_dispatch(
             out = sp.decode_window_speculative_impl(params, d_params, xa,
                                                     *common)
         tokens, n_sampled, sum_lp, nsp, passes = out
-        return (tokens, n_sampled, sum_lp, nsp, temps, passes)
+        return WindowHandle(tokens, n_sampled, sum_lp, nsp, temps, passes)
     args = (torch.as_tensor(prompt_np, dtype=torch.long, device=dev),
             torch.as_tensor(pad_np, dtype=torch.long, device=dev),
             torch.as_tensor(sot_np, device=dev), tables.to(dev),
@@ -435,17 +490,40 @@ def decode_window_dispatch(
             xa = encode(params, mel, cfg, compute_dtype=compute_dtype)
             rec.add("encode", t)
         out = decode_window_impl(params, xa, *args)
-    return (*out, temps)
+    return WindowHandle(*out, temps)
 
 
-def decode_window_finalize(handle) -> List[WindowResult]:
+class WindowProgram:
+    """A model's window program as ``pipeline/batcher.py::WindowBatcher``
+    runs it: the logit rule tables its decode takes (None: it has none)
+    and the dispatch that decodes a batch of windows into a
+    :class:`WindowHandle`, with :func:`decode_window_dispatch`'s
+    arguments. Whisper's: ``build_rule_tables`` and
+    :func:`decode_window_dispatch`; the engine names its model's
+    (``api.py``: ``window_program``)."""
+
+    @staticmethod
+    def rule_tables(cfg, opts: DecodeOptions, tokenizer,
+                    device) -> Optional[RuleTables]:
+        return build_rule_tables(cfg, opts, tokenizer, device=device)
+
+    @staticmethod
+    def dispatch(*args, **kwargs) -> WindowHandle:
+        return decode_window_dispatch(*args, **kwargs)
+
+
+WHISPER_WINDOW = WindowProgram()
+
+
+def decode_window_finalize(handle: WindowHandle) -> List[WindowResult]:
     """Copy the decode's device tensors to the host and score them."""
     rec, t = batch_record(), time.time_ns()
-    tokens, n_sampled, sum_lp, nsp, temps = handle[:5]
+    tokens, n_sampled, sum_lp, nsp, temps, _, trace = handle
     tokens = tokens.cpu().numpy()
     n_sampled = n_sampled.cpu().numpy()
     sum_lp = sum_lp.cpu().numpy()
     nsp = nsp.float().cpu().numpy()
+    routing = None if trace is None else trace.routing.cpu().numpy()
     t = rec.add("sync", t)
     out = []
     for i in range(tokens.shape[0]):
@@ -456,7 +534,11 @@ def decode_window_finalize(handle) -> List[WindowResult]:
             avg_logprob=float(sum_lp[i]) / (len(toks) + 1),
             no_speech_prob=float(nsp[i]),
             temperature=float(temps[i]),
+            routing=(None if trace is None
+                     else trace.row(routing, i, len(toks))),
         ))
+    if trace is not None and isinstance(rec, BatchRecord):
+        rec.experts = trace.counts(routing)
     rec.add("finalize", t)
     return out
 

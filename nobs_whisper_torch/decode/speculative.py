@@ -359,7 +359,7 @@ def decode_window_speculative(
     time-pooled cross-KV; with ``draft_params``/``draft_cfg`` a second
     model drafts (same tokenizer; it reads the target's encoder
     states)."""
-    from .greedy import decode_window_finalize, pad_prompts
+    from .greedy import WindowHandle, decode_window_finalize, pad_prompts
 
     dev = xa.device
     prompt_np, pad_np = pad_prompts(prompts, cfg.eot)
@@ -376,8 +376,8 @@ def decode_window_speculative(
         draft_cfg if draft_cfg is not None else cfg, sample_len, k_draft,
         draft_pool, compute_dtype, xattn_bf16,
         self_draft=draft_params is None)
-    out = decode_window_finalize(
-        (tokens, n_sampled, sum_lp, nsp, np.zeros(len(prompts), np.float32)))
+    out = decode_window_finalize(WindowHandle(
+        tokens, n_sampled, sum_lp, nsp, np.zeros(len(prompts), np.float32)))
     if return_passes:
         return out, passes
     return out

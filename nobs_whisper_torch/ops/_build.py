@@ -29,7 +29,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("encoder_attention", "fused_mlp", "cross_attention_decode",
            "q8_matmul", "fused_qkv", "conv_stem", "fused_layer", "mel",
-           "fused_mlp_q8")
+           "fused_mlp_q8", "moe")
 # sources a source includes besides the headers (K12 is K1 then K2)
 INCLUDES = {"fused_layer": ("encoder_attention", "fused_mlp")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -9,7 +9,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 
@@ -44,6 +44,9 @@ class BatchedEngine:
                              f"device {engine.device}")
         self.engine = engine
         self.opts = opts or DecodeOptions()
+        # an engine serving a subset refuses the rest
+        engine.check_serving(self.opts, mesh=mesh, speculative=speculative,
+                             draft_engine=draft_engine)
         # observability (/stats): single-window chunks served, the extra
         # rungs of the temperature-fallback ladder they took (each a full
         # batched window decode), and the tokens they emitted. Multi-window
@@ -59,7 +62,7 @@ class BatchedEngine:
             speculative=speculative, draft_pool=draft_pool,
             draft=(None if draft_engine is None
                    else (draft_engine.params, draft_engine.cfg)),
-            mesh=mesh)
+            mesh=mesh, program=engine.window_program)
 
     @property
     def cfg(self):
@@ -133,6 +136,12 @@ class BatchedEngine:
         if content_frames > window_frames \
                 or (opts is not None and opts != self.opts) \
                 or (self.opts.best_of or 1) > 1:
+            if self.engine.window_only:
+                raise ValueError(
+                    f"{cfg.name} serves single windows of up to "
+                    f"{window_frames * HOP_LENGTH // SAMPLE_RATE} s at the "
+                    "batcher's options: no long-form, per-request options "
+                    "(word timestamps, task) or best_of")
             if content_frames > window_frames and eff == self.opts \
                     and not eff.word_timestamps \
                     and (eff.best_of or 1) <= 1:
@@ -152,17 +161,8 @@ class BatchedEngine:
         frames = frames[: n_real_frames(len(audio), window_frames)]
 
         lang = language if language not in (None, "auto") else None
-        prompt: List[int] = []
-        initial = self.engine.build_initial_prompt(vocabulary, context)
-        if initial:
-            prompt.append(cfg.sot_prev)
-            prompt.extend(initial[-(cfg.n_text_ctx // 2 - 1):])
-        sot_pos = len(prompt)
-        prompt.extend(self.engine.tokenizer.sot_sequence(
-            language=(lang or "en") if cfg.multilingual else None,
-            task=self.opts.task))
-        lang_slot = (sot_pos + 1
-                     if lang is None and cfg.multilingual else None)
+        prompt, lang_slot = self.engine.window_prompt(
+            lang, vocabulary, context, self.opts.task)
 
         result, text = None, ""
         attempts = 0

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..core.config import WhisperConfig
-from ..decode.rules import DecodeOptions, RuleTables, build_rule_tables
+from ..decode.rules import DecodeOptions, RuleTables
 from ..utils.profiling import GLOBAL_PROFILER
 
 log = logging.getLogger(__name__)
@@ -96,8 +96,11 @@ class WindowBatcher:
                  device="cuda", seed: int = 0,
                  batch_deadline_s: Optional[float] = None,
                  speculative: int = 0, draft_pool: Optional[int] = None,
-                 draft=None, mesh=None):
-        """``speculative``/``draft_pool``: an explicit value wins over
+                 draft=None, mesh=None, program=None):
+        """``program``: the model's window program (``decode/greedy.py::
+        WindowProgram``'s surface: its rule tables and its dispatch; the
+        engine's ``window_program``), default Whisper's.
+        ``speculative``/``draft_pool``: an explicit value wins over
         ``NWT_SPECULATIVE``/``NWT_DRAFT_POOL``, which only fill the
         defaults; a malformed value is logged and ignored. ``draft``:
         (draft_params, draft_cfg) of a second-model draft, which must
@@ -137,8 +140,11 @@ class WindowBatcher:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.device = torch.device(device)
-        self.tables: RuleTables = build_rule_tables(
-            cfg, self.opts, tokenizer, device=self.device)
+        if program is None:
+            from ..decode.greedy import WHISPER_WINDOW as program
+        self.program = program
+        self.tables: Optional[RuleTables] = program.rule_tables(
+            cfg, self.opts, tokenizer, self.device)
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1000.0
         self.compute_dtype = compute_dtype
@@ -346,6 +352,9 @@ class WindowBatcher:
             results, langs = self._decode_batch(batch, rec)
         for r, res, lang in zip(batch, results, langs):
             res.language = lang
+            if res.routing is not None:
+                GLOBAL_PROFILER.keep_routing(r.prompt, res.tokens,
+                                             res.routing)
             if not r.future.done():
                 r.future.set_result(res)
 
@@ -417,13 +426,13 @@ class WindowBatcher:
             elif use_beam:
                 results = self._beam_results(xa, prompts, temps)
             else:
-                results = self._finalize(greedy.decode_window_dispatch(
+                results = self._finalize(self.program.dispatch(
                     self.params, xa, prompts, self.cfg, self.tables,
                     self.opts, temperature=temps, generator=self.generator,
                     compute_dtype=self.compute_dtype, **self._spec_kw()))
         else:
             # fixed-language main path: frames -> mel -> encode -> decode
-            results = self._finalize(greedy.decode_window_dispatch(
+            results = self._finalize(self.program.dispatch(
                 self.params, None, prompts, self.cfg, self.tables,
                 self.opts, temperature=temps, generator=self.generator,
                 compute_dtype=self.compute_dtype, mel=mel, frames=frames,
@@ -441,9 +450,10 @@ class WindowBatcher:
         ``spec_stats``."""
         from ..decode.greedy import decode_window_finalize
         results = decode_window_finalize(handle)
-        if len(handle) > 5:
+        if handle.passes is not None:
             emitted = sum(len(r.tokens) + 1 for r in results)
-            self.spec_stats.append((int(handle[5]), len(results), emitted))
+            self.spec_stats.append((int(handle.passes), len(results),
+                                    emitted))
             del self.spec_stats[:-200]
         return results
 

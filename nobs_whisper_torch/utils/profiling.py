@@ -43,6 +43,7 @@ PARTS = ("stack", "encode", "prefill", "capture", "forward", "rules",
          "sync", "finalize")
 STEP_PARTS = ("forward", "rules", "sync", "capture")
 RECORDS_KEPT = 4096         # batch records; a 51 s dictation run makes ~70
+ROUTING_KEPT = 1024         # requests' routing (~30 KB each at 28 layers)
 SUMMARY_BATCHES = 100       # the recent batches ``batch_summary`` reads
 
 
@@ -81,10 +82,15 @@ class BatchRecord:
     ``replays``, and the last step's rules run outside it. Beam search,
     speculative passes and mesh shards time no step parts: their decode
     falls outside every part (a beam batch's rows above temperature 0,
-    ladder retries, sample in the greedy loop and do time them)."""
+    ladder retries, sample in the greedy loop and do time them).
+
+    A batch of a model with experts (``models/uni_moe.py``) keeps in
+    ``experts``, for each forward (the prefill, then each decode step's)
+    the real tokens it ran and, by layer, the tokens each expert took,
+    the null experts included (:meth:`RoutingTrace.counts`)."""
 
     __slots__ = ("requests", "start_ns", "end_ns", "ns", "calls",
-                 "replays", "intervals")
+                 "replays", "intervals", "experts")
 
     def __init__(self, requests: Sequence[Tuple[int, int]], start_ns: int,
                  traced: bool):
@@ -96,6 +102,10 @@ class BatchRecord:
         self.replays = 0
         self.intervals: Optional[List[Tuple[str, int, int]]] = (
             [] if traced else None)
+        # a model with experts: (tokens (F,), rows (F, layers, experts))
+        # by forward (the prefill, then each decode step's), from
+        # RoutingTrace.counts; else None
+        self.experts: Optional[Tuple] = None
 
     def add(self, part: str, t0: int) -> int:
         """Count the time from ``t0`` to now under ``part``; return now,
@@ -128,6 +138,73 @@ class BatchRecord:
         return [self.start_ns - t for t, _ in self.requests]
 
 
+class RoutingTrace:
+    """A batch's routing as the window program leaves it: ``routing``
+    (layers, B, T, top_k) int8 on the device, each real token's chosen
+    experts at its cache column (-1 none), with the batch's ``pad_lens``
+    (B,) and ``p_max``, the prompts' padded length; expert ids below
+    ``n_routed`` are routed, the rest up to ``n_experts`` null. Decode
+    forward k writes column ``p_max + k``."""
+
+    def __init__(self, routing, pad_lens, p_max: int, n_routed: int,
+                 n_experts: int):
+        self.routing, self.pad_lens, self.p_max = routing, pad_lens, p_max
+        self.n_routed, self.n_experts = n_routed, n_experts
+
+    def row(self, host, i: int, n_served: int):
+        """(layers, prompt + n_served - 1, top_k) of row i, from the host
+        copy: its prompt's columns and those of the served tokens fed
+        back."""
+        return host[:, i, int(self.pad_lens[i]):self.p_max + n_served - 1]
+
+    def counts(self, host):
+        """(tokens (F,), rows (F, layers, experts), n_routed) for the F
+        forwards that ran: the prefill's real columns, then each decode
+        column written."""
+        import numpy as np
+        ids = host.astype(np.int64)                   # (L, B, T, K)
+        n_l, n_e = ids.shape[0], self.n_experts
+        n_fwd = 1 + int((ids[0, :, self.p_max:, 0] >= 0).any(0).sum())
+        ids = ids[:, :, :self.p_max + n_fwd - 1]
+        fwd = np.concatenate([np.zeros(self.p_max, np.int64),
+                              np.arange(1, n_fwd)])    # a column's forward
+        ok = ids >= 0
+        key = ((fwd[None, None, :, None] * n_l
+                + np.arange(n_l)[:, None, None, None]) * n_e + ids)[ok]
+        rows = np.bincount(key, minlength=n_fwd * n_l * n_e).reshape(
+            n_fwd, n_l, n_e)
+        tokens = np.bincount(np.broadcast_to(fwd, ok.shape[1:3])[
+            ok[0, :, :, 0]], minlength=n_fwd)
+        return tokens, rows, self.n_routed
+
+
+def expert_summary(records) -> Dict[str, float]:
+    """What the records' expert counts say, over every forward and layer
+    (``BatchRecord.experts``): routed rows a forward and layer, routed
+    experts hit, the null's share of the slots taken, routed slots a
+    token, and the busiest routed expert's rows over the mean of those
+    hit. Empty without counts."""
+    import numpy as np
+    got = [r.experts for r in records if getattr(r, "experts", None)]
+    if not got:
+        return {}
+    n_routed = got[0][2]
+    tokens = np.concatenate([t for t, _, _ in got])
+    rows = np.concatenate([r for _, r, _ in got]).astype(np.float64)
+    routed = rows[..., :n_routed]                    # (F, L, R)
+    hit = (routed > 0).sum(-1)
+    m = routed.reshape(-1, n_routed)
+    some = m.sum(1) > 0
+    busy = m[some].max(1) * hit.reshape(-1)[some] / m[some].sum(1)
+    return {"routed_rows": float(routed.sum(-1).mean()),
+            "experts_hit": float(hit.mean()),
+            "null_share": float(rows[..., n_routed:].sum()
+                                / max(rows.sum(), 1.0)),
+            "slots_per_token": float(routed.sum() / max(
+                tokens.sum() * rows.shape[1], 1)),
+            "busiest_over_mean": float(busy.mean()) if busy.size else 0.0}
+
+
 class _NoRecord:
     """The record a thread that runs no batch times into: nothing."""
 
@@ -157,6 +234,7 @@ class Profiler:
         self._lock = threading.Lock()
         self._stages: Dict[str, StageStats] = defaultdict(StageStats)
         self._batches: deque[BatchRecord] = deque(maxlen=RECORDS_KEPT)
+        self._routing: deque = deque(maxlen=ROUTING_KEPT)
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
@@ -205,12 +283,26 @@ class Profiler:
         with self._lock:
             return list(self._batches)
 
+    def keep_routing(self, prompt: Sequence[int], served: Sequence[int],
+                     routing) -> None:
+        """Keep a request's routing ((layers, positions, top_k), the
+        prompt's positions and the served tokens' fed back) beside its
+        prompt and served tokens."""
+        with self._lock:
+            self._routing.append((tuple(prompt), tuple(served), routing))
+
+    def routing_records(self) -> List[Tuple[tuple, tuple, object]]:
+        """The kept (prompt, served, routing), oldest first."""
+        with self._lock:
+            return list(self._routing)
+
     def batch_summary(self) -> Dict[str, Dict[str, float]]:
         """The last :data:`SUMMARY_BATCHES` batches' queue wait (ms, p50
         and p95 over their rows) and host ms a decode step by step part
         (over those that ran decode steps), with ``replayed_share``, the
         share of the steps with a forward that ran it as a graph's
-        replay; an entry without samples is left out."""
+        replay, and for a model with experts :func:`expert_summary`; an
+        entry without samples is left out."""
         import numpy as np
         recs = self.batch_records()[-SUMMARY_BATCHES:]
         out: Dict[str, Dict[str, float]] = {}
@@ -225,6 +317,9 @@ class Profiler:
             forwards = sum(r.calls["forward"] for r in recs)
             out["step_ms"]["replayed_share"] = (
                 sum(r.replays for r in recs) / forwards if forwards else 0.0)
+        experts = expert_summary(recs)
+        if experts:
+            out["experts"] = experts
         return out
 
 

@@ -328,7 +328,7 @@ def test_spmd_speculative_decode_matches_single_device():
     handle = decode_window_dispatch(params, xa, prompts, cfg, tables, opts,
                                     mesh=_mesh(), speculative=2,
                                     draft_pool=2)
-    assert len(handle) == 5      # no pass count on a mesh, as the reference
+    assert handle.passes is None  # no pass count on a mesh, as the reference
     got = decode_window_finalize(handle)
     for e, g in zip(expected, got):
         assert g.tokens == e.tokens
