@@ -31,7 +31,10 @@ Phases; any failure exits non-zero before the result line:
    ``BatchedEngine(max_batch=8)``: five concurrent window requests (one
    auto-language), two more fixed-language ones, and one 45 s long-form
    request; launch counters reset just before and read just after must
-   equal 32 x encoder batches; then one of the window requests again,
+   equal 32 x encoder batches, and K6 what the default gate predicts for
+   the decoder forwards (:func:`default_k6`: every int8 linear and the
+   logits of a forward of at most 256 rows, at bf16 on the card, with no
+   knob set); then one of the window requests again,
    one greedy rung of 224 steps, under ``torch.profiler`` for where the
    device time goes;
 5. file transcription, the JAX package's default ``transcribe`` path:
@@ -55,8 +58,8 @@ Phases; any failure exits non-zero before the result line:
    ``torch.profiler``; and K4 on
    the file path (``NWT_XATTN_KERNEL=1``, one ``transcribe`` of a 12 s clip
    on the unquantized engine: K4 once a layer in each single-token
-   forward, K6 = 0). With no knob set, no earlier phase launches K4, K5
-   or K6;
+   forward, K6 = 0). With no knob set, no earlier phase launches K4 or
+   K5, and K6 only as :func:`default_k6` predicts;
 7. the encoder's knob paths (``phase_encoder_knobs``): int8 serving with
    ``NWT_INT8_QKV NWT_MLP_CHUNKED NWT_STEM_FUSED`` (K13 once per encoder
    batch, K10, K9, K11 and K8 32 times per batch), a file transcription
@@ -91,7 +94,8 @@ Phases; any failure exits non-zero before the result line:
    ``BatchedEngine(max_batch=8)`` with ``beam_size=5`` (B x 5 rows over B
    shared packed cross-KV sets), a wave of five fixed-language windows
    and one auto-language window, then a 45 s long-form request: K1 = K2 =
-   32 x encoder batches, no K4, K5 or K6, one language-detect forward;
+   32 x encoder batches, no K4 or K5, K6 by :func:`default_k6`, one
+   language-detect forward;
    one request under ``torch.profiler``; ms per step of beam and greedy;
    the unquantized ``transcribe`` at beam 5 (K3); one beam batch under
    ``NWT_XATTN_KERNEL`` (K4 = 0 on grouped forwards) and under
@@ -114,7 +118,8 @@ Phases; any failure exits non-zero before the result line:
    differing by a near-tie (``near_tie``: the sequential run's gap
    between the two tokens within the largest logit difference measured
    between the two runs' forwards on the same prefix); K1 = K2 = 32 x
-   encoder batches, K4 = K5 = K6 = 0, ``emitted_per_pass`` as ``/stats``
+   encoder batches, K4 = K5 = 0, K6 by :func:`default_k6`,
+   ``emitted_per_pass`` as ``/stats``
    computes it; K6 under ``NWT_Q8_KERNEL_MIN_BYTES`` at B=1 and B=8 as
    the gates predict from the draft, verify and tail forwards; a
    second-model draft (``from_random("distil-large-v3")``, int8) held by
@@ -170,7 +175,9 @@ back and alone in a CUDA graph, cold over enough K/V sets to pass the L2
 and over one set; each kernel's cluster size from its plan), K6 (the logit projection 1280 x 51,866 at M=8 with bf16
 and with f32 x, two calls bit for bit with f32 x, fc1 1280 x 5120, fc2
 5120 x 1280, M=256; the serving wave's prefill rows, M=24, at the logit
-shape with f32 x and at fc2, each two calls bit for bit; each timed back
+shape with f32 x and at fc2, and a serving step's 32 rows at the logit,
+q/k/v/o (1280 x 1280), fc1 and fc2 shapes, each two calls bit for bit;
+each timed back
 to back, alone in a CUDA graph and by the wrapper's host work), K10,
 K11 and K8 (block_f=1280) at the knob paths' rows (d=1280; M=3000 with
 bf16 and with f32 x, M=1500 with f32 x; timed back to back and alone in a
@@ -1179,9 +1186,10 @@ def decode_kernel_checks():
     shapes (the line keeps the logit projection with f32 x, which the
     serving path runs, and two calls must give the same bits there; every
     check must pass). K6 also at the serving wave's prefill rows (3
-    requests of an 8-token prompt, M = 24): the prefill kernel's 32-row
-    instantiation with f32 x at the logit shape, and at fc2 (5120 x 1280),
-    whose K split sums through the cluster, each giving the same bits
+    requests of an 8-token prompt, M = 24) and at a serving step's 32
+    rows: the decode kernel's four x tiles, with f32 x at the logit shape
+    (M = 24) and with bf16 x at the decoder's four shapes (M = 32), fc2's
+    K split summed through the cluster, each giving the same bits
     twice."""
     import torch
     out = {}
@@ -1197,6 +1205,11 @@ def decode_kernel_checks():
                  (8, 5120, 1280, torch.bfloat16, "fc2"),
                  (24, 1280, 51866, torch.float32, "logits", 40, True),
                  (24, 5120, 1280, torch.bfloat16, "fc2", 40, True),
+                 # a serving step's 32 rows: the decode kernel's four tiles
+                 (32, 1280, 51866, torch.bfloat16, "logits", 40, True),
+                 (32, 1280, 1280, torch.bfloat16, "proj", 40, True),
+                 (32, 1280, 5120, torch.bfloat16, "fc1", 40, True),
+                 (32, 5120, 1280, torch.bfloat16, "fc2", 40, True),
                  (256, 1280, 51866, torch.bfloat16, "logits")):
         e = q8_check(*args)
         ok &= e["ok"]
@@ -1864,9 +1877,11 @@ def predicted_decode_launches(forwards, n_layer):
     or K5 once a layer in a single-token forward on the packed or int8
     cross-KV; K6 on the 8 int8 weights of each layer and the logit
     projection in a forward of at most 256 rows, "K6-decode" those of at
-    most ``K6_DECODE_ROWS`` (16) rows (its decode kernel). (The cross-KV
+    most ``K6_DECODE_ROWS`` (32) rows (its decode kernel). (The cross-KV
     projection has B x 1500 rows at full size, B x 160 in the reference
-    phase: no K6 there.)"""
+    phase: no K6 there.) With no knob set an int8 decoder at bf16 compute
+    takes K6 on the same forwards (``models/whisper.py::q8_route``):
+    :func:`default_k6`."""
     from nobs_whisper_torch.ops import quant as qt
     n = lambda pred: sum(c for key, c in forwards.items() if pred(*key))
     return {"K4": n_layer * n(lambda lay, b, s: lay == "packed" and s == 1),
@@ -1874,6 +1889,21 @@ def predicted_decode_launches(forwards, n_layer):
             "K6": (8 * n_layer + 1) * n(lambda lay, b, s: b * s <= 256),
             "K6-decode": (8 * n_layer + 1) * n(
                 lambda lay, b, s: b * s <= qt.K6_DECODE_ROWS)}
+
+
+def default_k6(forwards, n_layer, draft_layers=None):
+    """K6 launches with no knob set on an int8 decoder of ``n_layer``
+    layers at bf16 compute: every int8 weight (8 a layer) and the logit
+    projection of each decoder forward of at most 256 rows. With
+    ``draft_layers``, the forwards on the plain cross-KV layout are a
+    second-model draft's, of that many layers."""
+    main = {k: n for k, n in forwards.items()
+            if draft_layers is None or k[0] != "plain"}
+    k6 = predicted_decode_launches(main, n_layer)["K6"]
+    if draft_layers is not None:
+        draft = {k: n for k, n in forwards.items() if k[0] == "plain"}
+        k6 += predicted_decode_launches(draft, draft_layers)["K6"]
+    return k6
 
 
 def _request_audio():
@@ -1948,10 +1978,12 @@ def phase_serving(card, eng):
         launches = {"K1": c["K1"], "K2": c["K2"]}
         batches = c["batches"]
         want = cfg.n_audio_layer * batches
+        k6_want = default_k6(c["forwards"], cfg.n_text_layer)
         counts_ok = (batches > 0 and launches["K1"] == want
                      and launches["K2"] == want
                      and c["K3"] == c["K9"] == c["K2-f32"] == 0
-                     and c["K4"] == c["K5"] == c["K6"] == 0
+                     and c["K4"] == c["K5"] == 0
+                     and c["K6"] == k6_want > 0
                      and no_knob_kernels(c))
         log(f"[serve] {card}: wall {wall:.2f} s; batch sizes "
             f"{be.batcher.batch_sizes}; encoder batches {batches}; "
@@ -2459,11 +2491,12 @@ def phase_attention_variants(card, qeng, eng):
         finally:
             be.close()
     nb = c["batches"]
-    a_ok = nb > 0 and only(c, {"K12": n * nb})
+    k6_want = default_k6(c["forwards"], qeng.cfg.n_text_layer)
+    a_ok = nb > 0 and k6_want > 0 and only(c, {"K12": n * nb, "K6": k6_want})
     log(f"[variants] {card}: int8 serving with NWT_ATTN_FUSED=3: wall "
         f"{wall:.2f} s; batch sizes {be.batcher.batch_sizes}; launches "
-        f"{_launch_summary(c)} (want K12 = {n} x {nb} = {n * nb}, no other "
-        f"encoder kernel) -> {'PASS' if a_ok else 'FAIL'}")
+        f"{_launch_summary(c)} (want K12 = {n} x {nb} = {n * nb}, K6 "
+        f"{k6_want}, no other encoder kernel) -> {'PASS' if a_ok else 'FAIL'}")
     ok &= a_ok
     launches["K12"] = c["K12"]
 
@@ -2906,12 +2939,13 @@ def phase_server(card, qeng):
         c = read_counts()
         batches = c["batches"]
         want_n = cfg.n_audio_layer * batches
+        k6_want = default_k6(c["forwards"], cfg.n_text_layer)
         counts_ok = (batches > 0 and c["K1"] == c["K2"] == want_n
-                     and only(c, {"K1": want_n, "K2": want_n})
-                     and not any(c[k] for k in ("K4", "K5", "K6")))
+                     and only(c, {"K1": want_n, "K2": want_n, "K6": k6_want})
+                     and k6_want > 0)
         log(f"[server] {card}: launches {_launch_summary(c)} (want K1 = K2 "
-            f"= {cfg.n_audio_layer} x {batches} = {want_n}, others 0) -> "
-            f"{'PASS' if counts_ok else 'FAIL'}")
+            f"= {cfg.n_audio_layer} x {batches} = {want_n}, K6 {k6_want}, "
+            f"others 0) -> {'PASS' if counts_ok else 'FAIL'}")
         ok &= counts_ok
         launches = {"K1": c["K1"], "K2": c["K2"]}
 
@@ -3108,7 +3142,8 @@ def phase_beam(card, qeng, eng):
       beam_size=5, temperature_increment=0), max_batch=8)``, one wave of
       five fixed-language window requests and one auto-language request,
       then a 45 s long-form request: K1 = K2 = 32 x encoder batches, K4 =
-      K5 = K6 = 0, one language-detect forward (the auto-language row's
+      K5 = 0, K6 by :func:`default_k6`, one language-detect forward (the
+      auto-language row's
       batch; the detect forward is the only one on the plain cross-KV),
       every window result well formed; then one request again under
       ``torch.profiler`` (device busy, idle share, the largest rows), ms
@@ -3175,16 +3210,18 @@ def phase_beam(card, qeng, eng):
     grouped = {k: n for k, n in c["forwards"].items() if k[0] == "grouped"}
     forms_ok = bool(windows) and all(_beam_check(r, sample_len)
                                      for r in windows)
+    k6_want = default_k6(c["forwards"], cfg.n_text_layer)
     counts_ok = (batches > 0 and c["K1"] == c["K2"] == want
                  and c["K3"] == c["K9"] == c["K2-f32"] == 0
-                 and c["K4"] == c["K5"] == c["K6"] == 0
+                 and c["K4"] == c["K5"] == 0 and c["K6"] == k6_want > 0
                  and no_knob_kernels(c) and detect == 1 and bool(grouped))
     log(f"[beam] {card}: serving wall {wall:.2f} s; batch sizes "
         f"{be.batcher.batch_sizes}; encoder batches {batches}; window "
         f"results {len(windows)} well formed {forms_ok} (tokens <= "
         f"{sample_len}, finite sums, no-speech in [0, 1]); language-detect "
         f"forwards {detect} (want 1); launches {_launch_summary(c)} (want "
-        f"K1 = K2 = {n_enc} x {batches} = {want}, K4 = K5 = K6 = 0) -> "
+        f"K1 = K2 = {n_enc} x {batches} = {want}, K4 = K5 = 0, K6 "
+        f"{k6_want}) -> "
         f"{'PASS' if counts_ok and forms_ok else 'FAIL'}")
     ok &= counts_ok and forms_ok
     launches.update(K1=c["K1"], K2=c["K2"])
@@ -3797,8 +3834,8 @@ def phase_speculative(card, qeng, eng):
       requests through the non-speculative ``BatchedEngine`` (both collect
       for 250 ms, so that a wave is one batch in each). Every row's tokens
       equal the sequential run's or differ by a near-tie
-      (:func:`near_tie`). K1 = K2 = 32 x encoder batches, K4 = K5 = K6 =
-      0; ``emitted_per_pass`` by ``/stats``'s formula;
+      (:func:`near_tie`). K1 = K2 = 32 x encoder batches, K4 = K5 = 0, K6
+      by :func:`default_k6`; ``emitted_per_pass`` by ``/stats``'s formula;
     * under ``NWT_Q8_KERNEL_MIN_BYTES=1`` one batch at B=1 and one at B=8:
       K6's decode-kernel and prefill-kernel launches as the gates predict
       from the draft, verify and tail forwards run;
@@ -3864,9 +3901,10 @@ def phase_speculative(card, qeng, eng):
     torch.cuda.empty_cache()
     batches_n = c["batches"]
     want = n_enc * batches_n
+    k6_want = default_k6(c["forwards"], cfg.n_text_layer)
     counts_ok = (batches_n > 0 and c["K1"] == c["K2"] == want
                  and c["K3"] == c["K9"] == c["K2-f32"] == 0
-                 and c["K4"] == c["K5"] == c["K6"] == 0
+                 and c["K4"] == c["K5"] == 0 and c["K6"] == k6_want > 0
                  and no_knob_kernels(c))
     emitted = sum(e for _, _, e in stats)
     pass_rows = sum(p * r for p, r, _ in stats)
@@ -3874,7 +3912,8 @@ def phase_speculative(card, qeng, eng):
     log(f"[speculative] {card}: serving wall {wall:.2f} s (sequential "
         f"{p_wall:.2f} s); batch sizes {sizes} (sequential {p_sizes}); "
         f"encoder batches {batches_n}; launches {_launch_summary(c)} (want "
-        f"K1 = K2 = {n_enc} x {batches_n} = {want}, K4 = K5 = K6 = 0); "
+        f"K1 = K2 = {n_enc} x {batches_n} = {want}, K4 = K5 = 0, K6 "
+        f"{k6_want}); "
         f"spec_stats (passes, rows, emitted) {stats}: emitted_per_pass "
         f"{epp:.3f} -> {'PASS' if counts_ok and ok else 'FAIL'}")
     log(f"[speculative] {card}: served rows against the sequential run: "
@@ -3951,14 +3990,18 @@ def phase_speculative(card, qeng, eng):
         _, passes, c = batch(2, 32, names, q8=q8, draft=dr)
         ph = phases(c["forwards"])
         pred = predicted_decode_launches(c["forwards"], n_dec)
+        k6_want = default_k6(c["forwards"], n_dec,
+                             draft_layers=distil.cfg.n_text_layer)
         this = (c[key] == pred[key] == n_dec * ph["tail"] and ph["tail"] > 0
-                and c["K6"] == 0 and c["K4" if key == "K5" else "K5"] == 0)
+                and c["K6"] == k6_want
+                and c["K4" if key == "K5" else "K5"] == 0)
         log(f"[speculative] {card}: {names[0]}=1"
             f"{' on int8 cross-KV' if q8 else ''}, distil draft, one batch "
             f"at B=2 (32 tokens, {passes} passes): forwards {ph} "
             f"{c['forwards']}; {key} {c[key]} (want {n_dec} x tail "
             f"forwards {ph['tail']} = {n_dec * ph['tail']}, none on draft "
-            f"and verify forwards) -> {'PASS' if this else 'FAIL'}")
+            f"and verify forwards; K6 {c['K6']}, want {k6_want}) -> "
+            f"{'PASS' if this else 'FAIL'}")
         ok &= this
         launches[key] = c[key]
     del distil, dr
@@ -4158,16 +4201,25 @@ def phase_words(card, qeng, eng):
         w_ok, words = _words_check(r, spy.windows, cfg)
         want = n_enc * c["batches"]
         others = {"K1", "K2", "K3", "K9"} - set(kern)
+        # int8: K6 on the decoder forwards (default_k6), and in each
+        # alignment forward once a layer for each linear met by bf16 rows
+        # (the encoder states' dtype: xo; the rest run at f32 there)
+        k6_fwd = default_k6(c["forwards"], cfg.n_text_layer) \
+            if name == "int8" else 0
+        extra = c["K6"] - k6_fwd
         k_ok = (c["batches"] > 0 and all(c[k] == want for k in kern)
                 and not any(c[k] for k in others)
-                and c["K4"] == c["K5"] == c["K6"] == 0 and no_knob_kernels(c))
+                and c["K4"] == c["K5"] == 0
+                and extra >= 0 and extra % cfg.n_text_layer == 0
+                and (c["K6"] > 0) == (name == "int8") and no_knob_kernels(c))
         log(f"[words] {card}: {name} transcribe of a 12 s clip with "
             f"word_timestamps: {dt:.2f} s, segments {len(r.segments)}, "
             f"windows {len(spy.windows)}, words {len(words)} (the first "
             f"three's bounds {[(w.start, w.end) for w in words[:3]]}), well "
             f"formed {w_ok}; launches {_launch_summary(c)} (want "
-            f"{' = '.join(kern)} = {n_enc} x {c['batches']} = {want}) -> "
-            f"{'PASS' if w_ok and k_ok else 'FAIL'}")
+            f"{' = '.join(kern)} = {n_enc} x {c['batches']} = {want}; K6 "
+            f"{k6_fwd} on decoder forwards, {extra} on alignment forwards) "
+            f"-> {'PASS' if w_ok and k_ok else 'FAIL'}")
         ok &= w_ok and k_ok
         for k in kern:
             launches[k] = c[k]
@@ -4400,9 +4452,10 @@ def phase_mesh(card, qeng):
     tie_ok &= one_batch and equal + len(ties) == len(wave)
     shards_run = c["batches"]
     want = cfg.n_audio_layer * shards_run
+    k6_want = default_k6(c["forwards"], cfg.n_text_layer)
     counts_ok = (shards_run == 2 * len(mb) and c["K1"] == want
                  and c["K2"] == want and c["K3"] == c["K9"] == 0
-                 and c["K4"] == c["K5"] == c["K6"] == 0
+                 and c["K4"] == c["K5"] == 0 and c["K6"] == k6_want > 0
                  and no_knob_kernels(c))
     log(f"[mesh] {card}: dp=2 on {where}: eight 5-28 s requests, batch "
         f"sizes unsharded {psizes} ({pwall:.2f} s) and dp=2 {msizes} "
@@ -4410,7 +4463,8 @@ def phase_mesh(card, qeng):
         f"{line} -> {'PASS' if tie_ok else 'FAIL'}")
     log(f"[mesh] {card}: dp=2 launches K1 {c['K1']} K2 {c['K2']} (want "
         f"2 shards x {cfg.n_audio_layer} layers x {len(mb)} batches = "
-        f"{want}; shard encodes {shards_run}) -> "
+        f"{want}; shard encodes {shards_run}), K6 {c['K6']} (want "
+        f"{k6_want}) -> "
         f"{'PASS' if counts_ok else 'FAIL'}")
     ok &= tie_ok and counts_ok
     launches = {"K1": c["K1"], "K2": c["K2"]}
@@ -4775,14 +4829,17 @@ def phase_train(card, eng, dev="cuda"):
     dt = time.perf_counter() - t0
     c = read_counts()
     n_tok = sum(len(s.tokens) for s in r.segments)
-    s_ok = (only(c, {"K1": cfg.n_audio_layer, "K2": cfg.n_audio_layer})
+    k6_want = default_k6(c["forwards"], cfg.n_text_layer)
+    s_ok = (only(c, {"K1": cfg.n_audio_layer, "K2": cfg.n_audio_layer,
+                     "K6": k6_want})
+            and k6_want > 0
             and c["batches"] == 1 and isinstance(r.text, str) and all(
                 math.isfinite(s.avg_logprob) for s in r.segments))
     log(f"[train] {card}: the trained weights (fc1_w moved by "
         f"{moved:.3e} of its largest magnitude), bf16, quantized into a "
         f"WhisperEngine: 12 s transcription in {dt:.2f} s, {n_tok} tokens; "
         f"launches {_launch_summary(c)} (want K1 = K2 = "
-        f"{cfg.n_audio_layer}) -> {'PASS' if s_ok else 'FAIL'}")
+        f"{cfg.n_audio_layer}, K6 {k6_want}) -> {'PASS' if s_ok else 'FAIL'}")
     ok &= s_ok
     launches["K1"], launches["K2"] = c["K1"], c["K2"]
     del trained, served, r

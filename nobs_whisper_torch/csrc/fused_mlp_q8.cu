@@ -25,7 +25,7 @@
 // weight's cp.async slab ring, its dequantization on the integer and FMA
 // pipes, swap-AB mma.sync, the split-K sum in rank order through a
 // thread-block cluster), two launches on the caller's stream for each
-// group of up to 16 rows:
+// group of up to 32 rows:
 //   1. fc1 with the LayerNorm row prologue (every block computes its rows'
 //      mean and variance over the whole row and stages bf16(LN(x)) of its
 //      K range) and the epilogue + b1, gelu, bf16 store of a (M x ffn,
@@ -47,7 +47,7 @@ namespace {
 
 using namespace nwt;
 
-constexpr int K7_GROUP = 16;   // rows a pair of launches: the decode kernel's
+constexpr int K7_GROUP = 32;   // rows a pair of launches: the decode kernel's
 
 // fc2 by programmatic dependent launch: one switch for the whole process
 // (nwt_fused_mlp_q8_set_pdl), read once a call
@@ -84,10 +84,12 @@ cudaError_t launch_mlp_q8(const T* x, const float* g, const float* be,
     bf16* ag = act + (size_t)m0 * ffn;
     T* og = out + (size_t)m0 * d;
     const cudaError_t e =
-        rows <= 8 ? launch_group<T, 1>(xg, g, be, w1, s1, b1, w2, s2, b2, ag,
-                                       og, rows, d, ffn, st)
-                  : launch_group<T, 2>(xg, g, be, w1, s1, b1, w2, s2, b2, ag,
-                                       og, rows, d, ffn, st);
+        rows <= 8    ? launch_group<T, 1>(xg, g, be, w1, s1, b1, w2, s2, b2,
+                                          ag, og, rows, d, ffn, st)
+        : rows <= 16 ? launch_group<T, 2>(xg, g, be, w1, s1, b1, w2, s2, b2,
+                                          ag, og, rows, d, ffn, st)
+                     : launch_group<T, 4>(xg, g, be, w1, s1, b1, w2, s2, b2,
+                                          ag, og, rows, d, ffn, st);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;

@@ -1,5 +1,5 @@
 // The int8 dequantizing GEMV of a decode step on Hopper: K6's decode kernel
-// (csrc/q8_matmul.cu, M <= 16), which K7's two products (csrc/fused_mlp_q8.cu)
+// (csrc/q8_matmul.cu, M <= 32), which K7's two products (csrc/fused_mlp_q8.cu)
 // run too, and the weight side that K6's prefill kernel shares.
 //
 // out^T = W^T x^T, W = bf16(bf16(q) * bf16(s)) per column, x's rows
@@ -35,8 +35,14 @@
 //   maps the columns back (a_col).
 //
 // The decode kernel (q8_decode_kernel). Bound by bytes: each weight byte
-// meets at most 16 rows, far below the ~295 operations per byte at which
+// meets at most 32 rows, far below the ~295 operations per byte at which
 // the tensor cores would be the limit.
+//   - x's rows in MT tiles of 8 (MT 1, 2 or 4: M <= 8, 16, 32, the rows of
+//     a serving step): each dequantized A fragment feeds MT products, so a
+//     weight slab is read and dequantized once for all the block's rows.
+//     The split depends on (K, N) and the card, never on M, and a row's
+//     products and sums run in the same order at every MT: a row's output
+//     bits do not depend on the rows beside it.
 //   - x once per block: a row prologue stages the block's (M, K-range)
 //     slice of its rows in shared memory as bf16, zero past M and past the
 //     K range, while the first slabs stream in: x's rows as they are (f32
@@ -53,9 +59,10 @@
 //     block leaves its partial (M, 128) tile in shared memory, and after a
 //     cluster barrier block r sums every partial in rank order through
 //     distributed shared memory for its share of the elements and hands
-//     each sum to the epilogue once: an f32 store (K6), + b1 then the tanh
-//     gelu and a bf16 store (K7's fc1), or + b2 + x in x's type (K7's
-//     fc2). An unsplit grid is a plain launch, no cluster.
+//     each sum to the epilogue once: an f32 store (K6), a bf16 store with
+//     the bias added in bf16 (K6 at bf16 compute), + b1 then the tanh gelu
+//     and a bf16 store (K7's fc1), or + b2 + x in x's type (K7's fc2). An
+//     unsplit grid is a plain launch, no cluster.
 //   - Programmatic dependent launch, for a kernel that follows another on
 //     the stream (K7's fc2 after fc1): the PDL_WAIT instantiation issues
 //     its first slabs before griddepcontrol.wait and stages x after it;
@@ -149,6 +156,22 @@ struct StoreF32 {
   __device__ __forceinline__ void operator()(int m, int n, int N,
                                              float v) const {
     out[(size_t)m * N + n] = v;
+  }
+};
+
+// K6 at bf16 compute: bf16(v), then + b in bf16 where a bias is given
+// (PyTorch's bf16 add: the f32 sum of the two bf16 values, rounded once),
+// (M, N) bf16: the bits of out.to(bf16) + b after StoreF32
+struct StoreBf16Bias {
+  const bf16* bias;   // (N,), or null
+  bf16* out;
+  __device__ __forceinline__ void operator()(int m, int n, int N,
+                                             float v) const {
+    bf16 y = __float2bfloat16_rn(v);
+    if (bias != nullptr)
+      y = __float2bfloat16_rn(
+          __fadd_rn(__bfloat162float(y), __bfloat162float(bias[n])));
+    out[(size_t)m * N + n] = y;
   }
 };
 
@@ -521,7 +544,7 @@ __device__ __forceinline__ void stage_rows(const RowsLayerNorm& ln,
 }
 
 // ---------------------------------------------------------------------------
-// Decode: M <= 16
+// Decode: M <= 32
 // ---------------------------------------------------------------------------
 
 constexpr size_t decode_smem(int mt, int kper) {
@@ -562,10 +585,12 @@ q8_decode_kernel(const TA* __restrict__ x, const int8_t* __restrict__ w,
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
   stage_rows<MT>(pro, xs, x, M, K, kbeg, kend, kper, tid);
 
-  // warp w: A tile w; B: 8 MT rows of x, 16 of its K columns
+  // warp w: A tile w; B: 8 MT rows of x, 16 of its K columns, two m8
+  // tiles an ldmatrix.x4 (a last odd one by .x2, whose lanes 0-15 give
+  // the addresses)
   const unsigned a_addr = a_tile_addr(wt, warp, lane);
   const unsigned b_addr = smem_u32(xs) +
-      2 * (((lane & 7) + (MT == 2 ? ((lane >> 4) & 1) * 8 : 0)) * xld +
+      2 * (((lane & 7) + (MT >= 2 ? ((lane >> 4) & 1) * 8 : 0)) * xld +
            ((lane >> 3) & 1) * 8);
   float acc[MT][4] = {};
 
@@ -579,16 +604,21 @@ q8_decode_kernel(const TA* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < DBK; kk += 16) {
-      uint32_t a[4], b[4];
+      uint32_t a[4];
       ldsm_x4_trans(a, a_addr + 2 * kk * DWLD);
       const unsigned bk = b_addr + 2 * (it * DBK + kk);
-      if constexpr (MT == 1)
-        ldsm_x2(reinterpret_cast<uint32_t(&)[2]>(b), bk);
-      else
-        ldsm_x4(b, bk);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        mma_bf16(acc[mt], a, b[2 * mt], b[2 * mt + 1]);
+      for (int p = 0; p < MT / 2; ++p) {   // A meets every m8 tile of x
+        uint32_t b[4];
+        ldsm_x4(b, bk + 2 * 16 * p * xld);
+        mma_bf16(acc[2 * p], a, b[0], b[1]);
+        mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+      }
+      if constexpr (MT % 2 == 1) {
+        uint32_t b[2];
+        ldsm_x2(b, bk + 2 * 16 * (MT / 2) * xld);
+        mma_bf16(acc[MT - 1], a, b[0], b[1]);
+      }
     }
   }
   if constexpr (PDL == PDL_TRIGGER)

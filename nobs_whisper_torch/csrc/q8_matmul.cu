@@ -19,17 +19,21 @@
 // csrc/q8_decode.cuh, which K7 (csrc/fused_mlp_q8.cu) runs too; its note
 // says how they are built.
 //
-// * Decode, M <= 16 (q8_decode_kernel; every decode step, B <= 8 rows in
-//   serving): x's rows as they are, an f32 store. Bound by bytes: the
-//   logit projection is 66 MB, 20 us at 3.35 TB/s.
+// * Decode, M <= 32 (q8_decode_kernel; every decode step of a serving
+//   batch, up to 32 rows, and a short prefill): x's rows as they are, an
+//   f32 store, or for a linear at bf16 compute (nwt_q8_matmul_bf16_out) a
+//   bf16 store with the bias added in bf16, so that the step's linear is
+//   one launch. Bound by bytes: the logit projection is 66 MB, 20 us at
+//   3.35 TB/s. Its split does not depend on M, so a row gives the same bits
+//   at any M up to 32.
 //
-// * Prefill, 16 < M <= 256 (q8_prefill_kernel; the prefill's B x P rows).
+// * Prefill, 32 < M <= 256 (q8_prefill_kernel; the prefill's B x P rows).
 //   Toward M = 256 the operations catch up with the bytes: at the logit
 //   shape 34 GFLOP take 0.034 ms at the bf16 peak and the 120 MB take
 //   0.036 ms at 3.35 TB/s, most of them the f32 output's 53 MB of writes,
 //   so the bound is still the bytes there. Each slab of the weight (64 rows,
-//   2 in the ring) is dequantized once for all of a block's rows (32, 64
-//   or 128; M = 256 is two neighbouring blocks of one tile, the second
+//   2 in the ring) is dequantized once for all of a block's rows (64 or
+//   128; M = 256 is two neighbouring blocks of one tile, the second
 //   finding the weight in L2); x streams through the ring beside it by
 //   cp.async (bf16 x feeds ldmatrix from the ring, f32 x is rounded into
 //   a bf16 tile), and warps tile 32 columns by 64 rows, every B fragment
@@ -46,12 +50,12 @@
 
 namespace nwt {
 
-constexpr int DECODE_ROWS = 16;        // M at which the prefill kernel starts
+constexpr int DECODE_ROWS = 32;        // M above which the prefill kernel runs
 constexpr int PBK = 64;                // weight rows a prefill stage
 constexpr int PSTAGES = 2;             // slabs in a prefill block's ring
 
 // ---------------------------------------------------------------------------
-// Prefill: 16 < M <= 256
+// Prefill: 32 < M <= 256
 // ---------------------------------------------------------------------------
 
 constexpr int XLD = PBK + 8;   // bf16 a staged row of x: 144 B, ldmatrix
@@ -260,27 +264,36 @@ cudaError_t launch_prefill(const T* x, const int8_t* w, const float* s,
                 N, per * PBK);
 }
 
+// the decode kernel, M <= DECODE_ROWS, each sum through `store`
+template <typename T, class Epi>
+cudaError_t launch_rows(const T* x, const int8_t* w, const float* s, int M,
+                        int K, int N, Epi store, cudaStream_t st) {
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(w) % 16 == 0 && N % 16 == 0;
+  const RowsAsIs rows;
+  if (M <= 8)   // one, two or four tiles of 8 rows
+    return aligned
+               ? launch_decode<T, 1, true>(x, w, s, M, K, N, rows, store, st)
+               : launch_decode<T, 1, false>(x, w, s, M, K, N, rows, store, st);
+  if (M <= 16)
+    return aligned
+               ? launch_decode<T, 2, true>(x, w, s, M, K, N, rows, store, st)
+               : launch_decode<T, 2, false>(x, w, s, M, K, N, rows, store, st);
+  return aligned
+             ? launch_decode<T, 4, true>(x, w, s, M, K, N, rows, store, st)
+             : launch_decode<T, 4, false>(x, w, s, M, K, N, rows, store, st);
+}
+
 template <typename T>
 cudaError_t launch_q8_matmul(const T* x, const int8_t* w, const float* s,
                              float* out, int M, int K, int N,
                              cudaStream_t st) {
   if (M <= 0 || K <= 0 || N <= 0 || M > 256) return cudaErrorInvalidValue;
-  if (M > DECODE_ROWS) {   // blocks of 32, 64 or 128 rows of x
-    if (M <= 32) return launch_prefill<T, 4>(x, w, s, out, M, K, N, st);
+  if (M > DECODE_ROWS) {   // blocks of 64 or 128 rows of x
     if (M <= 64) return launch_prefill<T, 8>(x, w, s, out, M, K, N, st);
     return launch_prefill<T, 16>(x, w, s, out, M, K, N, st);
   }
-  const bool aligned =
-      reinterpret_cast<uintptr_t>(w) % 16 == 0 && N % 16 == 0;
-  const RowsAsIs rows;
-  const StoreF32 store{out};
-  if (M <= 8)
-    return aligned
-               ? launch_decode<T, 1, true>(x, w, s, M, K, N, rows, store, st)
-               : launch_decode<T, 1, false>(x, w, s, M, K, N, rows, store, st);
-  return aligned
-             ? launch_decode<T, 2, true>(x, w, s, M, K, N, rows, store, st)
-             : launch_decode<T, 2, false>(x, w, s, M, K, N, rows, store, st);
+  return launch_rows(x, w, s, M, K, N, StoreF32{out}, st);
 }
 
 }  // namespace
@@ -304,5 +317,23 @@ extern "C" int nwt_q8_matmul_f32(const void* x, const void* w, const void* s,
   return (int)launch_q8_matmul(
       static_cast<const float*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(s), static_cast<float*>(out), M, K, N,
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The decode step's linear at bf16 compute: x (M <= 32, K) bf16, w and s
+// as above, bias (N,) bf16 or null; out (M, N) bf16 = bf16(x @ w), then +
+// bias in bf16, in the decode kernel's epilogue: the bits of the f32
+// entry's output rounded to bf16 and the bias added by PyTorch.
+extern "C" int nwt_q8_matmul_bf16_out(const void* x, const void* w,
+                                      const void* s, const void* bias,
+                                      void* out, int M, int K, int N,
+                                      void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || M > nwt::DECODE_ROWS)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_rows(
+      static_cast<const nwt::bf16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(s), M, K, N,
+      nwt::StoreBf16Bias{static_cast<const nwt::bf16*>(bias),
+                         static_cast<nwt::bf16*>(out)},
       reinterpret_cast<cudaStream_t>(stream));
 }

@@ -38,8 +38,9 @@ from ..core.device import disable_tf32, scalar
 from ..ops import _build
 from ..ops import attention_pallas as ap
 from ..parallel import tp as _tp
-from ..ops.quant import (dense_int8_dynamic, is_quantized, k_major, ln_f32,
-                         q8_matmul)
+from ..ops.quant import (K6_DECODE_ROWS, dense_int8_dynamic, is_quantized,
+                         k_major, ln_f32, q8_matmul, q8_matmul_bf16)
+from ..utils.profiling import batch_record
 
 Params = Dict[str, Any]
 
@@ -188,10 +189,30 @@ def _attention_kt_ancestry(q, kT, v, mask, ancestry: torch.Tensor,
 Q8_KERNEL_MAX_M = 256   # K6 takes matmuls of at most this many rows
 
 
-def q8_kernel_min_bytes() -> int:
-    """K6's weight-size threshold: ``NWT_Q8_KERNEL_MIN_BYTES``, unset =
-    2^62 (never)."""
-    return int(os.environ.get("NWT_Q8_KERNEL_MIN_BYTES", 0) or (1 << 62))
+def q8_kernel_min_bytes() -> Optional[int]:
+    """K6's weight-size threshold, the reference's knob
+    ``NWT_Q8_KERNEL_MIN_BYTES``; None when unset (or 0)."""
+    return int(os.environ.get("NWT_Q8_KERNEL_MIN_BYTES") or 0) or None
+
+
+def q8_route(device_type: str, compute_dtype: torch.dtype, m: int,
+             nbytes: int, plain: bool, min_bytes: Optional[int]) -> str:
+    """How an int8 linear of ``m`` rows on a weight of ``nbytes`` runs:
+    "K6" (each weight tile dequantized on chip) or "dequant" (the
+    reference's XLA path: the weight dequantized into device memory in the
+    compute dtype, then a matmul). Never K6 past :data:`Q8_KERNEL_MAX_M`
+    rows or with the kernels off (``plain``: a tp shard, training). With
+    the knob set (``min_bytes``) the reference's gate: K6 for a weight of
+    at least ``min_bytes``, on any device (the CPU runs K6's plain
+    version). Unset: K6 on the card at bf16 compute, the serving path, so
+    that no decode step writes a dequantized copy of a weight; the CPU and
+    f32 compute keep the dequant path."""
+    if m > Q8_KERNEL_MAX_M or plain:
+        return "dequant"
+    if min_bytes is not None:
+        return "K6" if nbytes >= min_bytes else "dequant"
+    return ("K6" if device_type == "cuda" and compute_dtype == torch.bfloat16
+            else "dequant")
 
 
 def xattn_kernel_enabled() -> bool:
@@ -206,33 +227,49 @@ def q8_kv_kernel_enabled() -> bool:
     return bool(os.environ.get("NWT_Q8_KV_PALLAS")) and not _tp.kernels_off()
 
 
-def _dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
-    """Linear on plain or int8 weights. An int8 weight of at least
-    :func:`q8_kernel_min_bytes` bytes met by at most 256 rows runs K6,
-    whose f32 result returns to x.dtype (at f32 compute K6 still rounds x
-    and the weights to bf16, as the TPU does); otherwise the reference's
-    XLA path: dequant in the compute dtype, then matmul. The bias is added
-    after, in x.dtype."""
-    if is_quantized(w):
-        lead = x.shape[:-1]
-        m = math.prod(lead)
-        if (m <= Q8_KERNEL_MAX_M and not _tp.kernels_off()
-                and math.prod(w["q"].shape[-2:]) >= q8_kernel_min_bytes()):
-            y = q8_matmul(x.reshape(m, x.shape[-1]), w)
-            y = y.reshape(*lead, -1).to(x.dtype)
-        else:
-            y = x @ (w["q"].to(x.dtype) * w["s"].to(x.dtype))
+def _q8_linear(x: torch.Tensor, w, routes=None,
+               dtype: Optional[torch.dtype] = None,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ an int8 weight, then + ``bias`` in ``dtype`` (default x.dtype),
+    by :func:`q8_route` from x's device and dtype (the compute dtype):
+    K6, whose f32 result returns to ``dtype`` (at f32 compute K6 still
+    rounds x and the weights to bf16, as the TPU does; a bf16 linear of at
+    most ``K6_DECODE_ROWS`` rows rounds and adds the bias in K6's own
+    epilogue, with the same bits), or the dequant path in ``dtype``.
+    ``routes`` (a Counter) counts the route taken."""
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    route = q8_route(x.device.type, x.dtype, m, math.prod(w["q"].shape[-2:]),
+                     _tp.kernels_off(), q8_kernel_min_bytes())
+    if routes is not None:
+        routes[route] += 1
+    dtype = dtype or x.dtype
+    if route == "K6":
+        x2 = x.reshape(m, x.shape[-1])
+        if (x.dtype == dtype == torch.bfloat16 and m <= K6_DECODE_ROWS
+                and (bias is None or bias.dtype == dtype)):
+            return q8_matmul_bf16(x2, w, bias).reshape(*lead, -1)
+        y = q8_matmul(x2, w).reshape(*lead, -1).to(dtype)
     else:
-        y = x @ w
+        y = x.to(dtype) @ (w["q"].to(dtype) * w["s"].to(dtype))
+    return y if bias is None else y + bias
+
+
+def _dense(x: torch.Tensor, w, b=None, routes=None) -> torch.Tensor:
+    """Linear on plain or int8 weights (:func:`_q8_linear`, ``routes``
+    counting its route). The bias is added after, in x.dtype."""
+    if is_quantized(w):
+        return _q8_linear(x, w, routes, bias=b)
+    y = x @ w
     return y if b is None else y + b
 
 
-def _dense_row(x: torch.Tensor, w, b=None) -> torch.Tensor:
+def _dense_row(x: torch.Tensor, w, b=None, routes=None) -> torch.Tensor:
     """:func:`_dense` for a weight split over tp on its input features (o,
     xo, fc2): the ranks' partial products summed, then the bias once."""
     if _tp.tp_size() == 1:
-        return _dense(x, w, b)
-    return _tp.row_dense(x, w, b, _dense)
+        return _dense(x, w, b, routes)
+    return _tp.row_dense(x, w, b, lambda a, z: _dense(a, z, routes=routes))
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +652,10 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
     dev = tokens.device
     if _tp.is_lead():
         _build.count(decoder_forward_calls, (_cross_layout(xk, b), b, s))
+    # a decode step's int8 linears by route, for the batch's record
+    rec = batch_record()
+    routes = (collections.Counter()
+              if s == 1 and rec.q8_linears is not None else None)
 
     cache_idx = cache_start + torch.arange(s, device=dev)            # (S,)
     if pos_base is None:
@@ -636,16 +677,16 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
     def project_qkv(x, p):
         h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
         if "qkv_w" in p:  # fused projection (ops.quant.fuse_qkv)
-            qkv = _dense(h, p["qkv_w"], p["qkv_b"])
+            qkv = _dense(h, p["qkv_w"], p["qkv_b"], routes)
             return tuple(_split_heads(z, n_head)
                          for z in torch.chunk(qkv, 3, dim=-1))
-        return (_split_heads(_dense(h, p["q_w"], p["q_b"]), n_head),
-                _split_heads(_dense(h, p["k_w"]), n_head),
-                _split_heads(_dense(h, p["v_w"], p["v_b"]), n_head))
+        return (_split_heads(_dense(h, p["q_w"], p["q_b"], routes), n_head),
+                _split_heads(_dense(h, p["k_w"], None, routes), n_head),
+                _split_heads(_dense(h, p["v_w"], p["v_b"], routes), n_head))
 
     def cross_and_mlp(x, p, xk_l, xv_l):
         h = _layer_norm(x, p["lnx_g"], p["lnx_b"])
-        q = _split_heads(_dense(h, p["xq_w"], p["xq_b"]), n_head)
+        q = _split_heads(_dense(h, p["xq_w"], p["xq_b"], routes), n_head)
         if isinstance(xk_l, dict) and "kT" in xk_l:
             packed = {"kT": xk_l["kT"], "v": xv_l["v"]}
             bq, bkv = q.shape[0], packed["kT"].shape[0]
@@ -668,10 +709,10 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
         else:
             a = _attention(q, xk_l.to(compute_dtype),
                            xv_l.to(compute_dtype), None)
-        x = x + _dense_row(_merge_heads(a), p["xo_w"], p["xo_b"])
+        x = x + _dense_row(_merge_heads(a), p["xo_w"], p["xo_b"], routes)
         h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
-        h = _gelu(_dense(h, p["fc1_w"], p["fc1_b"]))
-        return x + _dense_row(h, p["fc2_w"], p["fc2_b"])
+        h = _gelu(_dense(h, p["fc1_w"], p["fc1_b"], routes))
+        return x + _dense_row(h, p["fc2_w"], p["fc2_b"], routes)
 
     for layer in range(cfg.n_text_layer):
         p = _layer(dec["blocks"], layer)
@@ -690,7 +731,7 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
         else:
             a = _attention_kt(q, ck[layer].to(compute_dtype),
                               cv[layer].to(compute_dtype), self_mask)
-        x = x + _dense_row(_merge_heads(a), p["o_w"], p["o_b"])
+        x = x + _dense_row(_merge_heads(a), p["o_w"], p["o_b"], routes)
         if isinstance(xk, dict):
             xk_l = {kk: vv[layer] for kk, vv in xk.items()}
             xv_l = {kk: vv[layer] for kk, vv in xv.items()}
@@ -699,9 +740,12 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
         x = cross_and_mlp(x, p, xk_l, xv_l)
     x = _layer_norm(x, dec["ln_g"], dec["ln_b"])
     if "tok_emb_q" in dec:
-        logits = _dense(x.to(torch.float32), dec["tok_emb_q"]).float()
+        # routed at the compute dtype, f32 logits either way
+        logits = _q8_linear(x, dec["tok_emb_q"], routes, torch.float32)
     else:
         logits = _f32_dot(x, dec["tok_emb"].transpose(0, 1))
+    for route, n in (routes or {}).items():
+        _build.count(rec.q8_linears, route, n)   # a capture: once a replay
     return _tp.gather_vocab(logits), (ck, cv)
 
 

@@ -29,7 +29,7 @@ rows with the int8 weights dequantized to bf16 (no requantization of the
 activations). The reference keeps it as an op and its decoder does not
 call it, nor does the port's. Its CUDA entry point is in
 ``csrc/fused_mlp_q8.cu``: two launches of K6's decode kernel
-(``csrc/q8_decode.cuh``) a group of up to 16 rows, split as K6 splits the
+(``csrc/q8_decode.cuh``) a group of up to 32 rows, split as K6 splits the
 same shapes; ``k7_launch_count`` counts calls, and
 :func:`mlp_reference` is the reference's erf-gelu yardstick for it.
 """
@@ -63,7 +63,7 @@ _K7_ENTRY = {torch.bfloat16: "nwt_fused_mlp_q8",
 _K7_SIG = {fn: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
            + [ctypes.c_void_p] for fn in _K7_ENTRY.values()}
 _K7_SIG["nwt_fused_mlp_q8_set_pdl"] = [ctypes.c_int]
-K7_GROUP = 16   # csrc/fused_mlp_q8.cu's K7_GROUP: rows a pair of launches
+K7_GROUP = 32   # csrc/fused_mlp_q8.cu's K7_GROUP: rows a pair of launches
 
 
 def resolve_block_f(block_f: int, ffn: int) -> int:

@@ -8,23 +8,24 @@ int32 (``torch._int_mm``, on either device, where its shape rule allows),
 float64 for the shapes it refuses — an f32 sum of up to 5120 products of
 ±127 can pass 2^24 and stop being exact.
 
-K6, the reference's Pallas dequantizing matmul (:func:`q8_matmul`, opt-in
-behind ``NWT_Q8_KERNEL_MIN_BYTES``; gate in ``models/whisper.py::_dense``),
-is CUDA in ``csrc/q8_matmul.cu``, whose source note says what bounds it on
-an H100: one kernel for the decode rows (M <= 16, bound by the weight's
-bytes) and one for the prefill rows (16 < M <= 256). Both split K over a
-thread-block cluster and sum the partials in a fixed order, so every
-output element is written once and two calls give the same bits; the
-output is allocated uninitialised. The wrapper launches the kernel for a
-CUDA tensor (or raises) and runs :func:`q8_matmul_plain` for a CPU
-tensor; ``k6_launch_count`` counts kernel launches only, and
-``k6_decode_launch_count`` those with M <= 16.
+K6, the reference's Pallas dequantizing matmul (:func:`q8_matmul`; gate
+in ``models/whisper.py::q8_route``: on the card at bf16 compute by
+default, elsewhere behind ``NWT_Q8_KERNEL_MIN_BYTES``), is CUDA in
+``csrc/q8_matmul.cu``, whose source note says what bounds it on an H100:
+one kernel for the decode rows (M <= 32, bound by the weight's bytes; a
+row's bits do not depend on M there) and one for the prefill rows (32 < M
+<= 256). Both split K over a thread-block cluster and sum the partials in
+a fixed order, so every output element is written once and two calls
+give the same bits; the output is allocated uninitialised. The wrapper
+launches the kernel for a CUDA tensor (or raises) and runs
+:func:`q8_matmul_plain` for a CPU tensor; ``k6_launch_count`` counts
+kernel launches only, and ``k6_decode_launch_count`` those with M <= 32.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -34,7 +35,7 @@ QTensor = Dict[str, torch.Tensor]
 
 k6_launch_count = 0
 k6_decode_launch_count = 0      # launches with M <= K6_DECODE_ROWS
-K6_DECODE_ROWS = 16             # csrc/q8_matmul.cu's DECODE_ROWS
+K6_DECODE_ROWS = 32             # csrc/q8_matmul.cu's DECODE_ROWS
 # csrc/q8_decode.cuh's decode kernel: columns a block, weight rows a slab,
 # K rows of x a block stages, blocks a cluster, blocks an SM the split
 # aims at (k6_split)
@@ -42,7 +43,9 @@ K6_DBN, K6_DBK, K6_DXK_MAX, K6_MAX_CLUSTER, K6_SPLIT_TARGET = (
     128, 32, 2048, 16, 1)
 
 _Q8_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_Q8_SIG = {"nwt_q8_matmul_bf16": _Q8_ARGS, "nwt_q8_matmul_f32": _Q8_ARGS}
+_Q8_SIG = {"nwt_q8_matmul_bf16": _Q8_ARGS, "nwt_q8_matmul_f32": _Q8_ARGS,
+           "nwt_q8_matmul_bf16_out": [ctypes.c_void_p] * 5
+           + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 _Q8_ENTRY = {torch.bfloat16: "nwt_q8_matmul_bf16",
              torch.float32: "nwt_q8_matmul_f32"}
 
@@ -107,6 +110,21 @@ def q8_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float() @ w.float()
 
 
+def _weight_args(x: torch.Tensor, qt: QTensor):
+    """K6's weight and f32 scales as its C entries take them, for x on the
+    card."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    n = qt["q"].shape[1]
+    if qt["q"].dtype != torch.int8 or qt["s"].numel() != n:
+        raise ValueError(f"K6 takes an int8 (K, N) weight with N scales; got "
+                         f"{qt['q'].dtype}, {qt['s'].numel()} scales")
+    s = qt["s"]
+    if s.dtype != torch.float32 or not s.is_contiguous():
+        s = s.to(torch.float32).contiguous()
+    return qt["q"].contiguous(), s
+
+
 def q8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """K6: (M, K) bf16 or f32 @ int8 (K, N) with (1, N) f32 per-channel
     scales -> (M, N) f32, each weight tile dequantized to bf16 on chip.
@@ -118,19 +136,11 @@ def q8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     assert k == k2, (k, k2)
     if x.device.type == "cpu":
         return q8_matmul_plain(x, qt)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if (x.dtype not in _Q8_ENTRY or qt["q"].dtype != torch.int8
-            or qt["s"].numel() != n):
-        raise ValueError(f"K6 takes bf16 or f32 x and an int8 (K, N) weight "
-                         f"with N scales; got {x.dtype}, "
-                         f"{qt['q'].dtype}, {qt['s'].numel()} scales")
+    if x.dtype not in _Q8_ENTRY:
+        raise ValueError(f"K6 takes bf16 or f32 x; got {x.dtype}")
+    w, s = _weight_args(x, qt)
     fn = getattr(_build.load("q8_matmul", _Q8_SIG), _Q8_ENTRY[x.dtype])
     x = x.contiguous()
-    w = qt["q"].contiguous()
-    s = qt["s"]
-    if s.dtype != torch.float32 or not s.is_contiguous():
-        s = s.to(torch.float32).contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     # the raw stream query: torch.cuda.current_stream() costs ~5 us a call,
     # and the decode loop's host time is its cost
@@ -140,6 +150,40 @@ def q8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     _build.count(globals(), "k6_launch_count")
     if m <= K6_DECODE_ROWS:
         _build.count(globals(), "k6_decode_launch_count")
+    return out
+
+
+def q8_matmul_bf16(x: torch.Tensor, qt: QTensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6 for a linear at bf16 compute: (M <= ``K6_DECODE_ROWS``, K) bf16
+    x -> (M, N) bf16 = bf16(x @ dequant(w)), then + ``bias`` ((N,) bf16,
+    or None) in bf16, in the decode kernel's epilogue: one launch with the
+    bits of ``q8_matmul(x, qt).to(bf16) + bias``."""
+    _build.no_autograd("K6", x, qt, bias)
+    m, k = x.shape
+    n = qt["q"].shape[1]
+    if x.device.type == "cpu":
+        y = q8_matmul_plain(x, qt).to(torch.bfloat16)
+        return y if bias is None else y + bias
+    if (x.dtype != torch.bfloat16 or m > K6_DECODE_ROWS
+            or (bias is not None and (bias.dtype != torch.bfloat16
+                                      or bias.numel() != n))):
+        got = None if bias is None else (bias.dtype, bias.numel())
+        raise ValueError(f"K6's bf16 entry takes bf16 x of at most "
+                         f"{K6_DECODE_ROWS} rows and a bf16 (N,) bias; got "
+                         f"{x.dtype} x of {m} rows, bias {got}")
+    w, s = _weight_args(x, qt)
+    fn = _build.load("q8_matmul", _Q8_SIG).nwt_q8_matmul_bf16_out
+    x = x.contiguous()
+    if bias is not None:
+        bias = bias.contiguous()
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(),
+             None if bias is None else bias.data_ptr(), out.data_ptr(), m, k,
+             n, torch._C._cuda_getCurrentRawStream(x.device.index))
+    _build.check(err, "q8_matmul_bf16")
+    _build.count(globals(), "k6_launch_count")
+    _build.count(globals(), "k6_decode_launch_count")
     return out
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from collections import defaultdict, deque
+from collections import Counter, defaultdict, deque
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 # A batch's host time by part, in the order the parts run: ``stack`` the
@@ -84,13 +84,18 @@ class BatchRecord:
     falls outside every part (a beam batch's rows above temperature 0,
     ladder retries, sample in the greedy loop and do time them).
 
+    ``q8_linears`` counts the decode steps' int8 linears, the logit
+    projection's included, by route (``models/whisper.py::q8_route``:
+    "K6", the weight dequantized on chip, or "dequant", into device
+    memory), a replayed step's once a replay.
+
     A batch of a model with experts (``models/uni_moe.py``) keeps in
     ``experts``, for each forward (the prefill, then each decode step's)
     the real tokens it ran and, by layer, the tokens each expert took,
     the null experts included (:meth:`RoutingTrace.counts`)."""
 
     __slots__ = ("requests", "start_ns", "end_ns", "ns", "calls",
-                 "replays", "intervals", "experts")
+                 "replays", "intervals", "experts", "q8_linears")
 
     def __init__(self, requests: Sequence[Tuple[int, int]], start_ns: int,
                  traced: bool):
@@ -100,6 +105,7 @@ class BatchRecord:
         self.ns = dict.fromkeys(PARTS, 0)
         self.calls = dict.fromkeys(PARTS, 0)
         self.replays = 0
+        self.q8_linears: Counter = Counter()
         self.intervals: Optional[List[Tuple[str, int, int]]] = (
             [] if traced else None)
         # a model with experts: (tokens (F,), rows (F, layers, experts))
@@ -209,6 +215,7 @@ class _NoRecord:
     """The record a thread that runs no batch times into: nothing."""
 
     __slots__ = ()
+    q8_linears = None
 
     def add(self, part: str, t0: int) -> int:
         return t0
@@ -301,8 +308,10 @@ class Profiler:
         and p95 over their rows) and host ms a decode step by step part
         (over those that ran decode steps), with ``replayed_share``, the
         share of the steps with a forward that ran it as a graph's
-        replay, and for a model with experts :func:`expert_summary`; an
-        entry without samples is left out."""
+        replay; the decode steps' int8 linears by route
+        (``q8_linears``), with ``k6_share``, K6's share of them; for a
+        model with experts :func:`expert_summary`; an entry without
+        samples is left out."""
         import numpy as np
         recs = self.batch_records()[-SUMMARY_BATCHES:]
         out: Dict[str, Dict[str, float]] = {}
@@ -317,6 +326,9 @@ class Profiler:
             forwards = sum(r.calls["forward"] for r in recs)
             out["step_ms"]["replayed_share"] = (
                 sum(r.replays for r in recs) / forwards if forwards else 0.0)
+        q8 = sum((r.q8_linears for r in recs), Counter())
+        if q8:
+            out["q8_linears"] = dict(q8, k6_share=q8["K6"] / sum(q8.values()))
         experts = expert_summary(recs)
         if experts:
             out["experts"] = experts

@@ -7,7 +7,8 @@ Versions, each built from source with the port's ``nvcc`` flags into
 ``build/q8_variants/`` (gitignored):
 
 * ``kernel``: the checkout's ``q8_matmul.cu``;
-* ``NAME=VALUE[,NAME=VALUE]`` given with ``--tune``: the same source with
+* ``NAME=VALUE[,NAME=VALUE]`` given with ``--tune``: the same source (with
+  ``q8_decode.cuh`` inlined, so its constants and text count too) with
   those ``constexpr int`` constants changed (for example
   ``--tune DSTAGES=4`` or ``--tune PBK=32,PSTAGES=3``);
 * ``LABEL`` given with ``--edit LABEL@@OLD@@NEW[@@OLD@@NEW...]``: the
@@ -45,9 +46,15 @@ this access pattern. Last, the opcode counts of each kernel in the
 checkout's library (``cuobjdump -sass``; ``--sass FILE`` writes the whole
 listing).
 
+With ``--wide`` it times instead the rows of a serving decode step past
+16 (M = 17, 24, 31, 32, bf16 x) at the decoder's four shapes, and stops
+after them: with ``--baseline`` the parent's file, whose prefill kernel
+took those rows, against the checkout's decode kernel.
+
 Run from the repo root on a machine with a card and ``nvcc``:
 ``python3 scripts/torch_q8_variants.py [--baseline build/old.cu]
-[--tune NAME=VALUE ...] [--edit LABEL@@OLD@@NEW ...] [--sass FILE]``.
+[--tune NAME=VALUE ...] [--edit LABEL@@OLD@@NEW ...] [--sass FILE]
+[--wide]``.
 Imports nothing of JAX.
 """
 
@@ -73,6 +80,13 @@ SHAPES = (("logits", 8, 1280, 51866, "f32"),
           ("logits", 24, 1280, 51866, "f32"),
           ("fc2", 24, 5120, 1280, "bf16"),
           ("logits", 256, 1280, 51866, "bf16"))
+# --wide: the rows of a serving decode step past 16, at the decoder's four
+# shapes (q, k, v, o, xq, xo; fc1; fc2; the logits)
+WIDE_SHAPES = tuple((what, m, k, n, "bf16") for m in (17, 24, 31, 32)
+                    for what, k, n in (("proj", 1280, 1280),
+                                       ("fc1", 1280, 5120),
+                                       ("fc2", 5120, 1280),
+                                       ("logits", 1280, 51866)))
 K6_TOL = dict(rtol=1e-3, atol=1e-3)      # chip_smoke.py's
 PEAK_BYTES, PEAK_BF16_FLOPS = 3.35e12, 989e12
 L2_BYTES = 50 * 2 ** 20
@@ -176,6 +190,9 @@ def main():
                     help="LABEL@@OLD@@NEW[@@OLD@@NEW...]: a variant with "
                          "each text OLD of the checkout's source replaced "
                          "by NEW (an ablation; its error check may fail)")
+    ap.add_argument("--wide", action="store_true",
+                    help="time M = 17, 24, 31, 32 at the decoder's shapes "
+                         "instead, and skip the host and probe lines")
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--sass", help="write the checkout's SASS to this file")
     args = ap.parse_args()
@@ -189,9 +206,12 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"[card] {smi}", flush=True)
-    with open(os.path.join(ROOT, "nobs_whisper_torch", "csrc",
-                           "q8_matmul.cu")) as f:
+    csrc = os.path.join(ROOT, "nobs_whisper_torch", "csrc")
+    with open(os.path.join(csrc, "q8_matmul.cu")) as f:
         src = f.read()
+    # the decode header inlined, so that --tune and --edit reach it too
+    with open(os.path.join(csrc, "q8_decode.cuh")) as f:
+        src = src.replace('#include "q8_decode.cuh"', f.read())
     versions = {"kernel": src}
     for spec in args.tune:
         text = src
@@ -200,14 +220,16 @@ def main():
             text, n = re.subn(rf"constexpr int {name} = \d+;",
                               f"constexpr int {name} = {int(value)};", text)
             if n != 1:
-                sys.exit(f"no constant {name} in q8_matmul.cu")
+                sys.exit(f"no constant {name} in q8_matmul.cu or "
+                         "q8_decode.cuh")
         versions[spec.replace(",", "+")] = text
     for spec in args.edit:
         label, *pairs = spec.split("@@")
         text = src
         for old, new in zip(pairs[::2], pairs[1::2]):
             if old not in text:
-                sys.exit(f"{label}: text not found in q8_matmul.cu")
+                sys.exit(f"{label}: text not found in q8_matmul.cu or "
+                         "q8_decode.cuh")
             text = text.replace(old, new)
         versions[label] = text
     zeroed = set()
@@ -233,7 +255,7 @@ def main():
     ptr = lambda z: ctypes.c_void_p(z.data_ptr())
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-    for what, m, k, n, xdt in SHAPES:
+    for what, m, k, n, xdt in WIDE_SHAPES if args.wide else SHAPES:
         g = torch.Generator(device=dev).manual_seed(40 + m + n)
         x = torch.randn(m, k, generator=g, device=dev).to(dtypes[xdt])
         sets = max(1, -(-2 * L2_BYTES // (k * n)))
@@ -308,6 +330,8 @@ def main():
               f"{host_ms:.4f} ms a call (the raw C entry's {raw_host:.4f})",
               flush=True)
         del ws, w, x
+    if args.wide:
+        return
 
     # what a launch costs the host, by part (us a call, 2000 calls each; a
     # tiny shape, so that the card keeps up and never paces the host)

@@ -5,9 +5,12 @@ int8 tiny model at bf16: the graph replays the eager step's kernels on the
 same inputs, so tokens, ``n_sampled`` and ``no_speech_prob`` are equal and
 ``sum_logprob`` equal (1e-5 relative allowed), with the plain, packed bf16
 and int8 cross-KV, under the decode kernels' knobs, at B = 1, 5, 16 and
-prompt pads of 8, 32 and 128. Replays count as the launches they replay;
-a batch never reuses another's graph; the profiler's device trace holds
-the replayed kernels by name.
+prompt pads of 8, 32 and 128. At bf16 on the card every int8 linear of a
+forward of at most 256 rows runs K6 with no knob set, and the dequant path
+with ``NWT_Q8_KERNEL_MIN_BYTES`` past every weight. Replays count as the
+launches they replay; a batch never reuses another's graph; the batch
+record counts the steps' int8 linears by route; the profiler's device
+trace holds the replayed kernels by name.
 
 This file imports neither JAX nor the JAX package; from the repo root:
 
@@ -34,6 +37,8 @@ LAYOUTS = (
     ("int8-K5", True, False, {"NWT_Q8_KV_PALLAS": "1"}),
     ("int8-K5-K6", True, False, {"NWT_Q8_KV_PALLAS": "1",
                                  "NWT_Q8_KERNEL_MIN_BYTES": "1"}),
+    # the knob past every weight: the reference's gate keeps the dequant path
+    ("packed-dequant", False, True, {"NWT_Q8_KERNEL_MIN_BYTES": str(1 << 62)}),
 )
 ROWS_PADS = ((1, 8), (5, 32), (16, 128))
 
@@ -123,10 +128,26 @@ def test_graph_matches_eager(model, layout, rows, pad, monkeypatch):
     calls, k4, k5, k6, k6_decode = graph_n
     assert sum(calls.values()) > 1
     assert (k4 > 0) == ("K4" in name) and (k5 > 0) == ("K5" in name)
-    assert (k6_decode > 0) == ("K6" in name)
+    k6_launches(model[0].cfg, calls, k6, k6_decode, name != "packed-dequant")
     print(f"[graph] {name} B={rows} pad={pad}: tokens equal, sum_logprob "
           f"{'bits equal' if torch.equal(graph[2], eager[2]) else 'close'};"
           f" launches {dict(calls)} K4 {k4} K5 {k5} K6 {k6}")
+
+
+def k6_launches(cfg, calls, k6, k6_decode, on):
+    """K6 once an int8 weight (8 a layer) and once for the logits in every
+    forward of at most 256 rows, its decode kernel in those of at most
+    ``K6_DECODE_ROWS``, each decode step's forward among them; none when
+    the route is off."""
+    from nobs_whisper_torch.ops import quant as q
+    n = lambda pred: sum(c for key, c in calls.items() if pred(*key))
+    per = 8 * cfg.n_text_layer + 1
+    if not on:
+        assert k6 == k6_decode == 0
+        return
+    assert k6 == per * n(lambda lay, b, s: b * s <= 256)
+    assert k6_decode == per * n(lambda lay, b, s: b * s <= q.K6_DECODE_ROWS)
+    assert k6 >= per * n(lambda lay, b, s: s == 1) > 0
 
 
 def test_batches_never_share_a_graph(model):
@@ -149,6 +170,23 @@ def test_the_batch_record_counts_the_replays(model):
     assert rec.replays == rec.calls["forward"] > 0
     assert rec.calls["rules"] <= 1
     assert rec.steps == rec.replays + rec.calls["rules"]
+    # every replayed step's int8 linears and logits, on K6
+    per = 8 * model[0].cfg.n_text_layer + 1
+    assert rec.q8_linears == {"K6": per * rec.replays}
+
+
+def test_the_batch_record_counts_the_dequant_route(model, monkeypatch):
+    """With the knob past every weight the steps' int8 linears count on
+    the dequant route, and K6 never launches."""
+    from nobs_whisper_torch.utils.profiling import Profiler
+    monkeypatch.setenv("NWT_Q8_KERNEL_MIN_BYTES", str(1 << 62))
+    prof = Profiler()
+    batch = _batch(model[0].cfg, 5, 32, seed=9)
+    with prof.batch([(0, 0)] * 5) as rec:
+        _, added = _decode(model, batch, False, True, True)
+    per = 8 * model[0].cfg.n_text_layer + 1
+    assert rec.q8_linears == {"dequant": per * rec.replays}
+    assert rec.replays > 0 and added[3] == 0
 
 
 def _kernel_counts(fn):

@@ -23,6 +23,7 @@ Tolerances, each with its reason:
 * The XLA reference functions, all f32: 1e-5.
 """
 
+import contextlib
 import functools
 import os
 
@@ -454,6 +455,115 @@ def test_k6_threshold_is_a_byte_count(monkeypatch):
     forwards = sum(tw.decoder_forward_calls.values())
     assert spies.calls == {"K4": 0, "K5": 0,
                            "K6": (2 * cfg.n_text_layer + 1) * forwards}
+
+
+BIG = 1 << 62
+PROJ, LOGITS = 1280 * 1280, 1280 * 51866
+
+
+@pytest.mark.parametrize("device,dtype,m,nbytes,plain,knob,route", [
+    # the knob unset: K6 on the card at bf16 compute, up to 256 rows
+    ("cuda", torch.bfloat16, 32, PROJ, False, None, "K6"),
+    ("cuda", torch.bfloat16, 1, PROJ, False, None, "K6"),
+    ("cuda", torch.bfloat16, 256, PROJ, False, None, "K6"),
+    ("cuda", torch.bfloat16, 32, LOGITS, False, None, "K6"),  # the logits
+    ("cpu", torch.bfloat16, 32, PROJ, False, None, "dequant"),
+    ("cpu", torch.float32, 32, PROJ, False, None, "dequant"),
+    ("cuda", torch.float32, 32, PROJ, False, None, "dequant"),
+    ("cuda", torch.float32, 32, LOGITS, False, None, "dequant"),
+    ("cuda", torch.bfloat16, 32, PROJ, True, None, "dequant"),  # tp shard
+    ("cuda", torch.bfloat16, 257, PROJ, False, None, "dequant"),
+    ("cuda", torch.bfloat16, 3000, PROJ, False, None, "dequant"),  # cross-KV
+    # the knob set: the reference's gate on any device and dtype
+    ("cpu", torch.float32, 8, PROJ, False, 1, "K6"),
+    ("cuda", torch.float32, 8, LOGITS, False, 1, "K6"),
+    ("cuda", torch.bfloat16, 8, PROJ, False, PROJ, "K6"),
+    ("cuda", torch.bfloat16, 8, PROJ, False, PROJ + 1, "dequant"),
+    ("cuda", torch.bfloat16, 8, LOGITS, False, BIG, "dequant"),
+    ("cuda", torch.bfloat16, 8, PROJ, True, 1, "dequant"),
+    ("cpu", torch.float32, 257, PROJ, False, 1, "dequant"),
+])
+def test_q8_route_gate(device, dtype, m, nbytes, plain, knob, route):
+    """``models/whisper.py::q8_route`` as a pure function: (device, compute
+    dtype, rows, weight bytes, kernels off, knob) -> route."""
+    assert tw.q8_route(device, dtype, m, nbytes, plain, knob) == route
+
+
+@pytest.mark.parametrize("value,want", [(None, None), ("", None),
+                                        ("0", None), ("4096", 4096)])
+def test_q8_kernel_min_bytes_reads_the_knob(monkeypatch, value, want):
+    if value is not None:
+        monkeypatch.setenv("NWT_Q8_KERNEL_MIN_BYTES", value)
+    assert tw.q8_kernel_min_bytes() == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_logits_route_at_the_compute_dtype(monkeypatch, dtype):
+    """The logit projection asks the gate with x at the compute dtype,
+    before its f32 cast, and returns f32 logits; on the CPU every route is
+    the dequant path, whose logits are today's: f32 x times the f32
+    dequantized embedding, bit for bit."""
+    from nobs_whisper_torch.ops.quant import quantize_decoder_params
+    cfg, _ = _int8_decoder(n_audio_ctx=32)
+    params = quantize_decoder_params(tw.init_params(3, cfg, dtype))
+    asked = []
+    real = tw.q8_route
+    monkeypatch.setattr(tw, "q8_route", lambda *a: asked.append(a) or real(*a))
+    b = 2
+    xa = torch.from_numpy(np.random.RandomState(4).randn(
+        b, cfg.n_audio_ctx, cfg.n_audio_state).astype(np.float32))
+    cross = tw.precompute_cross_kv(params, xa.to(dtype), cfg)
+    cache = tw.init_kv_cache(cfg, b, dtype=dtype, t_ctx=16)
+    tokens = torch.full((b, 1), cfg.sot, dtype=torch.long)
+    logits, _ = tw.decoder_forward(params, tokens, 0,
+                                   torch.zeros(b, dtype=torch.long), cache,
+                                   cross, cfg, dtype)
+    head = [a for a in asked if a[3] == cfg.n_text_state * cfg.n_vocab]
+    assert [(a[0], a[1], a[2]) for a in head] == [("cpu", dtype, b)]
+    assert all(a[1] == dtype for a in asked)
+    assert logits.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plain", [False, True])
+def test_the_dequant_route_keeps_its_bits(monkeypatch, dtype, plain):
+    """With the knob unset the CPU, and a plain shard with the knob set,
+    run the dequant path as before: x @ (q * s) in the compute dtype, then
+    the bias; the logits' f32 product on bf16 x likewise."""
+    from nobs_whisper_torch.parallel import tp as ttp
+    if plain:
+        monkeypatch.setenv("NWT_Q8_KERNEL_MIN_BYTES", "1")
+    rng = np.random.RandomState(9)
+    w = tq.quantize_int8(torch.from_numpy(rng.randn(64, 96).astype(
+        np.float32)))
+    x = torch.from_numpy(rng.randn(2, 3, 64).astype(np.float32)).to(dtype)
+    bias = torch.from_numpy(rng.randn(96).astype(np.float32)).to(dtype)
+    with ttp.plain_ops() if plain else contextlib.nullcontext():
+        got = tw._dense(x, w, bias)
+        logits = tw._q8_linear(x, w, None, torch.float32)
+    want = x @ (w["q"].to(dtype) * w["s"].to(dtype)) + bias
+    assert torch.equal(got, want)
+    assert torch.equal(logits, x.float() @ (w["q"].float() * w["s"].float()))
+
+
+@pytest.mark.parametrize("knob,route", [(None, "dequant"), ("1", "K6")])
+def test_the_batch_record_counts_the_step_routes(monkeypatch, knob, route):
+    """A batch record counts each decode step's int8 linears and the
+    logits by route (8 a layer and one a forward); the prefill and the
+    cross-KV projection are not decode steps."""
+    from nobs_whisper_torch.utils.profiling import Profiler
+    if knob:
+        monkeypatch.setenv("NWT_Q8_KERNEL_MIN_BYTES", knob)
+    cfg, params = _int8_decoder()
+    prof = Profiler()
+    with prof.batch([(0, 0)] * 3) as rec:
+        _run_window(cfg, params, mode="packed")
+    steps = sum(c for (_, _, s), c in tw.decoder_forward_calls.items()
+                if s == 1)
+    assert steps > 0
+    assert rec.q8_linears == {route: (8 * cfg.n_text_layer + 1) * steps}
+    summary = prof.batch_summary()["q8_linears"]
+    assert summary["k6_share"] == (route == "K6")
 
 
 @pytest.mark.parametrize("b,s,mode", [(9, 32, "q8"), (2, 8, "q8"),

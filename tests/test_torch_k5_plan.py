@@ -11,7 +11,7 @@ constants and rules.
   slice.
 * K7 (``csrc/fused_mlp_q8.cu``, the decoder's fused int8 MLP) is two
   launches of K6's decode kernel (``csrc/q8_decode.cuh``) for each group
-  of up to 16 rows, which the header's ``split_k`` splits as it splits K6
+  of up to 32 rows, which the header's ``split_k`` splits as it splits K6
   at the same shape (``ops/quant.py::k6_split`` is its mirror).
 
 The kernels themselves run on the card (``tests/test_torch_kernels_gpu.py``).

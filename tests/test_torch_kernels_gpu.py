@@ -33,7 +33,10 @@ calls give the same bits; K4 is held to one bf16 step of its first
 kernel too (tests/goldens/xattn_decode_v1.cu, built with the common.cuh
 it was built with, tests/goldens/common_v1.cuh). K6 kept its kernels
 when K7 was redesigned: it is held bit for bit to its first file
-(q8_matmul_v1.cu, the same header). K6 rounds the same
+(q8_matmul_v1.cu, the same header; at 17-32 rows, which its decode kernel
+now takes too, row by row to that file's decode kernel on 16-row parts),
+and its bf16 entry bit for bit to its f32 entry rounded to bf16 with the
+bias added by PyTorch. K6 rounds the same
 bf16 operands as its plain version and differs in the order, and in the
 tensor cores the rounding, of its f32 sums: 1e-3 absolute plus 1e-3
 relative on outputs of order 1. K8, K10 and K11 share K2's int8
@@ -578,11 +581,14 @@ def _q8_weight(k, n, dev, seed, offset=0):
     return w
 
 
-# the decode kernel takes M <= 16 (8-row x tiles: M = 1, 2, 8 one, M = 16
-# two), the prefill kernel 16 < M <= 256 (64-row tiles: 17, 64, 65, 256);
-# the logit projection (N = 51,866: rows at every byte offset mod 16) and
-# fc2 (K = 5120, N = 1280: the deepest K split), both x types
+# the decode kernel takes M <= 32 (8-row x tiles: M = 1, 2, 8 one, M = 16
+# two, M = 17-32 four), the prefill kernel 32 < M <= 256 (64-row tiles: 64,
+# 65, 256); the logit projection (N = 51,866: rows at every byte offset mod
+# 16) and fc2 (K = 5120, N = 1280: the deepest K split), both x types; the
+# decode kernel's four tiles at the decoder's four shapes
 K6_ROWS = (1, 2, 8, 16, 17, 64, 65, 256)
+K6_WIDE_ROWS = (17, 24, 31, 32)
+DECODER_SHAPES = ((1280, 1280), (1280, 5120), (5120, 1280), (1280, 51866))
 K6_CASES = [
     (1, 320, 1000, torch.bfloat16, 0),
     (3, 64, 100, torch.float32, 0),                  # one slab, N % 4 != 0
@@ -590,9 +596,14 @@ K6_CASES = [
     (8, 1280, 1280, torch.bfloat16, 3),              # misaligned rows
     (12, 1280, 1000, torch.float32, 5),              # both, two x tiles
     (256, 1280, 1280, torch.float32, 0),
+    (20, 1280, 1000, torch.float32, 5),              # both, four x tiles
 ] + [(m, k, n, x_dtype, 0) for m in K6_ROWS
      for k, n in ((1280, 51866), (5120, 1280))
      for x_dtype in (torch.bfloat16, torch.float32)]
+K6_CASES += [(m, k, n, x_dtype, 0) for m in K6_WIDE_ROWS
+             for k, n in DECODER_SHAPES
+             for x_dtype in (torch.bfloat16, torch.float32)
+             if (m, k, n, x_dtype, 0) not in K6_CASES]
 
 
 @pytest.mark.parametrize("m,k,n,x_dtype,offset", K6_CASES)
@@ -622,29 +633,84 @@ def q8_v1():
 @pytest.mark.parametrize("m,k,n,x_dtype,offset", K6_CASES)
 def test_k6_bits_match_v1(cuda, q8_v1, m, k, n, x_dtype, offset):
     """K6 on the shared decode header gives the bits of its own first
-    file at every case, both kernels and both x types."""
+    file at every case, both kernels and both x types. The first file's
+    decode kernel took 16 rows, its prefill kernel the rest: at 17-32 rows,
+    where the decode kernel now takes all of them in four tiles, each row
+    gives the bits of the first file's decode kernel on its 16-row part."""
     g = torch.Generator(device=cuda).manual_seed(m + n)
     x = torch.randn(m, k, generator=g, device=cuda).to(x_dtype)
     w = _q8_weight(k, n, cuda, seed=k + n, offset=offset)
     got = qt.q8_matmul(x, w)
     want = torch.empty_like(got)
     s = w["s"].to(torch.float32).contiguous()
-    err = getattr(q8_v1, qt._Q8_ENTRY[x_dtype])(
-        x.data_ptr(), w["q"].data_ptr(), s.data_ptr(), want.data_ptr(), m, k,
-        n, torch.cuda.current_stream().cuda_stream)
-    assert err == 0, err
+    parts = ((0, 16), (16, m)) if 16 < m <= qt.K6_DECODE_ROWS else ((0, m),)
+    for r0, r1 in parts:
+        err = getattr(q8_v1, qt._Q8_ENTRY[x_dtype])(
+            x[r0:r1].data_ptr(), w["q"].data_ptr(), s.data_ptr(),
+            want[r0:r1].data_ptr(), r1 - r0, k, n,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("k,n", DECODER_SHAPES)
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 32])
+def test_k6_bf16_entry_gives_the_f32_entrys_bits(cuda, m, k, n, with_bias):
+    """The bf16 entry (the decode step's linear at bf16 compute) rounds
+    each f32 sum to bf16 and adds the bf16 bias in its epilogue: the bits
+    of the f32 entry's output cast to bf16 plus the bias in PyTorch."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w = _q8_weight(k, n, cuda, seed=k + n)
+    b = (torch.randn(n, generator=g, device=cuda).to(torch.bfloat16)
+         if with_bias else None)
+    before = (qt.k6_launch_count, qt.k6_decode_launch_count)
+    got = qt.q8_matmul_bf16(x, w, b)
+    torch.cuda.synchronize()
+    assert (qt.k6_launch_count, qt.k6_decode_launch_count) == (
+        before[0] + 1, before[1] + 1)
+    want = qt.q8_matmul(x, w).to(torch.bfloat16)
+    want = want if b is None else want + b
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def test_k6_bf16_entry_takes_the_decode_rows_only(cuda):
+    x = torch.zeros(qt.K6_DECODE_ROWS + 1, 64, device=cuda,
+                    dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        qt.q8_matmul_bf16(x, _q8_weight(64, 128, cuda, seed=1))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", DECODER_SHAPES)
+def test_k6_row_bits_do_not_depend_on_m(cuda, k, n, x_dtype):
+    """The decode kernel splits a weight by (K, N) and the card alone, and
+    runs a row's products and sums in the same order at one, two or four
+    x tiles: each row's bits alone (M = 1) and in a batch of 16 equal that
+    row's bits in a batch of 32."""
+    g = torch.Generator(device=cuda).manual_seed(k + n + 7)
+    x = torch.randn(32, k, generator=g, device=cuda).to(x_dtype)
+    w = _q8_weight(k, n, cuda, seed=k + n)
+    full = qt.q8_matmul(x, w)
+    halves = torch.cat([qt.q8_matmul(x[:16], w), qt.q8_matmul(x[16:], w)])
+    torch.cuda.synchronize()
+    assert torch.equal(halves, full)
+    for i in (0, 5, 15, 16, 24, 31):
+        assert torch.equal(qt.q8_matmul(x[i:i + 1], w)[0], full[i]), i
+
+
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(8, 1280, 51866), (8, 5120, 1280),
-                                   (256, 1280, 51866), (64, 5120, 1280)])
+                                   (256, 1280, 51866), (64, 5120, 1280),
+                                   (32, 1280, 51866), (32, 5120, 1280),
+                                   (24, 1280, 1280), (17, 1280, 5120)])
 def test_k6_kernel_is_deterministic(cuda, m, k, n, x_dtype):
     """Two calls on the same inputs give the same bits (the TPU kernel's
     result does not change from run to run): the split-K partials are
-    summed in a fixed order, at the logit shape and at fc2, for the decode
-    (M = 8) and the prefill (M = 64, 256) kernels. The output comes from
+    summed in a fixed order, at the decoder's shapes, for the decode (M =
+    8, 17-32) and the prefill (M = 64, 256) kernels. The output comes from
     an allocation that held NaNs just before, so an element the kernel
     did not write would show."""
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
@@ -1467,7 +1533,8 @@ def test_k14_silent_stretch_reaches_floor(cuda, n_mels):
                                      (8, 128, 512), (1, 1280, 5120),
                                      (2, 1280, 5120), (8, 1280, 5120),
                                      (11, 256, 1024), (16, 1280, 5120),
-                                     (24, 1280, 5120)])
+                                     (24, 1280, 5120), (32, 1280, 5120),
+                                     (40, 1280, 5120)])
 def test_k7_kernel_matches_plain(cuda, m, d, ffn, x_dtype):
     g = torch.Generator(device=cuda).manual_seed(m + d)
     rn = lambda *s: torch.randn(*s, generator=g, device=cuda)

@@ -240,6 +240,7 @@ def _wrappers():
             "K4": (ap.cross_attention_decode_bf16, 3),
             "K5": (ap.cross_attention_decode_q8, 3),
             "K6": (qt.q8_matmul, 2),
+            "K6-bf16": (qt.q8_matmul_bf16, 2),
             "K7": (fm.fused_mlp_q8, 7),
             "K8": (fm.encoder_mlp_int8, 7),
             "K9": (ea.encoder_attention, 5),
@@ -251,7 +252,7 @@ def _wrappers():
 
 
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
-           "K11", "K12", "K13", "K14")
+           "K11", "K12", "K13", "K14", "K6-bf16")
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
